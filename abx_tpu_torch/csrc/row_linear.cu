@@ -1,0 +1,341 @@
+// Row-wise fused linear: Y = [LayerNorm(X)] W^T + bias [x sigmoid(gate)]
+// [+ residual].
+//
+// Replaces these Pallas TPU kernels, or their projection halves:
+//   * abx_tpu/ops/pair_bias.py::pair_bias_proj (LN -> C->H, written in the
+//     (B, H, R, L) attention-bias layout: out_mode 1);
+//   * the in-kernel LN + q/k/v/gate projection and the out-proj + residual
+//     epilogue of abx_tpu/ops/tri_attention.py::triangle_attention_packed
+//     (out_mode 0);
+//   * abx_tpu/ops/tri_mult.py::tri_mult_post (LN over C_int -> C_int->C ->
+//     x sigmoid(final gate) -> + residual: out_mode 0 with a gate);
+//   * abx_tpu/ops/tri_mult.py::tri_mult_pre (LN -> the fused [left | right
+//     | left gate | right gate | final gate] projection -> left * sigmoid(
+//     left gate) * pair mask, the same for right, and the final gate
+//     pre-sigmoid: out_mode 2, entry abx_tri_mult_pre).
+// Bound on the H100: the C->H bias projection does 2*H flops per byte of
+// the (B, L, L, C) pair track and is bound by device-memory bytes; the
+// wider projections are bound by the block's non-MMA phases (LayerNorm
+// statistics, staging, the epilogue), not by the tensor cores.
+// Design: one 64 x BN output tile per 256-thread block (BN = 64 for the
+// narrow bias projections, 128 otherwise), K streamed in 64-wide chunks
+// with 16-byte loads.  The LayerNorm statistics are taken per row in a
+// first pass (16-byte loads, a warp's rows interleaved) and the
+// normalisation is applied while a chunk is staged in shared memory, so
+// the normalised tensor never reaches device memory.  The N tiles of one
+// M tile are consecutive blocks, so the row re-reads hit L2.  The epilogue
+// writes 8 columns per thread.  Products are wmma bf16 (bf16x3 for f32
+// inputs, see common.cuh).
+#include "common.cuh"
+
+namespace abx {
+
+struct LinearArgs {
+  const void* x;
+  int M, K, ldx;
+  const float* ln_scale;  // nullable: no LayerNorm
+  const float* ln_bias;
+  const void* w;          // (N, K) row-major, same dtype as x
+  const float* bias;      // (N,) nullable
+  const void* residual;   // (M, N) nullable, same dtype as x
+  const void* gate;       // (M, N) pre-sigmoid gate, nullable, dtype of x
+  void* out;
+  int N;
+  int out_mode;           // 0: (M, N); 1: (B, N, R, Lc), m = (b*R + r)*Lc + l;
+                          // 2: gated pairs, see abx_tri_mult_pre
+  int R, Lc;
+  const float* seq_mask;  // out_mode 2: (B, Lc), pair mask m[b,r] * m[b,l]
+  void* out2;             // out_mode 2: (M, N - gated columns) ungated part
+  int gated;              // out_mode 2: value channels per side (nc)
+};
+
+constexpr int kHalf = 64;  // out_mode 2: [64 values | 64 gates] per N tile
+
+__device__ __forceinline__ float sigmoid(float v) {
+  return 1.f / (1.f + expf(-v));
+}
+
+constexpr int kBM = 64, kBK = 64;
+constexpr int kLDA = kBK + 8;  // bf16 elements
+
+// BN: 64 for narrow outputs (the pair-bias heads), 128 otherwise.
+template <int BN>
+struct LinearTile {
+  static constexpr int LDC = BN + 4;                   // floats
+  static constexpr int TILES = (kBM / 16) * (BN / 16);
+  static constexpr int PER_WARP = TILES / kWarps;      // 2 or 4
+};
+
+template <typename T, int BN>
+size_t linear_smem_bytes() {
+  constexpr int parts = IsF32<T>::value ? 2 : 1;
+  return parts * carve_bytes(sizeof(bf16) * kBM * kLDA) +
+         parts * carve_bytes(sizeof(bf16) * BN * kLDA) +
+         carve_bytes(sizeof(float) * kBM * LinearTile<BN>::LDC) +
+         2 * carve_bytes(sizeof(float) * kBM);
+}
+
+struct LnXform {  // LayerNorm applied while a tile of X is staged
+  const float* mean;
+  const float* rstd;
+  const float* scale;
+  const float* bias;
+  int k0;
+  __device__ float operator()(int r, int c, float v) const {
+    return (v - mean[r]) * rstd[r] * scale[k0 + c] + bias[k0 + c];
+  }
+};
+
+template <typename T, int BN>
+__global__ void __launch_bounds__(kThreads) linear_kernel(LinearArgs p) {
+  constexpr bool SPLIT = IsF32<T>::value;
+  using Tile = LinearTile<BN>;
+  constexpr int LDC = Tile::LDC;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  SmemCarver sc(smem_raw);
+  bf16* a_hi = sc.take<bf16>(kBM * kLDA);
+  bf16* a_lo = SPLIT ? sc.take<bf16>(kBM * kLDA) : a_hi;
+  bf16* b_hi = sc.take<bf16>(BN * kLDA);
+  bf16* b_lo = SPLIT ? sc.take<bf16>(BN * kLDA) : b_hi;
+  float* c_s = sc.take<float>(kBM * LDC);
+  float* mean_s = sc.take<float>(kBM);
+  float* rstd_s = sc.take<float>(kBM);
+
+  const T* x = static_cast<const T*>(p.x);
+  const T* w = static_cast<const T*>(p.w);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // N tiles of one M tile are consecutive blocks, so the blocks that read
+  // the same rows of X run together and share them through L2.
+  const int n_tiles = (p.N + BN - 1) / BN;
+  const int m0 = (blockIdx.x / n_tiles) * kBM;
+  const int n0 = (blockIdx.x % n_tiles) * BN;
+  const int rows = min(kBM, p.M - m0), cols = min(BN, p.N - n0);
+  const bool ln = p.ln_scale != nullptr;
+
+  if (ln) {  // one-pass moments, max(var, 0) clamp, eps 1e-5
+    // Warp w: rows w*R .. w*R+R-1, 8 columns per lane per step (16-byte
+    // loads), the R rows' loads and reductions interleaved.
+    constexpr int R = kBM / kWarps;
+    float s[R], s2[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[r] = s2[r] = 0.f;
+    for (int c = lane * 8; c < p.K; c += 32 * 8) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int i = warp * R + r;
+        float v[8];
+        load8(x + (size_t)(m0 + i) * p.ldx + c, i < rows, c, p.K, v);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          s[r] += v[k];
+          s2[r] += v[k] * v[k];
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      s[r] = warp_sum(s[r]);
+      s2[r] = warp_sum(s2[r]);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float mu = s[r] / p.K;
+        mean_s[warp * R + r] = mu;
+        rstd_s[warp * R + r] =
+            rsqrtf(fmaxf(s2[r] / p.K - mu * mu, 0.f) + 1e-5f);
+      }
+    }
+  }
+  __syncthreads();
+
+  FragC acc[Tile::PER_WARP];
+#pragma unroll
+  for (int t = 0; t < Tile::PER_WARP; ++t) wmma::fill_fragment(acc[t], 0.f);
+  for (int k0 = 0; k0 < p.K; k0 += kBK) {
+    const T* xa = x + (size_t)m0 * p.ldx + k0;
+    if (ln)
+      stage_tile<T, SPLIT>(xa, p.ldx, rows, p.K - k0, a_hi, a_lo, kLDA, kBM,
+                           kBK, LnXform{mean_s, rstd_s, p.ln_scale,
+                                        p.ln_bias, k0});
+    else
+      stage_tile<T, SPLIT>(xa, p.ldx, rows, p.K - k0, a_hi, a_lo, kLDA, kBM,
+                           kBK);
+    stage_tile<T, SPLIT>(w + (size_t)n0 * p.K + k0, p.K, cols, p.K - k0,
+                         b_hi, b_lo, kLDA, BN, kBK);
+    __syncthreads();
+    {  // the warp's PER_WARP tiles share one row tm: A loaded once
+      const int tile = warp * Tile::PER_WARP;
+      const int tm = tile / (BN / 16), tn = tile % (BN / 16);
+#pragma unroll
+      for (int kk = 0; kk < kBK; kk += 16)
+        mma16_row<SPLIT, FragBc, Tile::PER_WARP>(
+            acc, Tile::PER_WARP, a_hi + tm * 16 * kLDA + kk,
+            a_lo + tm * 16 * kLDA + kk, kLDA, b_hi + tn * 16 * kLDA + kk,
+            b_lo + tn * 16 * kLDA + kk, kLDA, 16 * kLDA);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int t = 0; t < Tile::PER_WARP; ++t) {
+    const int tile = warp * Tile::PER_WARP + t;
+    const int tm = tile / (BN / 16), tn = tile % (BN / 16);
+    wmma::store_matrix_sync(c_s + tm * 16 * LDC + tn * 16, acc[t], LDC,
+                            wmma::mem_row_major);
+  }
+  __syncthreads();
+
+  const T* res = static_cast<const T*>(p.residual);
+  T* out = static_cast<T*>(p.out);
+  if (p.out_mode == 0) {
+    // 8 consecutive columns per thread: 16-byte residual loads and output
+    // stores where the row is a multiple of 8 long (out is a fresh,
+    // aligned allocation), element by element otherwise.
+    const bool vec = p.N % 8 == 0;
+    for (int idx = tid; idx < kBM * BN / 8; idx += kThreads) {
+      const int i = idx / (BN / 8), j = (idx % (BN / 8)) * 8;
+      if (i >= rows || j >= cols) continue;
+      const size_t o = (size_t)(m0 + i) * p.N + n0 + j;
+      float v[8], r[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        v[k] = c_s[i * LDC + j + k];
+        if (p.bias && j + k < cols) v[k] += p.bias[n0 + j + k];
+      }
+      if (p.gate) {
+        load8(static_cast<const T*>(p.gate) + o, true, j, cols, r);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[k] *= sigmoid(r[k]);
+      }
+      if (res) {
+        load8(res + o, true, j, cols, r);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[k] += r[k];
+      }
+      if (vec && j + 8 <= cols) {
+        store8(out + o, v);
+      } else {
+        for (int k = 0; k < 8 && j + k < cols; ++k)
+          out[o + k] = from_f32<T>(v[k]);
+      }
+    }
+  } else if (BN == 2 * kHalf && p.out_mode == 2) {
+    // N tiles 0 .. 2*T-1 hold [64 values | their 64 gates] of the left
+    // (first T tiles) and right sides, T = ceil(nc / 64); the tiles after
+    // them hold the ungated final-gate columns.  (Launched with BN = 128
+    // only.)
+    const int per_side = (p.gated + kHalf - 1) / kHalf;
+    const int tile = n0 / BN;
+    if (tile < 2 * per_side) {
+      const int c0 = (tile % per_side) * kHalf;
+      T* dst = out + (size_t)(tile / per_side) * p.M * p.gated;
+      const bool vec = p.gated % 8 == 0;
+      const int rl = p.R * p.Lc;
+      for (int idx = tid; idx < kBM * kHalf / 8; idx += kThreads) {
+        const int i = idx / (kHalf / 8), j = (idx % (kHalf / 8)) * 8;
+        if (i >= rows || c0 + j >= p.gated) continue;
+        const int m = m0 + i, b = m / rl;
+        const float pm = p.seq_mask[b * p.Lc + (m / p.Lc) % p.R] *
+                         p.seq_mask[b * p.Lc + m % p.Lc];
+        float v[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float g = c_s[i * LDC + kHalf + j + k] + p.bias[n0 + kHalf + j + k];
+          v[k] = (c_s[i * LDC + j + k] + p.bias[n0 + j + k]) * sigmoid(g) * pm;
+        }
+        const size_t o = (size_t)m * p.gated + c0 + j;
+        if (vec && c0 + j + 8 <= p.gated) {
+          store8(dst + o, v);
+        } else {
+          for (int k = 0; k < 8 && c0 + j + k < p.gated; ++k)
+            dst[o + k] = from_f32<T>(v[k]);
+        }
+      }
+    } else {
+      const int n_free = p.N - 2 * per_side * BN;
+      const int f0 = n0 - 2 * per_side * BN;
+      T* dst = static_cast<T*>(p.out2);
+      const bool vec = n_free % 8 == 0;
+      for (int idx = tid; idx < kBM * BN / 8; idx += kThreads) {
+        const int i = idx / (BN / 8), j = (idx % (BN / 8)) * 8;
+        if (i >= rows || j >= cols) continue;
+        float v[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          v[k] = c_s[i * LDC + j + k] + (j + k < cols ? p.bias[n0 + j + k] : 0.f);
+        const size_t o = (size_t)(m0 + i) * n_free + f0 + j;
+        if (vec && j + 8 <= cols) {
+          store8(dst + o, v);
+        } else {
+          for (int k = 0; k < 8 && j + k < cols; ++k)
+            dst[o + k] = from_f32<T>(v[k]);
+        }
+      }
+    }
+  } else {
+    const int rl = p.R * p.Lc;
+    for (int idx = tid; idx < kBM * BN; idx += kThreads) {
+      const int j = idx / kBM, i = idx % kBM, m = m0 + i, n = n0 + j;
+      if (i >= rows || j >= cols) continue;
+      float v = c_s[i * LDC + j];
+      if (p.bias) v += p.bias[n];
+      const int b = m / rl, rem = m % rl;
+      out[((size_t)b * p.N + n) * rl + rem] = from_f32<T>(v);
+    }
+  }
+}
+
+template <typename T, int BN>
+cudaError_t launch_linear_bn(const LinearArgs& p, cudaStream_t stream) {
+  const size_t smem = linear_smem_bytes<T, BN>();
+  cudaError_t e = set_smem(linear_kernel<T, BN>, smem);
+  if (e != cudaSuccess) return e;
+  const int grid = ((p.M + kBM - 1) / kBM) * ((p.N + BN - 1) / BN);
+  linear_kernel<T, BN><<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_linear(const LinearArgs& p, cudaStream_t stream) {
+  return p.N <= 64 ? launch_linear_bn<T, 64>(p, stream)
+                   : launch_linear_bn<T, 128>(p, stream);
+}
+
+}  // namespace abx
+
+// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
+extern "C" int abx_row_linear(int dtype, const void* x, int M, int K, int ldx,
+                              const float* ln_scale, const float* ln_bias,
+                              const void* w, const float* bias,
+                              const void* residual, const void* gate,
+                              void* out, int N, int out_mode, int R, int Lc,
+                              void* stream) {
+  abx::LinearArgs p{x,        M,    K,   ldx, ln_scale, ln_bias,
+                    w,        bias, residual, gate,     out,
+                    N,        out_mode,  R,   Lc,       nullptr,
+                    nullptr,  0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? abx::launch_linear<float>(p, s)
+                    : abx::launch_linear<abx::bf16>(p, s);
+}
+
+// tri_mult_pre: LayerNorm(x) -> packed projection -> gating.  w (N, K) and
+// bias (N,) are packed by the caller: for each side (left, right) and each
+// 64-channel chunk of its nc value channels, 64 value rows then their 64
+// gate rows (zero rows pad the last chunk), then the ungated final-gate
+// rows.  out_lr is (2, M, nc): left * sigmoid(left gate) * pair mask, then
+// right; out_fg is (M, N - 4 * 64 * ceil(nc / 64)), the final gate
+// pre-sigmoid.  Rows are m = (b*R + r)*Lc + l; seq_mask is (B, Lc).
+extern "C" int abx_tri_mult_pre(int dtype, const void* x, int M, int K,
+                                const float* ln_scale, const float* ln_bias,
+                                const void* w, const float* bias, int N,
+                                const float* seq_mask, int R, int Lc, int nc,
+                                void* out_lr, void* out_fg, void* stream) {
+  abx::LinearArgs p{x,       M,    K,       K,      ln_scale, ln_bias,
+                    w,       bias, nullptr, nullptr, out_lr,
+                    N,       2,    R,       Lc,     seq_mask,
+                    out_fg,  nc};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? abx::launch_linear_bn<float, 128>(p, s)
+                    : abx::launch_linear_bn<abx::bf16, 128>(p, s);
+}

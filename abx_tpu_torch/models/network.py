@@ -1,0 +1,119 @@
+"""Top-level score network with recycling.
+
+Counterpart of abx_tpu/models/network.py: `ScoreNetworkIteration` (trunk +
+ordered heads) and `forward_with_recycling`, which runs `num_recycle`
+no-grad passes feeding back prev_pos / prev_seq / prev_pair and the
+predicted sequence, then the final pass.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn as nn
+
+from abx_tpu_torch.geometry import frames as frame_ops
+from abx_tpu_torch.models.heads import (DistogramHead, PredictedLDDTHead,
+                                        SequenceHead, rebuild_atoms)
+from abx_tpu_torch.models.ipa import IpaScore
+from abx_tpu_torch.models.seqformer import EmbeddingAndSeqformer
+
+
+def get_prev(batch, outputs, prev_pos_config) -> Dict[str, torch.Tensor]:
+    """Recycling features from a forward pass; prev_seq / prev_pair stay in
+    the trunk dtype."""
+    atom37 = outputs['heads']['folding']['final_atom_positions']
+    pb = frame_ops.pseudo_beta_virtual(atom37)
+    prev_pos = frame_ops.dgram_from_positions(
+        pb, prev_pos_config.num_bins, prev_pos_config.min_bin,
+        prev_pos_config.max_bin)
+    return {
+        'prev_pos': prev_pos,
+        'prev_seq': outputs['representations']['seq'].detach(),
+        'prev_pair': outputs['representations']['pair'].detach(),
+    }
+
+
+def zero_prev(batch_size: int, num_res: int, config, dtype=torch.float32,
+              device='cpu') -> Dict[str, torch.Tensor]:
+    """Zero recycling features in the trunk dtype."""
+    c = config.embeddings_and_seqformer
+    seq_ch = c.seq_channel + c.index_embed_size
+    pair_ch = c.pair_channel + 2 * c.index_embed_size
+    return {
+        'prev_pos': torch.zeros((batch_size, num_res, num_res),
+                                dtype=torch.long, device=device),
+        'prev_seq': torch.zeros((batch_size, num_res, seq_ch), dtype=dtype,
+                                device=device),
+        'prev_pair': torch.zeros((batch_size, num_res, num_res, pair_ch),
+                                 dtype=dtype, device=device),
+    }
+
+
+class ScoreNetworkIteration(nn.Module):
+    """One trunk pass + heads.  Submodule names follow the flax tree
+    (`params/impl/...`) so `utils/params.py` maps weights by name."""
+
+    def __init__(self, config, diffuser, antibody_len: int,
+                 dtype=torch.float32):
+        super().__init__()
+        c = config
+        es = c.embeddings_and_seqformer
+        seq_c = es.seq_channel + es.index_embed_size
+        pair_c = es.pair_channel + 2 * es.index_embed_size
+        self.config = c
+        self.dtype = dtype
+        self.antibody_len = antibody_len
+        self.seqformer = EmbeddingAndSeqformer(es, antibody_len, dtype)
+        self.diffusion_module = IpaScore(c.heads.diffusion_module, diffuser,
+                                         seq_c, pair_c, dtype)
+        nc = c.heads.diffusion_module.IPA.num_channel
+        self.sequence_module = SequenceHead(c.heads.sequence_module, nc,
+                                            dtype=dtype)
+        self.predicted_lddt = PredictedLDDTHead(c.heads.predicted_lddt, nc,
+                                                dtype=dtype)
+        self.distogram = DistogramHead(c.heads.distogram, pair_c, dtype)
+
+    def static_embeddings(self, batch):
+        return self.seqformer.static_embeddings(batch)
+
+    def forward(self, batch, static_acts=None):
+        seq_act, pair_act = self.seqformer(batch, static_acts=static_acts)
+        representations = {'seq': seq_act, 'pair': pair_act}
+        folding = self.diffusion_module(representations, batch)
+        seq_out = self.sequence_module(folding['structure_act'], batch)
+        folding.update(rebuild_atoms(seq_out['seq_0'], folding['rigids'],
+                                     folding['angles_sin_cos'], batch))
+        return {
+            'representations': representations,
+            'heads': {
+                'folding': folding,
+                'sequence_module': seq_out,
+                'predicted_lddt': self.predicted_lddt(
+                    folding['structure_act']),
+            },
+        }
+
+
+@torch.no_grad()
+def forward_with_recycling(apply_single, batch, num_recycle: int,
+                           prev_pos_cfg):
+    """`num_recycle` recycle passes, then the final pass.
+
+    apply_single: fn(batch) -> outputs of ONE pass.  The returned dict
+    carries `recycled_seq_t`, the seq_t the final pass consumed (the last
+    recycle pass's predicted seq_0): the reference mutates seq_t in place
+    during recycling and its sampler reads the mutated value.
+    """
+    if 'prev_seq' not in batch:
+        raise ValueError('caller must seed prev_* (use zero_prev)')
+    mb = dict(batch)
+    mb['seq_t'] = batch['seq_t'].long()
+    for _ in range(num_recycle):
+        out = apply_single(mb)
+        mb.update(get_prev(mb, out, prev_pos_cfg))
+        mb['seq_t'] = out['heads']['sequence_module']['seq_0']
+    out = apply_single(mb)
+    out['recycled_seq_t'] = mb['seq_t']
+    return out

@@ -1,0 +1,472 @@
+"""Seqformer trunk: single + pair representation evolution.
+
+Counterpart of abx_tpu/models/seqformer.py on the deterministic (inference)
+path.  On tensors that live on the card, and with the registry flags on
+(their defaults), the recycled pair-input assembly, the seq-attention
+pair bias, the seq attention, the triangle-multiplication blocks around
+the contraction, both triangle attentions and the pair transition run
+through the hand-written kernels in `abx_tpu_torch/ops`; elsewhere the
+modules take the same plain path as the JAX package off the TPU.
+`SpatialDepthWiseInception` (`inp_kernels`) and the ESM branch are off in
+the released config and not ported yet: they raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from abx_tpu.common import residue_constants as rc
+from abx_tpu_torch.models.encoder import PairEmbedding, ResidueEmbedding
+from abx_tpu_torch.models.modules import (MLP, Embedding, LayerNorm, Linear,
+                                          fused_dense, get_timestep_embedding,
+                                          layer_norm)
+from abx_tpu_torch.ops import registry
+from abx_tpu_torch.ops.pair_bias import pair_bias_proj
+from abx_tpu_torch.ops.recycle_embed import recycle_embed
+from abx_tpu_torch.ops.transition import fused_transition
+from abx_tpu_torch.ops.tri_attention import triangle_attention_packed
+from abx_tpu_torch.ops.tri_mult import tri_mult_post, tri_mult_pre
+from abx_tpu_torch.ops.triangle import triangle_multiply
+
+BIG_NEG = -1e9
+
+
+def _no_inception(cfg) -> None:
+    if tuple(cfg.get('inp_kernels', ()) or ()):
+        raise NotImplementedError(
+            'SpatialDepthWiseInception (inp_kernels) is not ported yet')
+
+
+def pair_concat(pair_1, pair_2):
+    """Block-diagonal pair assembly."""
+    b, l1, _, c = pair_1.shape
+    l2 = pair_2.shape[1]
+    top = torch.cat([pair_1, pair_1.new_zeros((b, l1, l2, c))], dim=2)
+    bottom = torch.cat([pair_2.new_zeros((b, l2, l1, c)), pair_2], dim=2)
+    return torch.cat([top, bottom], dim=1)
+
+
+class GatedAttention(nn.Module):
+    """Multi-head self-attention with pair bias, gating and key mask, on
+    (B, S, Q, C) with a broadcast rows axis S."""
+
+    def __init__(self, c_in: int, key_dim: int, value_dim: int,
+                 output_dim: int, num_head: int, gating: bool = True,
+                 split_first: bool = True, dtype=torch.float32):
+        super().__init__()
+        self.num_head = num_head
+        self.key_dim, self.value_dim = key_dim, value_dim
+        self.gating = gating
+        self.split_first = split_first
+        self.dtype = dtype
+        if split_first:
+            self.proj_q = Linear(c_in, key_dim, 'attn', bias=False,
+                                 dtype=dtype)
+            self.proj_k = Linear(c_in, key_dim, 'attn', bias=False,
+                                 dtype=dtype)
+            self.proj_v = Linear(c_in, value_dim, 'attn', bias=False,
+                                 dtype=dtype)
+        else:
+            self.proj_in = Linear(c_in, key_dim * 3, 'attn', bias=False,
+                                  dtype=dtype)
+        if gating:
+            self.gate = Linear(c_in, value_dim, 'gate', dtype=dtype)
+        self.proj_out = Linear(value_dim, output_dim, 'final', dtype=dtype)
+
+    def _qkv_weights(self):
+        """(H*D, C) q/k/v weights.  The seq track's proj_in has per-head
+        [q|k|v] row blocks (reference layout); regroup them into
+        [q_all | k_all | v_all] for the packed kernel."""
+        if self.split_first:
+            return self.proj_q.weight, self.proj_k.weight, self.proj_v.weight
+        h = self.num_head
+        kd = self.key_dim // h
+        w3 = self.proj_in.weight.reshape(h, 3, kd, -1)
+        return tuple(w3[:, i].reshape(h * kd, -1) for i in range(3))
+
+    def forward(self, q_data, bias, k_mask, kernel: bool = False,
+                residual=None, ln=None):
+        """q_data (B, S, Q, C); bias (B, H, Q, K); k_mask (B, 1, K).
+
+        `kernel` routes through the packed attention wrapper; with `ln`
+        (LayerNorm params; needs gating and `residual`) q_data is RAW and
+        the LayerNorm, the gate, the out-proj and the residual run inside
+        it."""
+        h = self.num_head
+        dt = self.dtype
+        if kernel:
+            wq, wk, wv = self._qkv_weights()
+            mask = k_mask[:, 0]
+            if ln is not None:
+                return triangle_attention_packed(
+                    q_data, wq, wk, wv, bias, mask, ln=ln,
+                    gate=(self.gate.weight, self.gate.bias),
+                    out_proj=(self.proj_out.weight, self.proj_out.bias),
+                    residual=residual)
+            out = triangle_attention_packed(q_data, wq, wk, wv, bias, mask)
+            if self.gating:
+                out = out * torch.sigmoid(self.gate(q_data))
+            out = self.proj_out(out)
+            return out if residual is None else residual + out
+
+        key_dim = self.key_dim // h
+        value_dim = self.value_dim // h
+        gate_pre = None
+        if self.split_first:
+            branches = [self.proj_q, self.proj_k, self.proj_v]
+            if self.gating:
+                q, k, v, gate_pre = fused_dense(q_data, branches + [self.gate],
+                                                dt)
+            else:
+                q, k, v = fused_dense(q_data, branches, dt)
+            q = q.reshape(q.shape[:-1] + (h, key_dim))
+            k = k.reshape(k.shape[:-1] + (h, key_dim))
+            v = v.reshape(v.shape[:-1] + (h, value_dim))
+        else:
+            if self.gating:
+                qkv, gate_pre = fused_dense(q_data, [self.proj_in, self.gate],
+                                            dt)
+            else:
+                (qkv,) = fused_dense(q_data, [self.proj_in], dt)
+            qkv = qkv.reshape(qkv.shape[:-1] + (h, 3 * key_dim))
+            q, k, v = torch.split(qkv, key_dim, dim=-1)
+        q = q * (key_dim ** -0.5)
+        logits = torch.einsum('...qhd,...khd->...hqk', q, k)
+        logits = logits + bias[:, None].to(logits.dtype)
+        neg = (1.0 - k_mask[:, :, None, None, :].float()) * BIG_NEG
+        logits = logits + neg.to(logits.dtype)
+        weights = torch.softmax(logits.float(), dim=-1).to(dt)
+        out = torch.einsum('...hqk,...khd->...qhd', weights, v)
+        out = out.reshape(out.shape[:-2] + (self.value_dim,))
+        if self.gating:
+            out = out * torch.sigmoid(gate_pre)
+        out = self.proj_out(out)
+        return out if residual is None else residual + out
+
+
+class SeqAttentionWithPairBias(nn.Module):
+    def __init__(self, config, seq_c: int, pair_c: int, dtype=torch.float32):
+        super().__init__()
+        _no_inception(config)
+        self.dtype = dtype
+        self.seq_norm = LayerNorm(seq_c, dtype=dtype)
+        self.pair_norm = LayerNorm(pair_c, dtype=dtype)
+        self.proj_pair = Linear(pair_c, config.num_head, 'linear', bias=False,
+                                dtype=dtype)
+        self.attn = GatedAttention(seq_c, seq_c, seq_c, seq_c,
+                                   config.num_head, split_first=False,
+                                   dtype=dtype)
+
+    def forward(self, seq_act, pair_act, mask, residual: bool = False):
+        """`residual=True` returns seq_act + attention(seq_act)."""
+        dt = self.dtype
+        res_in = seq_act
+        if registry.on_device(pair_act) and registry.use_fused_pair_bias():
+            bias = pair_bias_proj(pair_act, self.pair_norm.scale,
+                                  self.pair_norm.bias, self.proj_pair.weight)
+        else:
+            ln = self.pair_norm(pair_act)
+            bias = F.linear(ln, self.proj_pair.weight.to(dt))
+            bias = bias.permute(0, 3, 1, 2)
+        if (residual and registry.on_device(seq_act)
+                and registry.use_packed_seq_attn()):
+            out = self.attn(seq_act[:, None], bias, mask[:, None],
+                            kernel=True,
+                            ln=(self.seq_norm.scale, self.seq_norm.bias),
+                            residual=res_in[:, None])
+            return out[:, 0]
+        out = self.attn(self.seq_norm(seq_act)[:, None], bias,
+                        mask[:, None])[:, 0]
+        return res_in + out if residual else out
+
+
+class Transition(nn.Module):
+    def __init__(self, config, num_in: int, dtype=torch.float32):
+        super().__init__()
+        n_mid = num_in * config.num_intermediate_factor
+        self.dtype = dtype
+        self.norm = LayerNorm(num_in, dtype=dtype)
+        self.in_proj = Linear(num_in, n_mid, 'linear', dtype=dtype)
+        self.out_proj = Linear(n_mid, num_in, 'final', dtype=dtype)
+
+    def forward(self, act, residual: bool = False):
+        """LN -> C*factor -> relu -> C [+ act when residual]; the 4-D pair
+        track goes through the fused kernel on the card."""
+        if (residual and act.dim() == 4 and registry.on_device(act)
+                and registry.use_fused_transition()):
+            return fused_transition(act, self.norm.scale, self.norm.bias,
+                                    self.in_proj.weight, self.in_proj.bias,
+                                    self.out_proj.weight, self.out_proj.bias)
+        x = torch.relu(self.in_proj(self.norm(act)))
+        out = self.out_proj(x)
+        return act + out if residual else out
+
+
+class OuterProductMean(nn.Module):
+    """ESMFold-style outer product + difference."""
+
+    def __init__(self, config, num_in: int, num_out: int,
+                 dtype=torch.float32):
+        super().__init__()
+        noc = config.num_outer_channel
+        self.dtype = dtype
+        self.norm = LayerNorm(num_in, dtype=dtype)
+        self.left_proj = Linear(num_in, noc, 'linear', dtype=dtype)
+        self.right_proj = Linear(num_in, noc, 'linear', dtype=dtype)
+        self.out_proj = Linear(2 * noc, num_out, 'final', dtype=dtype)
+
+    def forward(self, act, mask):
+        mask_col = mask[..., None]
+        act = self.norm(act)
+        left, right = fused_dense(act, [self.left_proj, self.right_proj],
+                                  self.dtype)
+        left = mask_col * left
+        right = mask_col * right
+        prod = left[:, None, :, :] * right[:, :, None, :]
+        diff = left[:, None, :, :] - right[:, :, None, :]
+        return self.out_proj(torch.cat([prod, diff], dim=-1))
+
+
+class TriangleMultiplication(nn.Module):
+    """Triangle multiplication; on the card (residual, gated) the blocks
+    around the contraction run as the tri_mult pre/post kernels."""
+
+    def __init__(self, config, num_in: int, dtype=torch.float32):
+        super().__init__()
+        _no_inception(config)
+        nc = config.num_intermediate_channel
+        self.per_row = config.orientation == 'per_row'
+        self.gating = config.gating
+        self.dtype = dtype
+        self.norm = LayerNorm(num_in, dtype=dtype)
+        self.left_proj = Linear(num_in, nc, 'linear', dtype=dtype)
+        self.right_proj = Linear(num_in, nc, 'linear', dtype=dtype)
+        if self.gating:
+            self.left_gate = Linear(num_in, nc, 'gate', dtype=dtype)
+            self.right_gate = Linear(num_in, nc, 'gate', dtype=dtype)
+            self.final_gate = Linear(num_in, num_in, 'gate', dtype=dtype)
+        self.final_norm = LayerNorm(nc, dtype=dtype)
+        self.proj_out = Linear(nc, num_in, 'final', dtype=dtype)
+
+    def forward(self, act, mask, residual: bool = False):
+        dt = self.dtype
+        if (residual and self.gating and act.dim() == 4
+                and registry.on_device(act) and registry.use_fused_trimult()):
+            branches = [self.left_proj, self.right_proj, self.left_gate,
+                        self.right_gate, self.final_gate]
+            left, right, fg = tri_mult_pre(
+                act, self.norm.scale, self.norm.bias,
+                torch.cat([m.weight for m in branches]),
+                torch.cat([m.bias for m in branches]), mask)
+            out = triangle_multiply(left, right, per_row=self.per_row)
+            return tri_mult_post(out, self.final_norm.scale,
+                                 self.final_norm.bias, self.proj_out.weight,
+                                 self.proj_out.bias, fg, act)
+        pair_mask = (mask[:, :, None, None] * mask[:, None, :, None]).to(dt)
+        x = self.norm(act)
+        branches = [self.left_proj, self.right_proj]
+        if self.gating:
+            left, right, lg, rg, fg = fused_dense(
+                x, branches + [self.left_gate, self.right_gate,
+                               self.final_gate], dt)
+            left = left * torch.sigmoid(lg)
+            right = right * torch.sigmoid(rg)
+        else:
+            left, right = fused_dense(x, branches, dt)
+        left = left * pair_mask
+        right = right * pair_mask
+        out = triangle_multiply(left, right, per_row=self.per_row)
+        out = self.proj_out(self.final_norm(out))
+        if self.gating:
+            out = out * torch.sigmoid(fg)
+        return act + out if residual else out
+
+
+class TriangleAttention(nn.Module):
+    def __init__(self, config, c_in: int, dtype=torch.float32):
+        super().__init__()
+        _no_inception(config)
+        self.per_column = config.orientation == 'per_column'
+        self.gating = config.gating
+        self.dtype = dtype
+        self.norm = LayerNorm(c_in, dtype=dtype)
+        self.proj_pair = Linear(c_in, config.num_head, 'linear', bias=False,
+                                dtype=dtype)
+        self.attn = GatedAttention(c_in, c_in, c_in, c_in, config.num_head,
+                                   gating=config.gating, dtype=dtype)
+
+    def forward(self, pair_act, seq_mask, residual: bool = False):
+        """`residual=True` adds the input in this module's epilogue (inside
+        the packed kernel on the card)."""
+        kernel = (registry.on_device(pair_act)
+                  and registry.use_fused_tri_attention())
+        x = pair_act
+        if self.per_column:
+            x = x.transpose(1, 2).contiguous()
+        if (kernel and residual and self.gating
+                and registry.use_tri_attn_ln_fold()):
+            # LN-fold path: the raw (oriented) tensor goes in; the bias is
+            # computed on that same oriented tensor.
+            ln = (self.norm.scale, self.norm.bias)
+            bias = pair_bias_proj(x, ln[0], ln[1], self.proj_pair.weight)
+            out = self.attn(x, bias, seq_mask[:, None], kernel=True,
+                            residual=x, ln=ln)
+        else:
+            res_in = x if residual else None
+            xn = self.norm(x)
+            bias = self.proj_pair(xn).permute(0, 3, 1, 2)
+            out = self.attn(xn, bias, seq_mask[:, None], kernel=kernel,
+                            residual=res_in)
+        if self.per_column:
+            out = out.transpose(1, 2).contiguous()
+        return out
+
+
+class SeqformerIteration(nn.Module):
+    def __init__(self, config, seq_c: int, pair_c: int, dtype=torch.float32):
+        super().__init__()
+        c = config
+        self.seq_attn = SeqAttentionWithPairBias(
+            c.seq_attention_with_pair_bias, seq_c, pair_c, dtype)
+        self.seq_transition = Transition(c.seq_transition, seq_c, dtype)
+        self.outer_product_mean = OuterProductMean(c.outer_product_mean,
+                                                   seq_c, pair_c, dtype)
+        self.tri_mul_out = TriangleMultiplication(
+            c.triangle_multiplication_outgoing, pair_c, dtype)
+        self.tri_mul_in = TriangleMultiplication(
+            c.triangle_multiplication_incoming, pair_c, dtype)
+        self.tri_attn_start = TriangleAttention(
+            c.triangle_attention_starting_node, pair_c, dtype)
+        self.tri_attn_end = TriangleAttention(
+            c.triangle_attention_ending_node, pair_c, dtype)
+        self.pair_transition = Transition(c.pair_transition, pair_c, dtype)
+
+    def forward(self, seq_act, pair_act, seq_mask):
+        seq_act = self.seq_attn(seq_act, pair_act, seq_mask, residual=True)
+        seq_act = seq_act + self.seq_transition(seq_act)
+        pair_act = pair_act + self.outer_product_mean(seq_act, seq_mask)
+        pair_act = self.tri_mul_out(pair_act, seq_mask, residual=True)
+        pair_act = self.tri_mul_in(pair_act, seq_mask, residual=True)
+        pair_act = self.tri_attn_start(pair_act, seq_mask, residual=True)
+        pair_act = self.tri_attn_end(pair_act, seq_mask, residual=True)
+        return seq_act, self.pair_transition(pair_act, residual=True)
+
+
+class Seqformer(nn.Module):
+    def __init__(self, config, seq_c: int, pair_c: int, dtype=torch.float32):
+        super().__init__()
+        self.num_block = config.seqformer_num_block
+        for i in range(self.num_block):
+            self.add_module(f'block_{i}', SeqformerIteration(
+                config.seqformer, seq_c, pair_c, dtype))
+
+    def forward(self, seq_act, pair_act, mask):
+        for i in range(self.num_block):
+            seq_act, pair_act = getattr(self, f'block_{i}')(seq_act,
+                                                            pair_act, mask)
+        return seq_act, pair_act
+
+
+class EmbeddingAndSeqformer(nn.Module):
+    """Input embedding + trunk.  The antibody block occupies positions
+    [0, antibody_len) and the antigen block [antibody_len, L).
+    `static_embeddings` holds every trajectory-invariant term, so the
+    sampler computes it once per trajectory."""
+
+    def __init__(self, config, antibody_len: int, dtype=torch.float32):
+        super().__init__()
+        c = config
+        if c.esm.enabled:
+            raise NotImplementedError('ESM conditioning is not ported yet')
+        self.config = c
+        self.antibody_len = antibody_len
+        self.dtype = dtype
+        num_token = rc.restype_num + 3
+        sc, pc, ie = c.seq_channel, c.pair_channel, c.index_embed_size
+        self.proj_aa_type = Embedding(num_token, sc,
+                                      padding_idx=rc.unk_restype_index,
+                                      dtype=dtype)
+        self.proj_rel_pos = Embedding(c.max_relative_feature * 2 + 2, pc,
+                                      dtype=dtype)
+        self.aa_proj_norm = LayerNorm(sc, dtype=dtype)
+        self.aa_proj = MLP(sc, (sc, sc), ('linear', 'linear'), dtype=dtype)
+        self.encode_residue_emb = ResidueEmbedding(sc, dtype=dtype)
+        self.encode_pair_emb = PairEmbedding(
+            pc, dgram_num_bins=c.prev_pos.num_bins,
+            dgram_min_bin=c.prev_pos.min_bin,
+            dgram_max_bin=c.prev_pos.max_bin, dtype=dtype)
+        seq_full, pair_full = sc + ie, pc + 2 * ie
+        if c.recycle_features:
+            self.prev_seq_norm = LayerNorm(seq_full, dtype=dtype)
+            self.prev_pair_norm = LayerNorm(pair_full, dtype=dtype)
+        if c.recycle_pos:
+            self.proj_prev_pos = Embedding(c.prev_pos.num_bins, pair_full,
+                                           dtype=dtype)
+        self.seqformer = Seqformer(c, seq_full, pair_full, dtype)
+
+    def _rel_pos_ids(self, pos):
+        mrf = self.config.max_relative_feature
+        offset = pos[:, None, :] - pos[:, :, None]
+        return torch.clamp(offset + mrf, 0, 2 * mrf) + 1
+
+    def static_embeddings(self, batch):
+        """Trajectory-invariant embedding terms (they read seq_t only at
+        fixed positions, which the reverse step never changes)."""
+        residx = batch['residx']
+        ab = self.antibody_len
+        b = residx.shape[0]
+        ag_embed = self.aa_proj_norm(self.proj_aa_type(batch['seq'][:, ab:]))
+        ag_seq_act = self.aa_proj(ag_embed)
+        ab_pair_act = self.proj_rel_pos(self._rel_pos_ids(residx[:, :ab]))
+        ag_pair_act = self.proj_rel_pos(self._rel_pos_ids(residx[:, ab:]))
+        static_seq = torch.cat(
+            [ag_seq_act.new_zeros((b, ab, ag_seq_act.shape[-1])),
+             ag_seq_act], dim=1)
+        static_seq = static_seq + self.encode_residue_emb(batch)
+        static_pair = pair_concat(ab_pair_act, ag_pair_act)
+        static_pair = static_pair + self.encode_pair_emb(batch)
+        return {'static_seq': static_seq, 'static_pair': static_pair}
+
+    def forward(self, batch, static_acts=None):
+        c = self.config
+        dt = self.dtype
+        seq_t = batch['seq_t'].long()
+        mask = batch['mask']
+        ab = self.antibody_len
+        if static_acts is None:
+            static_acts = self.static_embeddings(batch)
+        ab_seq_act = self.proj_aa_type(seq_t[:, :ab])
+        b, l = seq_t.shape
+        seq_act = torch.cat(
+            [ab_seq_act, ab_seq_act.new_zeros((b, l - ab,
+                                               ab_seq_act.shape[-1]))], dim=1)
+        seq_act = seq_act + static_acts['static_seq']
+        t_embed = get_timestep_embedding(batch['t'],
+                                         c.index_embed_size).to(dt)
+        seq_act = torch.cat(
+            [seq_act, t_embed[:, None, :].expand(b, l, -1)], dim=-1)
+        if c.recycle_features and 'prev_seq' in batch:
+            seq_act = seq_act + self.prev_seq_norm(batch['prev_seq'])
+        static_pair = static_acts['static_pair']
+        if (c.recycle_features and c.recycle_pos and 'prev_pair' in batch
+                and 'prev_pos' in batch and registry.on_device(static_pair)
+                and registry.use_fused_recycle_embed()):
+            # The recycled pair input in one pass (concat + LN + bin embed).
+            pair_act = recycle_embed(
+                static_pair, torch.cat([t_embed, t_embed], dim=-1),
+                batch['prev_pair'], self.prev_pair_norm.scale,
+                self.prev_pair_norm.bias, self.proj_prev_pos.embedding,
+                batch['prev_pos'])
+            return self.seqformer(seq_act, pair_act, mask)
+        pair_t = t_embed[:, None, None, :].expand(b, l, l, -1)
+        pair_act = torch.cat([static_pair, pair_t, pair_t], dim=-1)
+        if c.recycle_features and 'prev_pair' in batch:
+            pair_act = pair_act + layer_norm(
+                batch['prev_pair'], self.prev_pair_norm.scale,
+                self.prev_pair_norm.bias, dtype=dt)
+        if c.recycle_pos and 'prev_pos' in batch:
+            pair_act = pair_act + self.proj_prev_pos.embedding[
+                batch['prev_pos'].long()].to(dt)
+        return self.seqformer(seq_act, pair_act, mask)

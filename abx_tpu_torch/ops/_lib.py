@@ -1,0 +1,139 @@
+"""Build and load the package's CUDA kernels (`abx_tpu_torch/csrc/*.cu`).
+
+The sources are compiled with `nvcc` for sm_90a into one shared library
+with a plain C interface, loaded with ctypes.  The build happens at first
+use, into `build/abx_tpu_torch/<hash>/` at the repository root, keyed on a
+hash of the sources and flags, so a second process reuses it.  Nothing is
+built or loaded when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / 'csrc'
+BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'abx_tpu_torch'
+NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    'abx_row_linear': [_I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                       _I, _I, _I, _P],
+    'abx_tri_mult_pre': [_I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I,
+                         _P, _P, _P],
+    'abx_recycle_embed': [_I] + [_P] * 8 + [_I] * 5 + [_P],
+    'abx_fused_transition': [_I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                             _P],
+    'abx_tri_attention_core': [_I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I,
+                               _P, _P],
+    'abx_ipa_attention': [_I] + [_P] * 14 + [_I] * 7 + [_P],
+}
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _sources():
+    return sorted(CSRC.glob('*.cu')), sorted(CSRC.glob('*.cuh'))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    cu, cuh = _sources()
+    for p in cu + cuh:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    path = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
+    if not os.path.exists(path):
+        raise RuntimeError('nvcc not found: the CUDA kernels of abx_tpu_torch '
+                           'are built with the CUDA toolkit at first use')
+    return path
+
+
+def build() -> Path:
+    """Compile the kernels if this source hash has no library yet; return
+    the library path.  The compiler's output (with -Xptxas -v register and
+    spill counts) is kept beside it as build.log."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / 'libabx_kernels.so'
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f'libabx_kernels.{os.getpid()}.tmp.so'
+    cu, _ = _sources()
+    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, cu)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (out_dir / 'build.log').write_text(' '.join(cmd) + '\n' + proc.stdout
+                                       + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f'nvcc failed with code {proc.returncode}:\n'
+                           f'{proc.stderr[-8000:]}')
+    os.replace(tmp, lib)
+    return lib
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, args in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            _lib = handle
+    return _lib
+
+
+def ptr(t):
+    """Device pointer of a tensor (None for an absent operand)."""
+    return None if t is None else t.data_ptr()
+
+
+def stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f'{name}: CUDA launch failed with cudaError_t '
+                           f'{err}')
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def check_cuda_inputs(name: str, dtype, f32=None, i64=None,
+                      **tensors) -> None:
+    """Device / dtype / contiguity checks shared by the kernel wrappers.
+
+    Every tensor must be a contiguous CUDA tensor.  Those passed by keyword
+    must be in the compute dtype `dtype`; those in the dicts `f32` and
+    `i64` in float32 and int64.  None stands for an absent operand."""
+    require(dtype in DTYPE_CODE, f'{name}: dtype {dtype} not supported')
+    for group, want in ((tensors, dtype), (f32 or {}, torch.float32),
+                        (i64 or {}, torch.int64)):
+        for key, t in group.items():
+            if t is None:
+                continue
+            require(t.is_cuda, f'{name}: {key} is not on a CUDA device')
+            require(t.is_contiguous(), f'{name}: {key} is not contiguous')
+            require(t.dtype == want,
+                    f'{name}: {key} is {t.dtype}, expected {want}')

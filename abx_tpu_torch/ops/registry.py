@@ -1,0 +1,72 @@
+"""Kernel dispatch switches for the ported Hopper kernels.
+
+The same `ABX_*` environment flags and defaults as `abx_tpu/ops/registry.py`
+for the kernels this package has ported.  Where the JAX package asks
+`jax.default_backend() == 'tpu'`, the port asks `on_device(tensor)`: a
+kernel route is taken only for tensors that live on a CUDA device.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+
+def on_device(t: torch.Tensor) -> bool:
+    """True when `t` lives on the card, i.e. the hand-written kernels apply.
+
+    The one predicate behind both decisions: a module takes its kernel
+    route, and a kernel wrapper launches its kernel rather than its plain
+    version.  Tests force the module routes on the CPU by patching it and
+    swapping the wrappers for their plain versions."""
+    return t.is_cuda
+
+
+def use_fused_tri_attention() -> bool:
+    """Packed triangle attention (`ops/tri_attention.py`)."""
+    return os.environ.get('ABX_FUSED_TRI_ATTN', '1') == '1'
+
+
+def use_tri_attn_ln_fold() -> bool:
+    """Input LayerNorm + sigmoid gate + out-proj + residual folded into the
+    packed triangle-attention kernel; the bias comes from `pair_bias_proj`
+    in (B, H, L, L) layout."""
+    return os.environ.get('ABX_TRI_ATTN_LN_FOLD', '1') == '1'
+
+
+def use_packed_seq_attn() -> bool:
+    """Seq-track attention through the packed kernel at one row per batch
+    element (LN + per-head q/k/v/gate projection + biased softmax + gate +
+    out-proj + residual)."""
+    return os.environ.get('ABX_PACKED_SEQ_ATTN', '1') == '1'
+
+
+def use_fused_pair_bias() -> bool:
+    """Seq-attention pair bias: LN -> C->H projection in one kernel."""
+    return os.environ.get('ABX_FUSED_PAIR_BIAS', '1') == '1'
+
+
+def use_fused_transition() -> bool:
+    """Pair transition: LN -> C->4C -> ReLU -> 4C->C -> +residual in one
+    kernel; the 4C intermediate never reaches device memory."""
+    return os.environ.get('ABX_FUSED_TRANSITION', '1') == '1'
+
+
+def use_fused_trimult() -> bool:
+    """Triangle multiplication pre block (LN -> fused five-way projection
+    -> gating and pair mask) and post block (LN -> C_int->C -> x sigmoid(
+    final gate) -> +residual) as kernels around the contraction."""
+    return os.environ.get('ABX_FUSED_TRIMULT', '1') == '1'
+
+
+def use_fused_recycle_embed() -> bool:
+    """Recycled pair input (concat(static pair, t) + LN(prev_pair) +
+    distogram-bin embedding) assembled in one kernel."""
+    return os.environ.get('ABX_FUSED_RECYCLE', '1') == '1'
+
+
+def use_fused_ipa_attention() -> bool:
+    """IPA logits + softmax + scalar/point/pair attends in one kernel; the
+    (B, H, L, L) logits and probabilities never reach device memory."""
+    return os.environ.get('ABX_FUSED_IPA_ATTN', '1') == '1'

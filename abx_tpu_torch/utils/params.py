@@ -1,0 +1,119 @@
+"""Weight bridge: the JAX package's parameter tree -> the port's state_dict.
+
+The port's modules carry the flax names (`params/impl/<path>`), so the map
+is by name: drop the leading `params` / `impl` levels, join the path with
+dots, and turn each flax `kernel` (in, out) into the nn.Linear `weight`
+(out, in) by a transpose.  Every other leaf (LayerNorm `scale` / `bias`,
+`embedding` tables, `trainable_point_weights`, `aapair_to_distcoef`) keeps
+its name and layout.  This module is the only place where layouts change.
+
+Sources: the tree from `abx_tpu.cli.runner._random_init` (as numpy arrays)
+or a `.msgpack` written by `abx_tpu/utils/checkpoint.py` (flax msgpack
+bytes, read here with the `msgpack` package — no flax or jax needed).
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+
+def _flatten(tree, path=()) -> Dict[Tuple[str, ...], np.ndarray]:
+    if isinstance(tree, Mapping):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, path + (str(k),)))
+        return out
+    return {path: np.asarray(tree)}
+
+
+def flax_to_state_dict(tree) -> Dict[str, torch.Tensor]:
+    """Flax param tree (nested mappings of arrays) -> torch state_dict."""
+    out = {}
+    for path, v in _flatten(tree).items():
+        p = list(path)
+        if p and p[0] == 'params':
+            p = p[1:]
+        if p and p[0] == 'impl':
+            p = p[1:]
+        if p[-1] == 'kernel':
+            p[-1] = 'weight'
+            v = v.T
+        out['.'.join(p)] = torch.tensor(np.asarray(v, dtype=np.float32))
+    return out
+
+
+def load_flax_params(model: torch.nn.Module, tree) -> None:
+    """Load a flax tree into `model` (strict: every name must match)."""
+    state = flax_to_state_dict(tree)
+    missing, unexpected = model.load_state_dict(state, strict=False)
+    if missing or unexpected:
+        raise KeyError(f'param bridge mismatch: missing={missing[:8]} '
+                       f'unexpected={unexpected[:8]}')
+
+
+def read_msgpack(path: str):
+    """Read a flax msgpack checkpoint into nested dicts of numpy arrays
+    (flax's ndarray extension type 1: msgpack (shape, dtype, bytes))."""
+    import msgpack
+
+    def ext_hook(code, data):
+        if code == 1:
+            shape, dtype, buf = msgpack.unpackb(data, raw=True)
+            name = dtype.decode() if isinstance(dtype, bytes) else dtype
+            return np.frombuffer(buf, dtype=np.dtype(name)).reshape(shape)
+        if code == 3:
+            dtype, buf = msgpack.unpackb(data, raw=True)
+            name = dtype.decode() if isinstance(dtype, bytes) else dtype
+            return np.frombuffer(buf, dtype=np.dtype(name))[0]
+        return msgpack.ExtType(code, data)
+
+    with open(path, 'rb') as f:
+        return msgpack.unpackb(f.read(), ext_hook=ext_hook, raw=False,
+                               strict_map_key=False)
+
+
+def dense_random_tree(tree, seed: int, scale: float = 1.0):
+    """A tree of the same shapes with dense random values (numpy, f32).
+
+    AF2 inits zero every 'final' and 'gate' kernel, which would let a
+    comparison pass without exercising the layers behind them; parity
+    tests and the on-card kernel checks use these weights instead:
+    kernels ~ N(0, scale^2 / fan_in), biases and embeddings ~ N(0, 0.1^2)
+    (embeddings N(0, 1)), LayerNorm scales 1 + N(0, 0.1^2)."""
+    rng = np.random.default_rng(seed)
+
+    def walk(node, name):
+        if isinstance(node, Mapping):
+            return {k: walk(v, k) for k, v in node.items()}
+        shape = np.shape(node)
+        if name == 'kernel':
+            std = scale / np.sqrt(shape[0])
+            return (rng.standard_normal(shape) * std).astype(np.float32)
+        if name == 'scale':
+            return (1.0 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
+        if name == 'embedding':
+            return rng.standard_normal(shape).astype(np.float32)
+        return (0.1 * rng.standard_normal(shape)).astype(np.float32)
+    return walk(tree, '')
+
+
+def state_dict_tree(model: torch.nn.Module):
+    """The port's parameters as a flax-shaped tree of numpy arrays
+    ({'params': {'impl': ...}}, kernels (in, out)) — the inverse map, used
+    to build random weights of a model's shape without jax."""
+    root: dict = {}
+    for key, p in model.state_dict().items():
+        parts = key.split('.')
+        v = p.detach().cpu().float().numpy()
+        if parts[-1] == 'weight' and v.ndim == 2:
+            parts[-1] = 'kernel'
+            v = v.T
+        node = root
+        for k in parts[:-1]:
+            node = node.setdefault(k, {})
+        node[parts[-1]] = v
+    return {'params': {'impl': root}}

@@ -1,0 +1,424 @@
+#!/usr/bin/env python3
+"""Start-up proof of the PyTorch port (abx_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with one H100.  Phases, each
+fatal on failure:
+  1. the device, and the card's name and power limit from nvidia-smi;
+  2. build the CUDA kernels from abx_tpu_torch/csrc;
+  3. each kernel against its plain PyTorch version at the flagship shapes
+     (B=4, L=288): f32 to 1e-4 * max|ref|, bf16 against the f32 plain
+     version to 3e-2 * max|ref|; kernel and plain times (median of CUDA
+     event timings after warm-up, bf16);
+  4. one full-width f32 forward_with_recycling with the kernel flags on and
+     off (dense random weights): rot_score, trans_score and logits agree
+     to 1e-4 * max|ref| on valid rows;
+  5. a full-width bf16 ESM-off CDR-H3 design through
+     abx_tpu_torch.cli.design (config/config_model.json, random weights from
+     seed 0, 4 samples, num_t 8) on testdata/6ct7_H_L_S.pdb: 4 PDBs with
+     chains H, L, S and finite coordinates, every kernel launched the
+     expected number of times, wall time, seconds per step, samples/hour.
+The second-to-last lines are the nvidia-smi card line and the kernels JSON;
+the last line is the result JSON.  No JAX is imported.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+F32_TOL, BF16_TOL = 1e-4, 3e-2
+TIMING_REPS = 7
+
+
+def fail(msg):
+    print(f'chip_smoke: FAIL: {msg}', file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def card_line():
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0 or not out.stdout.strip():
+        fail(f'nvidia-smi failed: {out.stderr.strip()}')
+    return out.stdout.strip().splitlines()[0].strip()
+
+
+def time_ms(torch, fn, reps=TIMING_REPS):
+    """Median of `reps` CUDA-event timings of fn() after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def rel_err(got, want):
+    """(max |got - want|, max |want|) in f32."""
+    d = (got.float() - want.float()).abs().max().item()
+    return d, want.float().abs().max().item()
+
+
+def kernel_cases(torch, dev):
+    """(name, case label, kernel fn, plain fn, f32 args, bf16 args) at the
+    flagship shapes of one trunk pass (B=4, L=288, bf16 trunk)."""
+    from abx_tpu_torch.ops import ipa_attention as ipa_op
+    from abx_tpu_torch.ops import pair_bias as pb_op
+    from abx_tpu_torch.ops import recycle_embed as re_op
+    from abx_tpu_torch.ops import transition as tr_op
+    from abx_tpu_torch.ops import tri_attention as ta_op
+    from abx_tpu_torch.ops import tri_mult as tm_op
+    g = torch.Generator(device=dev).manual_seed(0)
+    b, l = 4, 288
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    mask = torch.ones(b, l, device=dev)
+    mask[:, -9:] = 0.0
+    mask[1, 100] = 0.0
+    cases = []
+
+    def tri(label, r, c, h):
+        x = rnd(b, r, l, c)
+        w = [rnd(c, c, scale=c ** -0.5) for _ in range(5)]
+        kw = dict(ln=(1 + rnd(c, scale=0.1), rnd(c, scale=0.1)),
+                  gate=(w[3], rnd(c, scale=0.1)),
+                  out_proj=(w[4], rnd(c, scale=0.1)))
+        bias = rnd(b, h, l, l)
+        args = (x, w[0], w[1], w[2], bias, mask)
+        cases.append((
+            'triangle_attention_packed', label,
+            lambda x, res: ta_op.triangle_attention_packed(
+                x, *args[1:], residual=res, **kw),
+            lambda x, res: ta_op.triangle_attention_packed_plain(
+                x, *args[1:], residual=res, **kw),
+            (x, x), (x.bfloat16(), x.bfloat16())))
+    tri('tri-attention (4,288,288,192) H=4 D=48', l, 192, 4)
+    tri('seq-attention (4,1,288,544) H=32 D=17', 1, 544, 32)
+
+    for h in (4, 32):
+        pair = rnd(b, l, l, 192)
+        s, bb, w = 1 + rnd(192, scale=0.1), rnd(192, scale=0.1), rnd(
+            h, 192, scale=192 ** -0.5)
+        cases.append((
+            'pair_bias_proj', f'(4,288,288,192) -> H={h}',
+            lambda p, s=s, bb=bb, w=w: pb_op.pair_bias_proj(p, s, bb, w),
+            lambda p, s=s, bb=bb, w=w: pb_op.pair_bias_proj_plain(p, s, bb,
+                                                                  w),
+            (pair,), (pair.bfloat16(),)))
+
+    x = rnd(b, l, l, 192)
+    targs = (1 + rnd(192, scale=0.1), rnd(192, scale=0.1),
+             rnd(768, 192, scale=192 ** -0.5), rnd(768, scale=0.1),
+             rnd(192, 768, scale=768 ** -0.5), rnd(192, scale=0.1))
+    cases.append((
+        'fused_transition', '(4,288,288,192) N=768',
+        lambda x: tr_op.fused_transition(x, *targs),
+        lambda x: tr_op.fused_transition_plain(x, *targs),
+        (x,), (x.bfloat16(),)))
+
+    c, nc = 192, 128
+    x = rnd(b, l, l, c)
+    pre = (1 + rnd(c, scale=0.1), rnd(c, scale=0.1),
+           rnd(4 * nc + c, c, scale=c ** -0.5), rnd(4 * nc + c, scale=0.5),
+           mask)
+    cases.append((
+        'tri_mult_pre', '(4,288,288,192) -> nc=128 x2 + 192',
+        lambda x: tm_op.tri_mult_pre(x, *pre),
+        lambda x: tm_op.tri_mult_pre_plain(x, *pre),
+        (x,), (x.bfloat16(),)))
+    y, fg, res = rnd(b, l, l, nc), rnd(b, l, l, c), rnd(b, l, l, c)
+    post = (1 + rnd(nc, scale=0.1), rnd(nc, scale=0.1),
+            rnd(c, nc, scale=nc ** -0.5), rnd(c, scale=0.1))
+    cases.append((
+        'tri_mult_post', '(4,288,288,128) -> 192',
+        lambda y, fg, res: tm_op.tri_mult_post(y, *post, fg, res),
+        lambda y, fg, res: tm_op.tri_mult_post_plain(y, *post, fg, res),
+        (y, fg, res), (y.bfloat16(), fg.bfloat16(), res.bfloat16())))
+    static, prev = rnd(b, l, l, 128), rnd(b, l, l, c, scale=2.0)
+    rec = (rnd(b, 64), 1 + rnd(c, scale=0.1), rnd(c, scale=0.1),
+           rnd(15, c), torch.randint(0, 15, (b, l, l), generator=g,
+                                     device=dev))
+    cases.append((
+        'recycle_embed', '(4,288,288,128) + (4,288,288,192) -> 192',
+        lambda sp, pp: re_op.recycle_embed(sp, rec[0], pp, *rec[1:]),
+        lambda sp, pp: re_op.recycle_embed_plain(sp, rec[0], pp, *rec[1:]),
+        (static, prev), (static.bfloat16(), prev.bfloat16())))
+
+    h, ds, pq, pv, c = 12, 16, 4, 8, 128
+    qs, ks, vs = (rnd(b, l, h, ds, scale=0.25) for _ in range(3))
+    pts = [rnd(b, l, h, p, 3, scale=3.0) for p in (pq, pq, pv)]
+    pw = -0.5 * (0.1 + torch.rand(h, generator=g, device=dev)) * 0.2
+    ibias, pair = rnd(b, h, l, l), rnd(b, l, l, c)
+    cases.append((
+        'ipa_attention', 'pair (4,288,288,128) H=12',
+        lambda qs, ks, vs, pair: ipa_op.ipa_attention(
+            qs, ks, vs, *pts, pw, ibias, mask, pair),
+        lambda qs, ks, vs, pair: ipa_op.ipa_attention_plain(
+            qs, ks, vs, *pts, pw, ibias, mask, pair),
+        (qs, ks, vs, pair),
+        (qs.bfloat16(), ks.bfloat16(), vs.bfloat16(), pair.bfloat16())))
+    return cases
+
+
+KERNEL_META = {
+    'triangle_attention_packed': (
+        'abx_tpu_torch/csrc/tri_attention.cu',
+        'abx_tpu/ops/tri_attention.py:226'),
+    'pair_bias_proj': ('abx_tpu_torch/csrc/row_linear.cu',
+                       'abx_tpu/ops/pair_bias.py:44'),
+    'fused_transition': ('abx_tpu_torch/csrc/transition.cu',
+                         'abx_tpu/ops/transition.py:47'),
+    'ipa_attention': ('abx_tpu_torch/csrc/ipa_attention.cu',
+                      'abx_tpu/ops/ipa_attention.py:102'),
+    'tri_mult_pre': ('abx_tpu_torch/csrc/row_linear.cu',
+                     'abx_tpu/ops/tri_mult.py:72'),
+    'tri_mult_post': ('abx_tpu_torch/csrc/row_linear.cu',
+                      'abx_tpu/ops/tri_mult.py:168'),
+    'recycle_embed': ('abx_tpu_torch/csrc/recycle_embed.cu',
+                      'abx_tpu/ops/recycle_embed.py:61'),
+}
+FLAGS_TOL = 1e-4   # flags on vs off, relative to max|ref|
+
+
+def as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def phase_kernels(torch, dev):
+    results = {}
+    for name, label, kern, plain, a32, a16 in kernel_cases(torch, dev):
+        ref = as_tuple(plain(*a32))
+        got32 = as_tuple(kern(*a32))
+        got16 = as_tuple(kern(*a16))
+        torch.cuda.synchronize()
+        e32 = e16 = abs16 = 0.0
+        for r, g32, g16 in zip(ref, got32, got16):
+            if g32.shape != r.shape or g16.shape != r.shape:
+                fail(f'{name} {label}: shape {tuple(g32.shape)} vs '
+                     f'{tuple(r.shape)}')
+            if not (torch.isfinite(g32).all() and torch.isfinite(g16).all()):
+                fail(f'{name} {label}: non-finite output')
+            d32, m = rel_err(g32, r)
+            d16, _ = rel_err(g16, r)
+            if d32 > F32_TOL * m or d16 > BF16_TOL * m:
+                fail(f'{name} {label}: f32 err {d32:.3g}, bf16 err '
+                     f'{d16:.3g}, max|ref| {m:.3g}')
+            e32, e16 = max(e32, d32 / m), max(e16, d16 / m)
+            abs16 = max(abs16, d16)
+        ms = time_ms(torch, lambda: kern(*a16))
+        plain_ms = time_ms(torch, lambda: plain(*a16))
+        print(f'kernel {name} {label}: f32 err/max|ref| {e32:.3g}, bf16 '
+              f'err/max|ref| {e16:.3g}; bf16 kernel {ms:.3f} ms, plain '
+              f'{plain_ms:.3f} ms', flush=True)
+        entry = results.setdefault(name, {'cases': []})
+        entry['cases'].append({
+            'case': label, 'max_abs_err': abs16, 'rel_err_bf16': e16,
+            'rel_err_f32': e32, 'ms': ms, 'plain_ms': plain_ms})
+        del ref, got32, got16
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_flags(torch, dev):
+    import numpy as np
+    from abx_tpu_torch.cli import runner
+    from abx_tpu_torch.models.network import forward_with_recycling, zero_prev
+    from abx_tpu_torch.sampling.sampler import Sampler, SamplerConfig
+    from abx_tpu_torch.sampling.sampler import to_device_batch
+    from abx_tpu_torch.utils import params as params_lib
+    rt = runner.build_runtime(
+        os.path.join(HERE, 'config', 'config_model.json'), seed=0,
+        device=dev.type)
+    cfg, diffuser, model = rt.config, rt.diffuser, rt.model
+    # Dense random weights: AF2's zero 'final' inits would hide layers from
+    # the comparison.
+    params_lib.load_flax_params(model, params_lib.dense_random_tree(
+        params_lib.state_dict_tree(model), seed=0, scale=0.5))
+    feats, _ = next(runner.load_complexes(
+        os.path.join(HERE, 'testdata', '6ct7_H_L_S.pdb'), rt))
+    batch = {k: np.stack([v] * 4) for k, v in feats.items()}
+    sampler = Sampler(model, diffuser, cfg.model, SamplerConfig(num_t=8))
+    prepared = sampler.prepare(to_device_batch(batch, dev),
+                               torch.Generator(device=dev).manual_seed(0))
+    b, l = prepared['seq'].shape
+    t_vec = torch.full((b,), 0.6, device=dev)
+    rot_s, trans_s = diffuser.score_scaling(t_vec)
+    prepared.update(t=t_vec, rot_score_scaling=rot_s,
+                    trans_score_scaling=trans_s)
+    prepared.update(zero_prev(b, l, cfg.model, device=dev))
+    prepared = {k: v for k, v in prepared.items() if torch.is_tensor(v)}
+    static = model.static_embeddings(prepared)
+    flags = ['ABX_FUSED_TRI_ATTN', 'ABX_TRI_ATTN_LN_FOLD',
+             'ABX_PACKED_SEQ_ATTN', 'ABX_FUSED_PAIR_BIAS',
+             'ABX_FUSED_TRANSITION', 'ABX_FUSED_IPA_ATTN',
+             'ABX_FUSED_TRIMULT', 'ABX_FUSED_RECYCLE']
+    outs = {}
+    for value in ('1', '0'):
+        for f in flags:
+            os.environ[f] = value
+        out = forward_with_recycling(
+            lambda mb: model(mb, static_acts=static), prepared,
+            cfg.model.num_recycle, cfg.model.embeddings_and_seqformer.prev_pos)
+        torch.cuda.synchronize()
+        outs[value] = {
+            'rot_score': out['heads']['folding']['rot_score'],
+            'trans_score': out['heads']['folding']['trans_score'],
+            'logits': out['heads']['sequence_module']['logits'],
+        }
+    for f in flags:
+        os.environ.pop(f)
+    valid = prepared['mask'] > 0
+    report = {}
+    for key in outs['0']:
+        on, off = outs['1'][key][valid], outs['0'][key][valid]
+        if not (torch.isfinite(on).all() and torch.isfinite(off).all()):
+            fail(f'flags on/off: non-finite {key}')
+        d, m = rel_err(on, off)
+        report[key] = {'max_abs_err': d, 'max_abs_ref': m}
+        print(f'flags on vs off (f32, full width, valid rows) {key}: max '
+              f'|diff| {d:.3g}, max|ref| {m:.3g}', flush=True)
+        if d > FLAGS_TOL * m:
+            fail(f'flags on vs off: {key} differs by {d:.3g} '
+                 f'(max|ref| {m:.3g})')
+    return report
+
+
+def check_pdb(path):
+    chains, coords = set(), []
+    with open(path) as f:
+        for line in f:
+            if line.startswith('ATOM'):
+                chains.add(line[21])
+                coords.append([float(line[30:38]), float(line[38:46]),
+                               float(line[46:54])])
+    if chains != {'H', 'L', 'S'}:
+        fail(f'{path}: chains {sorted(chains)}, expected H, L, S')
+    import math
+    if not coords or not all(math.isfinite(v) for c in coords for v in c):
+        fail(f'{path}: empty or non-finite coordinates')
+
+
+def phase_design(torch, card):
+    from abx_tpu_torch.cli import design
+    from abx_tpu_torch.ops import ipa_attention as ipa_op
+    from abx_tpu_torch.ops import pair_bias as pb_op
+    from abx_tpu_torch.ops import recycle_embed as re_op
+    from abx_tpu_torch.ops import transition as tr_op
+    from abx_tpu_torch.ops import tri_attention as ta_op
+    from abx_tpu_torch.ops import tri_mult as tm_op
+    wrappers = {'triangle_attention_packed': ta_op.triangle_attention_packed,
+                'pair_bias_proj': pb_op.pair_bias_proj,
+                'fused_transition': tr_op.fused_transition,
+                'ipa_attention': ipa_op.ipa_attention,
+                'tri_mult_pre': tm_op.tri_mult_pre,
+                'tri_mult_post': tm_op.tri_mult_post,
+                'recycle_embed': re_op.recycle_embed}
+    num_t, num_samples, num_recycle = 8, 4, 2
+    passes = (num_t + 1) * (num_recycle + 1)     # prime step + num_t steps
+    per_pass = {'triangle_attention_packed': 3, 'pair_bias_proj': 3,
+                'fused_transition': 1, 'ipa_attention': 8,
+                'tri_mult_pre': 2, 'tri_mult_post': 2, 'recycle_embed': 1}
+    expected = {k: n * passes for k, n in per_pass.items()}
+    with tempfile.TemporaryDirectory() as out:
+        argv = ['--pdb_file', os.path.join(HERE, 'testdata',
+                                           '6ct7_H_L_S.pdb'),
+                '--output_dir', out, '--model_config',
+                os.path.join(HERE, 'config', 'config_model.json'),
+                '--seed', '0', '--bf16', '--device', 'cuda',
+                '--num_samples', str(num_samples), '--batch_samples',
+                str(num_samples), '--num_t', str(num_t)]
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.time()
+        log = design.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        for i in range(num_samples):
+            path = os.path.join(out, 'design', f'{i:04d}', '6ct7_H_L_S.pdb')
+            if not os.path.exists(path):
+                fail(f'design wrote no {path}')
+            check_pdb(path)
+        check_pdb(os.path.join(out, 'design', 'reference', '6ct7_H_L_S.pdb'))
+    for name, n in launches.items():
+        if n == 0 or n != expected[name]:
+            fail(f'{name}: {n} launches on the design path, expected '
+                 f'{expected[name]}')
+    if not log:
+        fail('design returned no sampling record')
+    sampling_s = sum(e for _, _, e in log)
+    per_step = sampling_s / (num_t + 1)
+    sph = num_samples / sampling_s * 3600.0
+    print(f'design (bf16, B=4, L=288, num_recycle 2, num_t {num_t}) on '
+          f'{card}: wall {wall:.2f} s incl. model build, sampling '
+          f'{sampling_s:.2f} s, {per_step:.3f} s per diffusion step '
+          f'({num_t} steps + prime), {sph:.1f} samples/hour at num_t '
+          f'{num_t}', flush=True)
+    print(f'launches on the design path: {json.dumps(launches)} '
+          f'(expected {json.dumps(expected)})', flush=True)
+    return launches, {'wall_s': wall, 'sampling_s': sampling_s,
+                      's_per_step': per_step, 'samples_per_hour': sph}
+
+
+def main():
+    if not os.path.isdir(os.path.join(HERE, 'abx_tpu_torch')):
+        fail('abx_tpu_torch/ not found beside chip_smoke.py: run it from a '
+             'checkout of the repository')
+    sys.path.insert(0, HERE)
+    import torch
+    if not torch.cuda.is_available():
+        fail('torch.cuda.is_available() is false: this needs a CUDA device')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device('cuda')
+    card = card_line()
+    print(f'device: {torch.cuda.get_device_name(0)}, count '
+          f'{torch.cuda.device_count()}, torch {torch.__version__}, CUDA '
+          f'{torch.version.cuda}; card: {card}', flush=True)
+
+    from abx_tpu_torch.ops import _lib
+    t0 = time.time()
+    path = _lib.build()
+    _lib.lib()
+    print(f'kernels built and loaded in {time.time() - t0:.1f} s: {path}',
+          flush=True)
+
+    kernels = phase_kernels(torch, dev)
+    flags = phase_flags(torch, dev)
+    launches, design_stats = phase_design(torch, card)
+
+    rows = []
+    for name, (source, replaces) in KERNEL_META.items():
+        cases = kernels[name]['cases']
+        rows.append({
+            'name': name, 'route': 'cuda', 'source': source,
+            'replaces': replaces, 'launches': launches[name],
+            'max_abs_err': max(c['max_abs_err'] for c in cases),
+            'ms': cases[0]['ms'], 'plain_ms': cases[0]['plain_ms'],
+            'cases': cases})
+    print(card)
+    print(json.dumps({'kernels': rows, 'flags_on_vs_off': flags,
+                      'design': design_stats}))
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == '__main__':
+    main()

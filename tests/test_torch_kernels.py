@@ -1,0 +1,334 @@
+"""The port's CUDA kernels against their plain PyTorch versions.
+
+Torch-only (no jax), so that it runs on the machine with the card:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
+
+The `gpu`-marked tests skip without a CUDA device.  On the card, f32
+inputs are held to the plain f32 version at 1e-4 * max|ref| and bf16
+inputs at 3e-2 * max|ref| of the f32 plain version.  The shared case
+builders here are also used by tests/test_torch_ops.py against the JAX
+package.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from abx_tpu_torch.ops import ipa_attention as ipa_op
+from abx_tpu_torch.ops import pair_bias as pair_bias_op
+from abx_tpu_torch.ops import recycle_embed as recycle_op
+from abx_tpu_torch.ops import transition as transition_op
+from abx_tpu_torch.ops import tri_attention as tri_op
+from abx_tpu_torch.ops import tri_mult as tri_mult_op
+
+
+def t(a):
+    return torch.as_tensor(np.asarray(a, np.float32))
+
+
+def _ln_np(x, scale, bias):
+    m = x.mean(-1, keepdims=True)
+    v = np.maximum((x * x).mean(-1, keepdims=True) - m * m, 0.0)
+    return (x - m) / np.sqrt(v + 1e-5) * scale + bias
+
+
+def _mask(rng, b, l):
+    mask = np.ones((b, l), np.float32)
+    mask[:, -2:] = 0.0
+    mask[0, rng.integers(0, l - 2)] = 0.0
+    return mask
+
+
+def _tri_case(seed, b, r, l, h, d, c_out, orientation):
+    rng = np.random.default_rng(seed)
+    c = h * d
+    x = rng.standard_normal((b, r, l, c)).astype(np.float32)
+    if orientation == 'per_column':
+        x = np.ascontiguousarray(np.swapaxes(x, 1, 2))
+    return dict(
+        x=x,
+        scale=(rng.random(c) + 0.5).astype(np.float32),
+        lnb=(0.1 * rng.standard_normal(c)).astype(np.float32),
+        w=[(rng.standard_normal((c, c)) / np.sqrt(c)).astype(np.float32)
+           for _ in range(4)],
+        bg=(0.1 * rng.standard_normal(c)).astype(np.float32),
+        wo=(rng.standard_normal((c, c_out)) / np.sqrt(c)).astype(np.float32),
+        bo=(0.1 * rng.standard_normal(c_out)).astype(np.float32),
+        res=rng.standard_normal(x.shape[:3] + (c_out,)).astype(np.float32),
+        bias=rng.standard_normal((b, h, x.shape[2], x.shape[2])).astype(
+            np.float32),
+        mask=_mask(rng, b, x.shape[2]))
+
+
+def _tri_port(k, full=True, fn=None):
+    fn = fn or tri_op.triangle_attention_packed_plain
+    wq, wk, wv, wg = (t(w.T) for w in k['w'])
+    kw = {}
+    if full:
+        kw = dict(ln=(t(k['scale']), t(k['lnb'])), gate=(wg, t(k['bg'])),
+                  out_proj=(t(k['wo'].T), t(k['bo'])), residual=t(k['res']))
+    return fn(t(k['x']), wq, wk, wv, t(k['bias']), t(k['mask']), **kw)
+
+
+def _pair_bias_case(seed, b, r, l, c, h):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, r, l, c)).astype(np.float32),
+            (rng.random(c) + 0.5).astype(np.float32),
+            rng.standard_normal(c).astype(np.float32),
+            rng.standard_normal((c, h)).astype(np.float32))
+
+
+def _transition_case(seed, b, r, l, c, factor=4):
+    rng = np.random.default_rng(seed)
+    n = c * factor
+    return (rng.standard_normal((b, r, l, c)).astype(np.float32),
+            (rng.random(c) + 0.5).astype(np.float32),
+            (0.1 * rng.standard_normal(c)).astype(np.float32),
+            (rng.standard_normal((c, n)) / np.sqrt(c)).astype(np.float32),
+            (0.1 * rng.standard_normal(n)).astype(np.float32),
+            (rng.standard_normal((n, c)) / np.sqrt(n)).astype(np.float32),
+            (0.1 * rng.standard_normal(c)).astype(np.float32))
+
+
+def _ipa_case(seed, b, l, h, ds, pq, pv, c):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    return [(0.5 * rng.standard_normal((b, l, h, ds))).astype(f),
+            (0.5 * rng.standard_normal((b, l, h, ds))).astype(f),
+            rng.standard_normal((b, l, h, ds)).astype(f),
+            rng.standard_normal((b, l, h, pq, 3)).astype(f),
+            rng.standard_normal((b, l, h, pq, 3)).astype(f),
+            rng.standard_normal((b, l, h, pv, 3)).astype(f),
+            (-0.3 * (rng.random(h) + 0.5)).astype(f),
+            rng.standard_normal((b, h, l, l)).astype(f),
+            _mask(rng, b, l),
+            rng.standard_normal((b, l, l, c)).astype(f)]
+
+
+def _tri_mult_pre_case(seed, b, l, c, nc):
+    """x, scale, bias, w (C, 4*nc + C) flax layout, wb, mask."""
+    rng = np.random.default_rng(seed)
+    n = 4 * nc + c
+    return (rng.standard_normal((b, l, l, c)).astype(np.float32),
+            (rng.random(c) + 0.5).astype(np.float32),
+            (0.1 * rng.standard_normal(c)).astype(np.float32),
+            (rng.standard_normal((c, n)) / np.sqrt(c)).astype(np.float32),
+            (0.5 * rng.standard_normal(n)).astype(np.float32),
+            _mask(rng, b, l))
+
+
+def _tri_mult_post_case(seed, b, l, nc, c):
+    """y, scale, bias, w (nc, C) flax layout, wb, fg, res."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, l, l, nc)).astype(np.float32),
+            (rng.random(nc) + 0.5).astype(np.float32),
+            (0.1 * rng.standard_normal(nc)).astype(np.float32),
+            (rng.standard_normal((nc, c)) / np.sqrt(nc)).astype(np.float32),
+            (0.1 * rng.standard_normal(c)).astype(np.float32),
+            rng.standard_normal((b, l, l, c)).astype(np.float32),
+            rng.standard_normal((b, l, l, c)).astype(np.float32))
+
+
+def _recycle_case(seed, b, l, c0, c, n_bins):
+    """static_pair, t_vec, prev_pair, scale, bias, table, bins (int)."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, l, l, c0)).astype(np.float32),
+            rng.standard_normal((b, c - c0)).astype(np.float32),
+            (2.0 * rng.standard_normal((b, l, l, c)) + 0.5).astype(
+                np.float32),
+            (rng.random(c) + 0.5).astype(np.float32),
+            (0.1 * rng.standard_normal(c)).astype(np.float32),
+            rng.standard_normal((n_bins, c)).astype(np.float32),
+            rng.integers(0, n_bins, (b, l, l)))
+
+
+def _tri_mult_pre_port(args, fn=None):
+    x, s, lb, w, wb, mask = args
+    fn = fn or tri_mult_op.tri_mult_pre_plain
+    return fn(t(x), t(s), t(lb), t(w.T), t(wb), t(mask))
+
+
+def _tri_mult_post_port(args, fn=None):
+    y, s, lb, w, wb, fg, res = args
+    fn = fn or tri_mult_op.tri_mult_post_plain
+    return fn(t(y), t(s), t(lb), t(w.T), t(wb), t(fg), t(res))
+
+
+def _recycle_port(args, fn=None):
+    fn = fn or recycle_op.recycle_embed_plain
+    return fn(*[t(a) for a in args[:-1]], torch.as_tensor(args[-1]))
+
+
+TRI_SHAPES = [  # (b, r, l, h, d): tri-attention-like and seq-like (D=17)
+    (2, 7, 9, 2, 8),
+    (2, 1, 13, 4, 17),
+    (1, 5, 11, 3, 17),
+]
+
+
+# --- wrappers: CPU tensors take the plain version; counters -----------------
+
+def test_wrappers_on_cpu_run_plain_version_without_counting():
+    wrappers = (tri_op.triangle_attention_packed,
+                pair_bias_op.pair_bias_proj, transition_op.fused_transition,
+                ipa_op.ipa_attention, tri_mult_op.tri_mult_pre,
+                tri_mult_op.tri_mult_post, recycle_op.recycle_embed)
+    before = [w.launches for w in wrappers]
+    k = _tri_case(5, 1, 3, 7, 2, 8, 16, 'per_row')
+    torch.testing.assert_close(
+        _tri_port(k, fn=tri_op.triangle_attention_packed), _tri_port(k))
+    pair, s, lb, w = _pair_bias_case(5, 1, 5, 5, 8, 2)
+    torch.testing.assert_close(
+        pair_bias_op.pair_bias_proj(t(pair), t(s), t(lb), t(w.T)),
+        pair_bias_op.pair_bias_proj_plain(t(pair), t(s), t(lb), t(w.T)))
+    targs = [t(a) for a in _transition_case(5, 1, 3, 5, 8)]
+    targs[3], targs[5] = targs[3].T, targs[5].T
+    torch.testing.assert_close(transition_op.fused_transition(*targs),
+                               transition_op.fused_transition_plain(*targs))
+    iargs = [t(a) for a in _ipa_case(5, 1, 6, 2, 4, 2, 2, 16)]
+    for g, w in zip(ipa_op.ipa_attention(*iargs),
+                    ipa_op.ipa_attention_plain(*iargs)):
+        torch.testing.assert_close(g, w)
+    pre = _tri_mult_pre_case(5, 1, 7, 8, 4)
+    for g, w in zip(_tri_mult_pre_port(pre, tri_mult_op.tri_mult_pre),
+                    _tri_mult_pre_port(pre)):
+        torch.testing.assert_close(g, w)
+    post = _tri_mult_post_case(5, 1, 7, 4, 8)
+    torch.testing.assert_close(
+        _tri_mult_post_port(post, tri_mult_op.tri_mult_post),
+        _tri_mult_post_port(post))
+    rec = _recycle_case(5, 1, 6, 8, 12, 5)
+    torch.testing.assert_close(_recycle_port(rec, recycle_op.recycle_embed),
+                               _recycle_port(rec))
+    assert [w.launches for w in wrappers] == before
+
+
+# --- on the card: CUDA kernel vs plain version ------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernels run only on the card)')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device('cuda')
+
+
+def _close_on_card(got, want, dtype):
+    """max|got - want| <= tol * max|want|: tol = 1e-4 for f32 (the bf16x3
+    products carry ~16 mantissa bits, so an output's error scales with the
+    magnitude of the terms summed into it, not with the output itself) and
+    3e-2 for bf16 against the f32 plain version."""
+    got, want = got.float().cpu(), want.float().cpu()
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    err = (got - want).abs().max().item()
+    assert err <= tol * want.abs().max().item(), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', TRI_SHAPES + [(1, 3, 70, 4, 48)])
+def test_tri_attention_kernel_matches_plain(cuda, shape, dtype):
+    b, r, l, h, d = shape
+    k = _tri_case(6, b, r, l, h, d, h * d, 'per_row')
+    wq, wk, wv, wg = (t(w.T).to(cuda) for w in k['w'])
+    kw = dict(ln=(t(k['scale']).to(cuda), t(k['lnb']).to(cuda)),
+              gate=(wg, t(k['bg']).to(cuda)),
+              out_proj=(t(k['wo'].T).to(cuda), t(k['bo']).to(cuda)))
+    x, bias, mask = (t(k[n]).to(cuda) for n in ('x', 'bias', 'mask'))
+    res = t(k['res']).to(cuda)
+    want = tri_op.triangle_attention_packed_plain(
+        x, wq, wk, wv, bias, mask, residual=res, **kw)
+    got = tri_op.triangle_attention_packed(
+        x.to(dtype), wq, wk, wv, bias, mask, residual=res.to(dtype), **kw)
+    torch.cuda.synchronize()
+    _close_on_card(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_pair_bias_kernel_matches_plain(cuda, dtype):
+    pair, s, lb, w = (t(a).to(cuda) for a in
+                      _pair_bias_case(7, 2, 9, 70, 40, 5))
+    want = pair_bias_op.pair_bias_proj_plain(pair, s, lb, w.T)
+    got = pair_bias_op.pair_bias_proj(pair.to(dtype), s, lb, w.T)
+    torch.cuda.synchronize()
+    _close_on_card(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_transition_kernel_matches_plain(cuda, dtype):
+    x, s, lb, w1, b1, w2, b2 = (t(a).to(cuda) for a in
+                                _transition_case(8, 2, 5, 70, 48))
+    want = transition_op.fused_transition_plain(x, s, lb, w1.T, b1, w2.T, b2)
+    got = transition_op.fused_transition(x.to(dtype), s, lb,
+                                         w1.T.contiguous(), b1,
+                                         w2.T.contiguous(), b2)
+    torch.cuda.synchronize()
+    _close_on_card(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_ipa_attention_kernel_matches_plain(cuda, dtype):
+    args = [t(a).to(cuda) for a in _ipa_case(9, 2, 37, 3, 16, 4, 8, 32)]
+    want = ipa_op.ipa_attention_plain(*args)
+    low = [a.to(dtype) if i in (0, 1, 2, 9) else a
+           for i, a in enumerate(args)]
+    got = ipa_op.ipa_attention(*low)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _close_on_card(g, w, dtype)
+
+
+# (b, l, c, nc): nc below one 64-channel chunk, and above one with a ragged
+# last chunk; odd L.
+TRI_MULT_SHAPES = [(2, 37, 48, 40), (1, 21, 40, 72)]
+
+
+def _on_card(args, dev, dtype, low):
+    """numpy case -> f32 card tensors, and the ones at `low` in dtype."""
+    f32 = [t(a).to(dev) if a.dtype.kind == 'f'
+           else torch.as_tensor(a).to(dev) for a in args]
+    return f32, [a.to(dtype) if i in low else a for i, a in enumerate(f32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', TRI_MULT_SHAPES)
+def test_tri_mult_pre_kernel_matches_plain(cuda, shape, dtype):
+    x, s, lb, w, wb, mask = _tri_mult_pre_case(10, *shape)
+    f32, low = _on_card((x, s, lb, w.T.copy(), wb, mask), cuda, dtype, {0})
+    want = tri_mult_op.tri_mult_pre_plain(*f32)
+    got = tri_mult_op.tri_mult_pre(*low)
+    torch.cuda.synchronize()
+    for g, w_ in zip(got, want):
+        _close_on_card(g, w_, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', TRI_MULT_SHAPES)
+def test_tri_mult_post_kernel_matches_plain(cuda, shape, dtype):
+    b, l, c, nc = shape
+    y, s, lb, w, wb, fg, res = _tri_mult_post_case(11, b, l, nc, c)
+    f32, low = _on_card((y, s, lb, w.T.copy(), wb, fg, res), cuda, dtype,
+                        {0, 5, 6})
+    want = tri_mult_op.tri_mult_post_plain(*f32)
+    got = tri_mult_op.tri_mult_post(*low)
+    torch.cuda.synchronize()
+    _close_on_card(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', [(2, 37, 128, 192, 15),
+                                   (1, 9, 20, 36, 7)])
+def test_recycle_embed_kernel_matches_plain(cuda, shape, dtype):
+    f32, low = _on_card(_recycle_case(12, *shape), cuda, dtype, {0, 2})
+    want = recycle_op.recycle_embed_plain(*f32)
+    got = recycle_op.recycle_embed(*low)
+    torch.cuda.synchronize()
+    _close_on_card(got, want, dtype)

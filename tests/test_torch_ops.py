@@ -1,0 +1,174 @@
+"""The port's kernel modules against the JAX package.
+
+For each of `triangle_attention_packed`, `pair_bias_proj`,
+`fused_transition`, `ipa_attention`, `tri_mult_pre`, `tri_mult_post` and
+`recycle_embed`, the port's plain PyTorch version
+(what the wrapper runs on a CPU tensor) is held against the JAX
+`*_reference` function and against the JAX Pallas kernel in interpret
+mode, in f32 at small shapes with several heads, D=17, odd L, a partial
+key mask and both orientations.  Tolerance: atol = rtol = 1e-4.
+
+The case builders and the on-card half (kernel vs plain version) live in
+tests/test_torch_kernels.py, which runs without jax.
+"""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+
+from abx_tpu.ops.ipa_attention import ipa_attention as jax_ipa
+from abx_tpu.ops.ipa_attention import ipa_attention_reference
+from abx_tpu.ops.pair_bias import pair_bias_proj as jax_pair_bias
+from abx_tpu.ops.pair_bias import pair_bias_proj_reference
+from abx_tpu.ops.recycle_embed import recycle_embed as jax_recycle
+from abx_tpu.ops.recycle_embed import recycle_embed_reference
+from abx_tpu.ops.transition import fused_transition as jax_transition
+from abx_tpu.ops.transition import fused_transition_reference
+from abx_tpu.ops.tri_attention import triangle_attention_packed as jax_packed
+from abx_tpu.ops.tri_attention import triangle_attention_packed_reference
+from abx_tpu.ops.tri_mult import tri_mult_post as jax_tri_mult_post
+from abx_tpu.ops.tri_mult import tri_mult_post_reference
+from abx_tpu.ops.tri_mult import tri_mult_pre as jax_tri_mult_pre
+from abx_tpu.ops.tri_mult import tri_mult_pre_reference
+from abx_tpu_torch.ops import ipa_attention as ipa_op
+from abx_tpu_torch.ops import pair_bias as pair_bias_op
+from abx_tpu_torch.ops import transition as transition_op
+from tests.test_torch_kernels import (TRI_SHAPES, _ipa_case, _ln_np, _pair_bias_case,
+                                     _recycle_case, _recycle_port,
+                                     _transition_case, _tri_case,
+                                     _tri_mult_post_case, _tri_mult_post_port,
+                                     _tri_mult_pre_case, _tri_mult_pre_port,
+                                     _tri_port, t)
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+# --- triangle_attention_packed ---------------------------------------------
+
+
+
+@pytest.mark.parametrize('shape,orientation', [
+    (s, o) for s in TRI_SHAPES for o in ('per_row', 'per_column')
+    if s[1] > 1 or o == 'per_row'])
+def test_tri_attention_plain_matches_jax_reference(shape, orientation):
+    b, r, l, h, d = shape
+    k = _tri_case(0, b, r, l, h, d, 2 * h * d - 3, orientation)
+    wq, wk, wv, wg = k['w']
+    ln_x = _ln_np(k['x'], k['scale'], k['lnb'])
+    att = np.asarray(triangle_attention_packed_reference(
+        jnp.asarray(ln_x), jnp.asarray(wq), jnp.asarray(wk), jnp.asarray(wv),
+        jnp.asarray(k['bias']), jnp.asarray(k['mask'])))
+    gate = 1.0 / (1.0 + np.exp(-(ln_x @ wg + k['bg'])))
+    want = k['res'] + (att * gate) @ k['wo'] + k['bo']
+    np.testing.assert_allclose(_tri_port(k).numpy(), want, **TOL)
+    # Without the LN / gate / out-proj options: the bare reference.
+    want_bare = np.asarray(triangle_attention_packed_reference(
+        jnp.asarray(k['x']), jnp.asarray(wq), jnp.asarray(wk),
+        jnp.asarray(wv), jnp.asarray(k['bias']), jnp.asarray(k['mask'])))
+    np.testing.assert_allclose(_tri_port(k, full=False).numpy(), want_bare,
+                               **TOL)
+
+
+@pytest.mark.parametrize('shape', TRI_SHAPES)
+def test_tri_attention_plain_matches_pallas_interpret(shape):
+    b, r, l, h, d = shape
+    k = _tri_case(1, b, r, l, h, d, h * d, 'per_row')
+    wq, wk, wv, wg = (jnp.asarray(w) for w in k['w'])
+    got = np.asarray(jax_packed(
+        jnp.asarray(k['x']), wq, wk, wv, jnp.asarray(k['bias']),
+        jnp.asarray(k['mask']), row_block=1 if r == 1 else 4,
+        ln=(jnp.asarray(k['scale']), jnp.asarray(k['lnb'])),
+        gate=(wg, jnp.asarray(k['bg'])),
+        out_proj=(jnp.asarray(k['wo']), jnp.asarray(k['bo'])),
+        residual=jnp.asarray(k['res']), interpret=True))
+    np.testing.assert_allclose(_tri_port(k).numpy(), got, **TOL)
+
+
+# --- pair_bias_proj --------------------------------------------------------
+
+@pytest.mark.parametrize('shape', [(2, 9, 9, 16, 4), (1, 13, 13, 24, 32),
+                                   (2, 1, 11, 8, 3)])
+def test_pair_bias_plain_matches_jax(shape):
+    pair, scale, bias, w = _pair_bias_case(2, *shape)
+    got = pair_bias_op.pair_bias_proj_plain(t(pair), t(scale), t(bias),
+                                            t(w.T)).numpy()
+    want = np.moveaxis(np.asarray(pair_bias_proj_reference(
+        jnp.asarray(pair), jnp.asarray(scale), jnp.asarray(bias),
+        jnp.asarray(w))), -1, -3)
+    np.testing.assert_allclose(got, want, **TOL)
+    kern = np.asarray(jax_pair_bias(
+        jnp.asarray(pair), jnp.asarray(scale), jnp.asarray(bias),
+        jnp.asarray(w), row_block=8, transpose_out=True, interpret=True))
+    np.testing.assert_allclose(got, kern, **TOL)
+
+
+# --- fused_transition ------------------------------------------------------
+
+@pytest.mark.parametrize('shape', [(2, 7, 9, 16), (1, 11, 11, 24)])
+def test_transition_plain_matches_jax(shape):
+    x, s, lb, w1, b1, w2, b2 = _transition_case(3, *shape)
+    got = transition_op.fused_transition_plain(
+        t(x), t(s), t(lb), t(w1.T), t(b1), t(w2.T), t(b2)).numpy()
+    args = [jnp.asarray(a) for a in (x, s, lb, w1, b1, w2, b2)]
+    np.testing.assert_allclose(
+        got, np.asarray(fused_transition_reference(*args)), **TOL)
+    np.testing.assert_allclose(
+        got, np.asarray(jax_transition(*args, row_block=4, interpret=True)),
+        **TOL)
+
+
+# --- ipa_attention ---------------------------------------------------------
+
+@pytest.mark.parametrize('shape', [(2, 11, 3, 8, 2, 4, 16),
+                                   (1, 13, 4, 16, 4, 8, 32)])
+def test_ipa_attention_plain_matches_jax(shape):
+    args = _ipa_case(4, *shape)
+    got = [o.numpy() for o in ipa_op.ipa_attention_plain(
+        *[t(a) for a in args])]
+    jargs = [jnp.asarray(a) for a in args]
+    for want in (ipa_attention_reference(*jargs),
+                 jax_ipa(*jargs, row_block=8, interpret=True)):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, np.asarray(w), **TOL)
+
+
+# --- tri_mult_pre / tri_mult_post ------------------------------------------
+# Small shapes: odd L, a partial mask, nc below and above one 64-channel
+# chunk of the kernel's packed layout.
+
+TRI_MULT_CPU_SHAPES = [(2, 9, 16, 8), (1, 11, 24, 72)]
+
+
+@pytest.mark.parametrize('shape', TRI_MULT_CPU_SHAPES)
+def test_tri_mult_pre_plain_matches_jax(shape):
+    args = _tri_mult_pre_case(13, *shape)
+    got = [o.numpy() for o in _tri_mult_pre_port(args)]
+    jargs = [jnp.asarray(a) for a in args]
+    for want in (tri_mult_pre_reference(*jargs),
+                 jax_tri_mult_pre(*jargs, row_block=4, interpret=True)):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize('shape', TRI_MULT_CPU_SHAPES)
+def test_tri_mult_post_plain_matches_jax(shape):
+    b, l, c, nc = shape
+    args = _tri_mult_post_case(14, b, l, nc, c)
+    got = _tri_mult_post_port(args).numpy()
+    jargs = [jnp.asarray(a) for a in args]
+    for want in (tri_mult_post_reference(*jargs),
+                 jax_tri_mult_post(*jargs, row_block=4, interpret=True)):
+        np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+# --- recycle_embed ---------------------------------------------------------
+
+@pytest.mark.parametrize('shape', [(2, 9, 16, 24, 7), (1, 11, 20, 36, 15)])
+def test_recycle_embed_plain_matches_jax(shape):
+    args = _recycle_case(15, *shape)
+    got = _recycle_port(args).numpy()
+    jargs = [jnp.asarray(a) for a in args[:-1]] + [
+        jnp.asarray(args[-1], jnp.int32)]
+    for want in (recycle_embed_reference(*jargs),
+                 jax_recycle(*jargs, row_block=4, interpret=True)):
+        np.testing.assert_allclose(got, np.asarray(want), **TOL)
