@@ -34,6 +34,10 @@ def main(argv: Optional[List[str]] = None):
     p.add_argument('--seed', type=int, default=42)
     p.add_argument('--tiny', action='store_true',
                    help='tiny random model (smoke runs)')
+    p.add_argument('--esm_checkpoint', type=str, default=None,
+                   help='ESM2 weights (.pt fair-esm, or a msgpack of the '
+                        'JAX package\'s ESM2 tree): conditions the trunk '
+                        'on ESM2 embeddings')
     p.add_argument('--bf16', action='store_true',
                    help='bfloat16 trunk compute')
     p.add_argument('--device', type=str, default='cuda',
@@ -44,7 +48,8 @@ def main(argv: Optional[List[str]] = None):
                         format='%(asctime)-15s [%(levelname)s] %(message)s')
     rt = runner.build_runtime(args.model_config, args.model, tiny=args.tiny,
                               seed=args.seed, bf16=args.bf16,
-                              device=args.device)
+                              device=args.device,
+                              esm_checkpoint=args.esm_checkpoint)
     complexes = runner.load_complexes(args.pdb_file, rt)
     return runner.run_sampling(
         rt, os.path.join(args.output_dir, 'design'), complexes,

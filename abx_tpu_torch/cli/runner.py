@@ -1,7 +1,6 @@
 """Shared CLI runtime on one device: model/diffuser construction and the
 design sampling driver (counterpart of abx_tpu/cli/runner.py, without the
-mesh).  Complexes are read and written with the JAX package's
-framework-free data and output modules.
+mesh).
 """
 
 from __future__ import annotations
@@ -16,14 +15,16 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from abx_tpu.data import dataset as ds
-from abx_tpu.data.dataset import DataConfig
-from abx_tpu.sampling.output import postprocess_reference, postprocess_sample
 from abx_tpu_torch import config as config_lib
+from abx_tpu_torch.data import dataset as ds
+from abx_tpu_torch.data.dataset import DataConfig
 from abx_tpu_torch.diffusion.joint import JointConfig, JointDiffuser
+from abx_tpu_torch.models.esm import AntibodyESM, ESM2Config, esm2_num_heads
 from abx_tpu_torch.models.modules import reset_parameters
 from abx_tpu_torch.models.network import ScoreNetworkIteration
 from abx_tpu_torch.ops import _lib
+from abx_tpu_torch.sampling.output import (postprocess_reference,
+                                           postprocess_sample)
 from abx_tpu_torch.sampling.sampler import (Sampler, SamplerConfig,
                                             to_device_batch)
 from abx_tpu_torch.utils import params as params_lib
@@ -38,6 +39,9 @@ class Runtime:
     model: ScoreNetworkIteration
     data_config: DataConfig
     device: torch.device
+    # The ESM2 conditioning module (frozen, in the compute dtype) when
+    # esm.enabled, else None.
+    esm: Optional[AntibodyESM] = None
 
 
 def resolve_device(name: str) -> torch.device:
@@ -52,7 +56,15 @@ def resolve_device(name: str) -> torch.device:
 def build_runtime(model_config_path: Optional[str] = None,
                   checkpoint_path: Optional[str] = None, tiny: bool = False,
                   seed: int = 0, bf16: bool = False,
-                  device: str = 'cuda') -> Runtime:
+                  device: str = 'cuda',
+                  esm_checkpoint: Optional[str] = None,
+                  esm_random: bool = False,
+                  esm_layers: Optional[int] = None,
+                  esm_dim: Optional[int] = None) -> Runtime:
+    """`esm_checkpoint` (a msgpack of the JAX package's ESM2 tree, or a
+    fair-esm `.pt`) or `esm_random` (a full-shape ESM2 with random weights,
+    for speed and memory studies) turns ESM conditioning on; `esm_layers`
+    and `esm_dim` override the ESM2 shape."""
     dev = resolve_device(device)
     if dev.type == 'cuda':
         # Build/load the kernels now: a missing toolkit fails before any
@@ -65,6 +77,14 @@ def build_runtime(model_config_path: Optional[str] = None,
         cfg.data.max_antigen_len = 32
     else:
         cfg = config_lib.load_config(model_config_path)
+    if esm_checkpoint or esm_random:
+        # Before the model is built, so the trunk's ESM projection exists.
+        es = cfg.model.embeddings_and_seqformer.esm
+        es.enabled = True
+        if esm_layers:
+            es.num_layers = esm_layers
+        if esm_dim:
+            es.embed_channel = esm_dim
     diffuser = JointDiffuser(JointConfig.from_dict(cfg.diffuser.to_dict()),
                              device=dev)
     dcfg = DataConfig(cfg.data.max_antibody_len, cfg.data.max_antigen_len,
@@ -81,7 +101,47 @@ def build_runtime(model_config_path: Optional[str] = None,
         reset_parameters(model, seed)
         logger.warning('no checkpoint: using randomly initialised weights')
     model.to(dev).eval()
-    return Runtime(cfg, diffuser, model, dcfg, dev)
+    esm = None
+    if esm_checkpoint:
+        esm = _esm_module(cfg, dtype)
+        state = (params_lib.fair_esm_state_dict(esm_checkpoint)
+                 if esm_checkpoint.endswith(('.pt', '.pth', '.ckpt'))
+                 else params_lib.esm_flax_to_state_dict(
+                     params_lib.read_msgpack(esm_checkpoint)))
+        params_lib.load_esm_params(esm.module, state, dev, dtype)
+        logger.info('loaded ESM2 weights %s', esm_checkpoint)
+    elif esm_random:
+        esm = _random_esm(cfg, dtype, dev, seed)
+        logger.warning('esm_random: ESM2 with randomly initialised weights '
+                       '(speed and memory studies only)')
+    if esm is not None:
+        esm.requires_grad_(False).eval()
+    return Runtime(cfg, diffuser, model, dcfg, dev, esm)
+
+
+def _esm_module(cfg, dtype) -> AntibodyESM:
+    """The configured ESM2, built on the 'meta' device (no storage)."""
+    es = cfg.model.embeddings_and_seqformer.esm
+    esm_cfg = ESM2Config(
+        num_layers=es.num_layers, embed_dim=es.embed_channel,
+        attention_heads=esm2_num_heads(es.embed_channel,
+                                       override=es.get('num_heads')))
+    return AntibodyESM(esm_cfg, cfg.data.max_antibody_len,
+                       sep_pad_num=es.esm_embed.sep_pad_num, dtype=dtype,
+                       device='meta')
+
+
+def _random_esm(cfg, dtype, dev: torch.device, seed: int) -> AntibodyESM:
+    """Full-shape ESM2 with random weights, made on the device: every
+    parameter, LayerNorm scales included, is 0.02 * N(0, 1) in the compute
+    dtype, from a generator on `dev` seeded with `seed` (no host-side copy
+    of the 2.8 B weights of ESM2-3B)."""
+    esm = _esm_module(cfg, dtype).to_empty(device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for p in esm.parameters():
+            p.normal_(0.0, 0.02, generator=g)
+    return esm
 
 
 def load_complexes(pdb_file: str, runtime: Runtime):
@@ -116,7 +176,8 @@ def run_sampling(runtime: Runtime, output_dir: str, complexes,
     num_t = num_t or cfg.diffuser.inference_step
     batch_samples = batch_samples or 1
     sampler = Sampler(runtime.model, runtime.diffuser, cfg.model,
-                      SamplerConfig(num_t=num_t, generate_area=generate_area))
+                      SamplerConfig(num_t=num_t, generate_area=generate_area),
+                      esm_fn=runtime.esm)
     ref_dir = os.path.join(output_dir, 'reference')
     os.makedirs(ref_dir, exist_ok=True)
     results_log = []

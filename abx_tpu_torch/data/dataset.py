@@ -1,0 +1,363 @@
+"""Host-side dataset: PDB complexes -> static-shape model batches.
+
+The port's own copy of the parts of `abx_tpu/data/dataset.py` that its
+runner calls, with the same names: `complex_from_pdb`, `prepare_example`
+(antibody-CA centering, `Patch_Around_Anchor` interface cropping, antigen
+windowing to <= max_antigen_len residues, static-shape padding of the
+[antibody ‖ antigen] layout), `stack_batch` and `DataConfig`.  Padding is
+masked (mask=0, seq=UNK).
+
+Known reference quirk reproduced deliberately: `antigen_origin_*` fields are
+captured AFTER the interface crop, so output PDBs carry the cropped antigen
+patch — kept for output parity.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import pathlib
+import random
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from abx_tpu_torch.common import residue_constants as rc
+from abx_tpu_torch.data import pdb_io
+from abx_tpu_torch.preprocess.numbering import annotate_domain
+
+CA = rc.atom_order['CA']
+
+
+def str_seq_to_index(seq: str) -> np.ndarray:
+    return rc.sequence_to_index(seq)
+
+
+# ---------------------------------------------------------------------------
+# Complex assembly from a PDB file.
+# ---------------------------------------------------------------------------
+
+def complex_from_pdb(pdb_file: str, heavy_chain: str, light_chain: str,
+                     antigen_chains: Sequence[str]) -> Dict[str, np.ndarray]:
+    """Build the npz-schema dict directly from a PDB file.
+
+    Equivalent to reference `process_pdb` + `make_pdb_npz`
+    (data/utils.py:32-83, make_ab_data_from_mmcif.py:142-191): variable-domain
+    trim + CDR labels per antibody chain, then chain merging with
+    chain_id/residx offsets (H=0, L=1 with +512 residx, antigen chains 2+).
+    """
+    chains = pdb_io.parse_pdb(pdb_file)
+
+    def _maybe_flip_case(a, b):
+        if a.islower() and a.upper() == b:
+            a = a.upper()
+        elif b.islower() and b.upper() == a:
+            b = b.upper()
+        return a, b
+
+    heavy_chain, light_chain = _maybe_flip_case(heavy_chain, light_chain)
+
+    ab_parts = []
+    for idx, (cid, chain_tag) in enumerate(
+            [(heavy_chain, 'H'), (light_chain, 'L')]):
+        if not cid:
+            continue
+        if cid not in chains:
+            raise ValueError(f'chain {cid} not in {sorted(chains)}')
+        data = chains[cid]
+        ann = annotate_domain(data.str_seq, chain_tag)
+        if ann is None:
+            raise ValueError(f'could not number chain {cid} ({chain_tag})')
+        sl = slice(ann.start, ann.end)
+        ab_parts.append({
+            'str_seq': data.str_seq[sl],
+            'coords': data.coords[sl],
+            'coord_mask': data.coord_mask[sl],
+            'cdr_def': ann.cdr_def.astype(np.int32),
+            'chain_id': np.full((ann.end - ann.start,), idx, dtype=np.int32),
+            'residx': (np.arange(ann.end - ann.start, dtype=np.int32)
+                       + (rc.residue_chain_index_offset if idx > 0 else 0)),
+        })
+
+    ag_parts = []
+    for i, cid in enumerate(antigen_chains):
+        cid = cid.strip()
+        if not cid or cid not in chains:
+            continue
+        data = chains[cid]
+        n = len(data.str_seq)
+        ag_parts.append({
+            'str_seq': data.str_seq,
+            'coords': data.coords,
+            'coord_mask': data.coord_mask,
+            'cdr_def': np.full((n,), rc.antigen_cdr_index, dtype=np.int32),
+            'chain_id': np.full((n,), i + 2, dtype=np.int32),
+            'residx': np.arange(n, dtype=np.int32),
+        })
+
+    def _merge(parts, prefix):
+        if not parts:
+            return {
+                f'{prefix}_str_seq': '',
+                f'{prefix}_coords': np.zeros((0, 14, 3), np.float32),
+                f'{prefix}_coord_mask': np.zeros((0, 14), bool),
+                f'{prefix}_cdr_def': np.zeros((0,), np.int32),
+                f'{prefix}_chain_ids': np.zeros((0,), np.int32),
+                f'{prefix}_residx': np.zeros((0,), np.int32),
+            }
+        return {
+            f'{prefix}_str_seq': ''.join(p['str_seq'] for p in parts),
+            f'{prefix}_coords': np.concatenate(
+                [p['coords'] for p in parts]),
+            f'{prefix}_coord_mask': np.concatenate(
+                [p['coord_mask'] for p in parts]),
+            f'{prefix}_cdr_def': np.concatenate(
+                [p['cdr_def'] for p in parts]),
+            f'{prefix}_chain_ids': np.concatenate(
+                [p['chain_id'] for p in parts]),
+            f'{prefix}_residx': np.concatenate(
+                [p['residx'] for p in parts]),
+        }
+
+    out = {'name': pathlib.Path(pdb_file).stem}
+    out.update(_merge(ab_parts, 'antibody'))
+    out.update(_merge(ag_parts, 'antigen'))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Example preparation: centering, interface crop, windowing.
+# ---------------------------------------------------------------------------
+
+def _continuous_range(flag: np.ndarray):
+    idx = np.nonzero(flag)[0]
+    return int(idx.min()), int(idx.max())
+
+
+def interface_crop(example: Dict, patch_radius: float = 16.0,
+                   anchor_neighbors: int = 5, is_training: bool = False
+                   ) -> Optional[Dict]:
+    """`Patch_Around_Anchor` equivalent (reference dataset.py:497-551).
+
+    Keeps antigen residues with any atom within `patch_radius` A of a CDR
+    anchor residue, expanded by +-`anchor_neighbors`; marks CDR anchor
+    positions in `anchor_flag`.
+    """
+    cdr_def = example['antibody_cdr_def']
+    anchor_flag = np.zeros_like(cdr_def)
+    keep = set()
+    ab_pos = example['antibody_coords']
+    ab_mask = example['antibody_coord_mask']
+    ag_pos = example['antigen_coords']
+    ag_mask = example['antigen_coord_mask']
+
+    for sele in ['H1', 'H2', 'H3', 'L1', 'L2', 'L3']:
+        enum = rc.cdr_str_to_enum[sele]
+        flag = cdr_def == enum
+        if not flag.any():
+            continue
+        first, last = _continuous_range(flag)
+        left = max(0, first - 1)
+        right = min(last + 1, cdr_def.shape[0] - 1)
+        anchor_flag[left] = enum
+        anchor_flag[right] = enum
+        if ag_pos.shape[0] == 0:
+            continue
+        anchor_pos = ab_pos[[left, right]]       # (2, 14, 3)
+        anchor_mask = ab_mask[[left, right]]
+        diff = ag_pos[:, None, :, None, :] - anchor_pos[None, :, None, :, :]
+        pair_mask = (ag_mask[:, None, :, None] > 0) & (
+            anchor_mask[None, :, None, :] > 0)
+        dist = np.where(pair_mask, np.linalg.norm(diff, axis=-1), 1e10)
+        min_dist = dist.reshape(ag_pos.shape[0], -1).min(axis=1)
+        hits = np.nonzero(min_dist < patch_radius)[0]
+        for j in hits:
+            keep.update(range(j - anchor_neighbors, j + anchor_neighbors))
+
+    # Restrict to residues with CA coordinates present (reference :516-518).
+    # NOTE the reference masks on coordinate values, we use the mask proper.
+    ca_present = np.nonzero(example['antigen_coord_mask'][:, CA])[0] \
+        if ag_pos.shape[0] else np.array([], dtype=int)
+    antigen_idx = sorted(set(keep).intersection(set(ca_present.tolist())))
+    antigen_idx = [i for i in antigen_idx if 0 <= i < ag_pos.shape[0]]
+
+    example = dict(example)
+    example['anchor_flag'] = anchor_flag
+    for k in ['antigen_coords', 'antigen_coord_mask', 'antigen_residx',
+              'antigen_chain_ids', 'antigen_cdr_def']:
+        example[k] = example[k][antigen_idx]
+    example['antigen_str_seq'] = ''.join(
+        example['antigen_str_seq'][i] for i in antigen_idx)
+
+    if not is_training:
+        example.update(
+            antigen_origin_coords=example['antigen_coords'],
+            antigen_origin_coord_mask=example['antigen_coord_mask'],
+            antigen_origin_str_seq=example['antigen_str_seq'],
+            antigen_origin_residx=example['antigen_residx'],
+            antigen_origin_chain_ids=example['antigen_chain_ids'],
+        )
+    if len(antigen_idx) == 0:
+        return None
+    return example
+
+
+def antigen_window(example: Dict, max_len: int, is_training: bool = False,
+                   rng: Optional[random.Random] = None) -> Dict:
+    """Window the cropped antigen to <= max_len residues
+    (reference `sample_with_struc`, dataset.py:469-495, deterministic center
+    at eval)."""
+    n = len(example['antigen_str_seq'])
+    if n <= max_len:
+        return example
+    struc_mask = example['antigen_coord_mask'][:, CA]
+    rng = rng or random.Random(0)
+    num_struc = int(struc_mask.sum())
+    if 0 < num_struc < n:
+        s, e = 0, n
+        while s < n and not struc_mask[s]:
+            s += 1
+        while e > 0 and not struc_mask[e - 1]:
+            e -= 1
+        if e - s > max_len:
+            start = rng.randint(s, e - max_len) if is_training else \
+                s + (e - s - max_len) // 2
+        else:
+            start = max(0, min(s - (max_len - (e - s)) // 2, n - max_len))
+    else:
+        start = rng.randint(0, n - max_len) if is_training else \
+            (n - max_len) // 2
+    end = start + max_len
+    example = dict(example)
+    for k in ['antigen_coords', 'antigen_coord_mask', 'antigen_residx',
+              'antigen_chain_ids', 'antigen_cdr_def']:
+        example[k] = example[k][start:end]
+    example['antigen_str_seq'] = example['antigen_str_seq'][start:end]
+    return example
+
+
+def center_on_antibody(example: Dict) -> Dict:
+    """Center all coordinates on the antibody CA centroid
+    (reference dataset.py:167-179)."""
+    example = dict(example)
+    ab_mask = example['antibody_coord_mask'][:, CA]
+    ab_ca = example['antibody_coords'][:, CA]
+    center = ab_ca.sum(axis=0) / (ab_mask.sum() + 1e-5)
+    for k in ['antibody_coords', 'antigen_coords']:
+        m = example[k.replace('coords', 'coord_mask')]
+        example[k] = (example[k] - center[None, None, :]) * m[..., None]
+    return example
+
+
+# ---------------------------------------------------------------------------
+# Static-shape padding & batching.
+# ---------------------------------------------------------------------------
+
+def pad_example(example: Dict, max_antibody_len: int, max_antigen_len: int
+                ) -> Dict[str, np.ndarray]:
+    """Pad one prepared example to the static [ab ‖ ag] layout."""
+    def pad1(x, n, value=0):
+        if x.shape[0] > n:
+            raise ValueError(
+                f'length {x.shape[0]} exceeds static size {n}; raise '
+                f'config.data.max_* (shape budget)')
+        pad_shape = (n - x.shape[0],) + x.shape[1:]
+        return np.concatenate(
+            [x, np.full(pad_shape, value, dtype=x.dtype)], axis=0)
+
+    ab_seq = str_seq_to_index(example['antibody_str_seq'])
+    ag_seq = str_seq_to_index(example['antigen_str_seq'])
+    n_ab, n_ag = ab_seq.shape[0], ag_seq.shape[0]
+
+    feats = {
+        'seq': np.concatenate([
+            pad1(ab_seq, max_antibody_len, rc.unk_restype_index),
+            pad1(ag_seq, max_antigen_len, rc.unk_restype_index)]),
+        'mask': np.concatenate([
+            pad1(np.ones((n_ab,), np.float32), max_antibody_len),
+            pad1(np.ones((n_ag,), np.float32), max_antigen_len)]),
+        'atom14_gt_positions': np.concatenate([
+            pad1(example['antibody_coords'].astype(np.float32),
+                 max_antibody_len),
+            pad1(example['antigen_coords'].astype(np.float32),
+                 max_antigen_len)]),
+        'atom14_gt_exists': np.concatenate([
+            pad1(example['antibody_coord_mask'].astype(np.float32),
+                 max_antibody_len),
+            pad1(example['antigen_coord_mask'].astype(np.float32),
+                 max_antigen_len)]),
+        'cdr_def': np.concatenate([
+            pad1(example['antibody_cdr_def'].astype(np.int32),
+                 max_antibody_len),
+            pad1(example['antigen_cdr_def'].astype(np.int32),
+                 max_antigen_len, rc.antigen_cdr_index)]),
+        'chain_id': np.concatenate([
+            pad1(example['antibody_chain_ids'].astype(np.int32),
+                 max_antibody_len),
+            pad1(example['antigen_chain_ids'].astype(np.int32),
+                 max_antigen_len)]),
+        'residx': np.concatenate([
+            pad1(example['antibody_residx'].astype(np.int32),
+                 max_antibody_len),
+            pad1(example['antigen_residx'].astype(np.int32),
+                 max_antigen_len)]),
+        'anchor_flag': pad1(example['anchor_flag'].astype(np.int32),
+                            max_antibody_len),
+        'heavy_len': np.asarray(
+            int((example['antibody_chain_ids'] == 0).sum()), np.int32),
+        'light_len': np.asarray(
+            int((example['antibody_chain_ids'] == 1).sum()), np.int32),
+    }
+    meta = {
+        'name': example['name'],
+        'str_heavy_seq': example['antibody_str_seq'][
+            :int((example['antibody_chain_ids'] == 0).sum())],
+        'str_light_seq': example['antibody_str_seq'][
+            int((example['antibody_chain_ids'] == 0).sum()):],
+        'antigen_origin_str_seq': example.get('antigen_origin_str_seq', ''),
+        'antigen_origin_coords': example.get(
+            'antigen_origin_coords', np.zeros((0, 14, 3), np.float32)),
+        'antigen_origin_coord_mask': example.get(
+            'antigen_origin_coord_mask', np.zeros((0, 14), bool)),
+        'antigen_origin_chain_ids': example.get(
+            'antigen_origin_chain_ids', np.zeros((0,), np.int32)),
+        'antigen_origin_residx': example.get(
+            'antigen_origin_residx', np.zeros((0,), np.int32)),
+    }
+    return feats, meta
+
+
+def stack_batch(examples: List) -> Dict[str, np.ndarray]:
+    feats = {k: np.stack([e[k] for e in examples]) for k in examples[0]}
+    return feats
+
+
+@dataclasses.dataclass
+class DataConfig:
+    max_antibody_len: int = 256
+    max_antigen_len: int = 32
+    patch_radius: float = 16.0
+    anchor_neighbors: int = 5
+    # Parity flag: the reference picks a SEEDED RANDOM antigen window at
+    # eval too (dataset.py:469-495); we default to the deterministic center
+    # (reproducible eval) and enable this for distribution-level comparisons
+    # against reference outputs.
+    parity_random_antigen_window: bool = False
+
+
+def prepare_example(example: Dict, cfg: DataConfig,
+                    is_training: bool = False,
+                    rng: Optional[random.Random] = None) -> Optional[Dict]:
+    """Full per-example host pipeline: schema -> centered, cropped, padded."""
+    renamed = dict(example)
+    # npz schema uses *_coords/_coord_mask names already; nothing to rename.
+    renamed = center_on_antibody(renamed)
+    renamed = interface_crop(renamed, cfg.patch_radius, cfg.anchor_neighbors,
+                             is_training)
+    if renamed is None:
+        return None
+    random_window = is_training or getattr(
+        cfg, 'parity_random_antigen_window', False)
+    renamed = antigen_window(renamed, cfg.max_antigen_len, random_window,
+                             rng)
+    return pad_example(renamed, cfg.max_antibody_len, cfg.max_antigen_len)
+

@@ -10,7 +10,7 @@ from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
-from abx_tpu.common import residue_constants as rc
+from abx_tpu_torch.common import residue_constants as rc
 from abx_tpu_torch.geometry import frames as frame_ops
 from abx_tpu_torch.geometry.frames import table
 from abx_tpu_torch.utils.tensor import batched_gather

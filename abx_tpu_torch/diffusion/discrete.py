@@ -13,7 +13,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from abx_tpu.common import residue_constants as rc
+from abx_tpu_torch.common import residue_constants as rc
 
 
 def poisson_counts_from_uniform(lam, u, max_k: int = 16):

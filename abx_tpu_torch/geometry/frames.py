@@ -1,8 +1,8 @@
 """Backbone/side-chain frame and torsion feature math.
 
 Counterpart of abx_tpu/geometry/frames.py, built from the same static
-residue-constant tables (imported from the framework-free
-`abx_tpu.common.residue_constants`).
+residue-constant tables (the port's copy,
+`abx_tpu_torch/common/residue_constants.py`).
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from abx_tpu.common import residue_constants as rc
+from abx_tpu_torch.common import residue_constants as rc
 from abx_tpu_torch.geometry.rigid import Rigid, rigids_from_3_points
 from abx_tpu_torch.utils.tensor import batched_gather
 

@@ -10,7 +10,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from abx_tpu.common import residue_constants as rc
+from abx_tpu_torch.common import residue_constants as rc
 from abx_tpu_torch.geometry import frames as frame_ops
 from abx_tpu_torch.models.modules import MLP, Embedding
 

@@ -78,8 +78,9 @@ class ScoreNetworkIteration(nn.Module):
     def static_embeddings(self, batch):
         return self.seqformer.static_embeddings(batch)
 
-    def forward(self, batch, static_acts=None):
-        seq_act, pair_act = self.seqformer(batch, static_acts=static_acts)
+    def forward(self, batch, static_acts=None, esm_fn=None):
+        seq_act, pair_act = self.seqformer(batch, static_acts=static_acts,
+                                           esm_fn=esm_fn)
         representations = {'seq': seq_act, 'pair': pair_act}
         folding = self.diffusion_module(representations, batch)
         seq_out = self.sequence_module(folding['structure_act'], batch)

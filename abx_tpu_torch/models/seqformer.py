@@ -7,8 +7,11 @@ pair bias, the seq attention, the triangle-multiplication blocks around
 the contraction, both triangle attentions and the pair transition run
 through the hand-written kernels in `abx_tpu_torch/ops`; elsewhere the
 modules take the same plain path as the JAX package off the TPU.
-`SpatialDepthWiseInception` (`inp_kernels`) and the ESM branch are off in
-the released config and not ported yet: they raise NotImplementedError.
+With `esm.enabled`, `EmbeddingAndSeqformer` adds the projected, learned
+layer-weighted ESM2 embedding of the pass's noisy antibody sequence to the
+antibody track (`models/esm.py`).  `SpatialDepthWiseInception`
+(`inp_kernels`) is off in the released config and not ported yet: it
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from abx_tpu.common import residue_constants as rc
+from abx_tpu_torch.common import residue_constants as rc
 from abx_tpu_torch.models.encoder import PairEmbedding, ResidueEmbedding
 from abx_tpu_torch.models.modules import (MLP, Embedding, LayerNorm, Linear,
                                           fused_dense, get_timestep_embedding,
@@ -378,8 +381,6 @@ class EmbeddingAndSeqformer(nn.Module):
     def __init__(self, config, antibody_len: int, dtype=torch.float32):
         super().__init__()
         c = config
-        if c.esm.enabled:
-            raise NotImplementedError('ESM conditioning is not ported yet')
         self.config = c
         self.antibody_len = antibody_len
         self.dtype = dtype
@@ -390,6 +391,13 @@ class EmbeddingAndSeqformer(nn.Module):
                                       dtype=dtype)
         self.proj_rel_pos = Embedding(c.max_relative_feature * 2 + 2, pc,
                                       dtype=dtype)
+        if c.esm.enabled:
+            # Learned layer weights (zeros: a uniform softmax at init).
+            self.esm_embed_weights = nn.Parameter(
+                torch.zeros(c.esm.num_layers + 1))
+            self.esm_norm = LayerNorm(c.esm.embed_channel, dtype=dtype)
+            self.proj_esm_embed = MLP(c.esm.embed_channel, (sc, sc),
+                                      ('linear', 'linear'), dtype=dtype)
         self.aa_proj_norm = LayerNorm(sc, dtype=dtype)
         self.aa_proj = MLP(sc, (sc, sc), ('linear', 'linear'), dtype=dtype)
         self.encode_residue_emb = ResidueEmbedding(sc, dtype=dtype)
@@ -411,6 +419,11 @@ class EmbeddingAndSeqformer(nn.Module):
         offset = pos[:, None, :] - pos[:, :, None]
         return torch.clamp(offset + mrf, 0, 2 * mrf) + 1
 
+    def esm_layer_weights(self):
+        """Softmax of the learned weights over the ESM layer
+        representations."""
+        return torch.softmax(self.esm_embed_weights, dim=-1)
+
     def static_embeddings(self, batch):
         """Trajectory-invariant embedding terms (they read seq_t only at
         fixed positions, which the reverse step never changes)."""
@@ -429,7 +442,11 @@ class EmbeddingAndSeqformer(nn.Module):
         static_pair = static_pair + self.encode_pair_emb(batch)
         return {'static_seq': static_seq, 'static_pair': static_pair}
 
-    def forward(self, batch, static_acts=None):
+    def forward(self, batch, static_acts=None, esm_fn=None):
+        """`esm_fn(ab_aatype, heavy_len, light_len, layer_weights)` (an
+        `AntibodyESM`) is required when `esm.enabled`: it runs on this
+        pass's noisy antibody sequence and returns the weighted (B, L_ab,
+        D) embedding."""
         c = self.config
         dt = self.dtype
         seq_t = batch['seq_t'].long()
@@ -438,6 +455,14 @@ class EmbeddingAndSeqformer(nn.Module):
         if static_acts is None:
             static_acts = self.static_embeddings(batch)
         ab_seq_act = self.proj_aa_type(seq_t[:, :ab])
+        if c.esm.enabled:
+            if esm_fn is None:
+                raise ValueError('esm.enabled needs an esm_fn')
+            esm_act = esm_fn(seq_t[:, :ab], batch['heavy_len'],
+                             batch['light_len'],
+                             self.esm_layer_weights()).to(dt)
+            ab_seq_act = ab_seq_act + self.proj_esm_embed(
+                self.esm_norm(esm_act))
         b, l = seq_t.shape
         seq_act = torch.cat(
             [ab_seq_act, ab_seq_act.new_zeros((b, l - ab,

@@ -1,10 +1,11 @@
 """Build and load the package's CUDA kernels (`abx_tpu_torch/csrc/*.cu`).
 
-The sources are compiled with `nvcc` for sm_90a into one shared library
-with a plain C interface, loaded with ctypes.  The build happens at first
-use, into `build/abx_tpu_torch/<hash>/` at the repository root, keyed on a
-hash of the sources and flags, so a second process reuses it.  Nothing is
-built or loaded when this module is imported.
+The sources are compiled with `nvcc` for sm_90a, one process per `.cu`
+file, all started together, and linked into one shared library with a
+plain C interface, loaded with ctypes.  The build happens at first use,
+into `build/abx_tpu_torch/<hash>/` at the repository root, keyed on a hash
+of the sources and flags, so a second process reuses it.  Nothing is built
+or loaded when this module is imported.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'abx_tpu_torch'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+              '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -36,6 +37,7 @@ _SIGNATURES = {
     'abx_tri_attention_core': [_I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I,
                                _P, _P],
     'abx_ipa_attention': [_I] + [_P] * 14 + [_I] * 7 + [_P],
+    'abx_esm_attention': [_I] + [_P] * 6 + [_I] * 4 + [_P],
 }
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -64,24 +66,47 @@ def _nvcc() -> str:
     return path
 
 
+def _run_all(cmds, logs):
+    """Run the commands together, each writing its output to its log;
+    return their exit codes."""
+    procs = []
+    for cmd, log in zip(cmds, logs):
+        with open(log, 'w') as f:
+            f.write(' '.join(cmd) + '\n')
+            f.flush()
+            procs.append(subprocess.Popen(cmd, stdout=f,
+                                          stderr=subprocess.STDOUT))
+    return [p.wait() for p in procs]
+
+
 def build() -> Path:
     """Compile the kernels if this source hash has no library yet; return
-    the library path.  The compiler's output (with -Xptxas -v register and
+    the library path.  The compilers' output (with -Xptxas -v register and
     spill counts) is kept beside it as build.log."""
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / 'libabx_kernels.so'
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f'libabx_kernels.{os.getpid()}.tmp.so'
+    tag = os.getpid()
+    nvcc = _nvcc()
     cu, _ = _sources()
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / 'build.log').write_text(' '.join(cmd) + '\n' + proc.stdout
-                                       + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed with code {proc.returncode}:\n'
-                           f'{proc.stderr[-8000:]}')
+    objs = [out_dir / f'{src.stem}.{tag}.o' for src in cu]
+    logs = [out_dir / f'{src.stem}.{tag}.log' for src in cu]
+    codes = _run_all([[nvcc, *NVCC_FLAGS, '-c', '-o', str(o), str(src)]
+                      for src, o in zip(cu, objs)], logs)
+    tmp = out_dir / f'libabx_kernels.{tag}.tmp.so'
+    if not any(codes):
+        logs.append(out_dir / f'link.{tag}.log')
+        codes += _run_all([[nvcc, *NVCC_FLAGS, '-shared', '-o', str(tmp),
+                            *map(str, objs)]], logs[-1:])
+    text = ''.join(log.read_text() for log in logs)
+    (out_dir / 'build.log').write_text(text)
+    for path in objs + logs:
+        path.unlink(missing_ok=True)
+    if any(codes):
+        raise RuntimeError(f'nvcc failed (exit codes {codes}):\n'
+                           f'{text[-8000:]}')
     os.replace(tmp, lib)
     return lib
 

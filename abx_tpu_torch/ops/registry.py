@@ -70,3 +70,26 @@ def use_fused_ipa_attention() -> bool:
     """IPA logits + softmax + scalar/point/pair attends in one kernel; the
     (B, H, L, L) logits and probabilities never reach device memory."""
     return os.environ.get('ABX_FUSED_IPA_ATTN', '1') == '1'
+
+
+def use_fused_esm_attention() -> bool:
+    """ESM2 self-attention through the hand-written kernel
+    (`ops/esm_attention.py`); the (B, H, L, L) f32 logits never reach
+    device memory.
+
+    Default ON in the port, where the JAX package defaults it off.  Its
+    default was a TPU v5e measurement of the per-(batch, head) grid's
+    overhead, which says nothing about the H100; and with the flag off the
+    card's ESM path would run the plain einsum attention, which the port's
+    main path may not.  Checked before `use_flash_esm`, as in
+    `abx_tpu/models/esm.py`: fused -> flash -> plain."""
+    return os.environ.get('ABX_FUSED_ESM_ATTN', '1') == '1'
+
+
+def use_flash_esm() -> bool:
+    """ESM2 attention through `torch.nn.functional.
+    scaled_dot_product_attention` with a boolean key mask: the counterpart
+    of the JAX package's `_esm_flash_attention`, which calls JAX's library
+    flash kernel.  A library call, not a kernel of this repository; default
+    off, and only taken with `ABX_FUSED_ESM_ATTN=0`."""
+    return os.environ.get('ABX_FLASH_ESM', '0') == '1'

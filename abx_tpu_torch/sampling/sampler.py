@@ -57,8 +57,13 @@ class Sampler:
     """Design-mode sampler over a `ScoreNetworkIteration`."""
 
     def __init__(self, model, diffuser, model_config,
-                 sampler_config: SamplerConfig):
+                 sampler_config: SamplerConfig, esm_fn=None):
+        """`esm_fn` (an `AntibodyESM`) conditions the trunk when
+        `esm.enabled`: it runs inside every trunk pass, on that pass's
+        recycled noisy sequence, as in the JAX package and the
+        reference."""
         self.model = model
+        self.esm_fn = esm_fn
         self.diffuser = diffuser
         self.model_config = model_config
         self.config = c = sampler_config
@@ -125,7 +130,7 @@ class Sampler:
             {**static, 'seq_t': state['seq_t']})
 
         def single(mb):
-            return model(mb, static_acts=static_acts)
+            return model(mb, static_acts=static_acts, esm_fn=self.esm_fn)
 
         ts, ts_model = self.step_grids()
         steps_out = []

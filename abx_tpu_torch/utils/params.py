@@ -10,10 +10,17 @@ its name and layout.  This module is the only place where layouts change.
 Sources: the tree from `abx_tpu.cli.runner._random_init` (as numpy arrays)
 or a `.msgpack` written by `abx_tpu/utils/checkpoint.py` (flax msgpack
 bytes, read here with the `msgpack` package — no flax or jax needed).
+
+ESM2 weights have their own bridge (`esm_flax_to_state_dict`,
+`fair_esm_state_dict`, `load_esm_params`): the port's `models/esm.py`
+carries fair-esm's names, so a fair-esm state dict loads as it is, and the
+JAX package's ESM tree (per-layer `layer_{i}`, or the scanned `layers/layer`
+with a leading layer axis) is renamed onto them.
 """
 
 from __future__ import annotations
 
+import re
 from collections.abc import Mapping
 from typing import Dict, Tuple
 
@@ -117,3 +124,76 @@ def state_dict_tree(model: torch.nn.Module):
             node = node.setdefault(k, {})
         node[parts[-1]] = v
     return {'params': {'impl': root}}
+
+
+# fair-esm checkpoint entries that are not encoder parameters (the rotary
+# frequency buffers, the contact head) or that belong to the masked-LM head,
+# which the port does not have yet.
+_ESM_DROPPED = ('rot_emb.inv_freq', 'contact_head.', '_float_tensor',
+                'embed_positions.', 'lm_head')
+
+
+def _esm_entry(path, v):
+    """One leaf of the JAX ESM tree -> (fair-esm name, array)."""
+    leaf = path[-1]
+    if leaf == 'kernel':
+        v = v.T
+    if leaf in ('kernel', 'scale', 'embedding'):
+        path = path[:-1] + ['weight']
+    return '.'.join(path), v
+
+
+def esm_flax_to_state_dict(tree) -> Dict[str, np.ndarray]:
+    """The JAX package's ESM2 tree ({'params': ...}, numpy or array leaves)
+    -> the port's ESM2 state dict (fair-esm names, numpy arrays).  Takes
+    both layouts: per-layer `layer_{i}` and the scanned `layers/layer` with
+    a leading layer axis.  The masked-LM head is dropped."""
+    out = {}
+    for path, v in _flatten(tree).items():
+        p = list(path)
+        if p[0] == 'params':
+            p = p[1:]
+        if p[0] == 'lm_head':
+            continue
+        if p[:2] == ['layers', 'layer']:
+            for i in range(v.shape[0]):
+                k, vi = _esm_entry(['layers', str(i)] + p[2:], v[i])
+                out[k] = vi
+            continue
+        m = re.fullmatch(r'layer_(\d+)', p[0])
+        if m:
+            p = ['layers', m.group(1)] + p[1:]
+        k, v = _esm_entry(p, v)
+        out[k] = v
+    return out
+
+
+def fair_esm_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A fair-esm ESM2 `.pt` checkpoint -> the port's ESM2 state dict
+    (counterpart of `abx_tpu/utils/torch_convert.py::convert_esm2_ckpt`):
+    the `encoder.` prefixes stripped, and the rotary buffers, contact head
+    and masked-LM head dropped."""
+    ckpt = torch.load(path, map_location='cpu', weights_only=True)
+    sd = ckpt.get('model', ckpt)
+    out = {}
+    for k, v in sd.items():
+        k = k.replace('encoder.sentence_encoder.', '').replace('encoder.', '')
+        if not any(d in k for d in _ESM_DROPPED):
+            out[k] = v
+    return out
+
+
+def load_esm_params(module: torch.nn.Module, state, device, dtype) -> None:
+    """Load an ESM2 state dict (tensors or numpy arrays) into `module`, in
+    the compute dtype on `device` (frozen weights: bf16 halves the 3B
+    model's residency).  The module may live on the 'meta' device: the
+    loaded tensors take the place of its parameters.  Strict both ways."""
+    sd = {k: (v if torch.is_tensor(v)
+              else torch.from_numpy(np.array(v, np.float32))).to(
+                  device=device, dtype=dtype)
+          for k, v in state.items()}
+    missing, unexpected = module.load_state_dict(sd, strict=False,
+                                                 assign=True)
+    if missing or unexpected:
+        raise KeyError(f'ESM2 weight mismatch: missing={missing[:8]} '
+                       f'unexpected={unexpected[:8]}')

@@ -14,13 +14,29 @@ fatal on failure:
   4. one full-width f32 forward_with_recycling with the kernel flags on and
      off (dense random weights): rot_score, trans_score and logits agree
      to 1e-4 * max|ref| on valid rows;
+  4b. one full-width f32 ESM2-3B forward of AntibodyESM (dense random
+     weights, learned layer weights given) on the tokens of
+     testdata/6ct7_H_L_S.pdb with ABX_FUSED_ESM_ATTN on and off: the
+     weighted embedding agrees to 1e-4 * max|ref| on valid rows;
   5. a full-width bf16 ESM-off CDR-H3 design through
      abx_tpu_torch.cli.design (config/config_model.json, random weights from
      seed 0, 4 samples, num_t 8) on testdata/6ct7_H_L_S.pdb: 4 PDBs with
-     chains H, L, S and finite coordinates, every kernel launched the
-     expected number of times, wall time, seconds per step, samples/hour.
-The second-to-last lines are the nvidia-smi card line and the kernels JSON;
-the last line is the result JSON.  No JAX is imported.
+     chains H, L, S and finite coordinates, every trunk kernel launched the
+     expected number of times (and esm_attention never), wall time, seconds
+     per step, samples/hour;
+  6. the same design conditioned on ESM2-3B (random weights made on the
+     card, runner.build_runtime(esm_random=True) + runner.run_sampling): 4
+     PDBs, esm_attention launched 36 x 3 x (num_t + 1) times and the trunk
+     kernels as in phase 5; then a second trajectory in the same process
+     for the steady-state seconds per step.
+Each main path (phases 5 and 6) is driven with the launch counts set to 0
+just before it and read just after.  The lines before the last are the
+nvidia-smi card line and the kernels JSON (each kernel's launches on the
+ESM-on design path, its error, its time, its plain version's time, the
+least time the card could take for the same work and, for esm_attention,
+the time of torch's scaled_dot_product_attention on the same inputs); the
+last line is the result JSON.  The kernels are built with one nvcc per
+source, all started together.  No JAX is imported.
 """
 
 import json
@@ -32,8 +48,14 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+PDB = os.path.join(HERE, 'testdata', '6ct7_H_L_S.pdb')
+MODEL_CONFIG = os.path.join(HERE, 'config', 'config_model.json')
 F32_TOL, BF16_TOL = 1e-4, 3e-2
 TIMING_REPS = 7
+# NVIDIA's published H100 SXM peaks at 700 W (dense bf16 tensor-core rate,
+# HBM3 bandwidth): the least time for a kernel's work is the larger of its
+# operations over the first and its bytes over the second.
+PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
 
 
 def fail(msg):
@@ -73,9 +95,29 @@ def rel_err(got, want):
     return d, want.float().abs().max().item()
 
 
+def tensor_bytes(tensors):
+    """Bytes of the distinct tensors (each read or written once)."""
+    seen = {}
+    for t in tensors:
+        seen[t.data_ptr()] = t.numel() * t.element_size()
+    return sum(seen.values())
+
+
+def bound_ms(flops, nbytes):
+    """(least time in ms, 'operations' or 'bytes'): bf16 tensor-core peak
+    for the products, HBM bandwidth for the bytes."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            'operations' if t_ops >= t_bytes else 'bytes')
+
+
 def kernel_cases(torch, dev):
-    """(name, case label, kernel fn, plain fn, f32 args, bf16 args) at the
-    flagship shapes of one trunk pass (B=4, L=288, bf16 trunk)."""
+    """One dict per case at the flagship shapes of one trunk pass (B=4,
+    L=288, bf16 trunk) and of one ESM2-3B layer (B=4, L=306, 40 heads):
+    name, label, kernel and plain fns, f32 and bf16 args, the other
+    tensors the function reads, its tensor-core FLOPs, and the one torch
+    call that computes the same function (or None)."""
+    from abx_tpu_torch.ops import esm_attention as esm_op
     from abx_tpu_torch.ops import ipa_attention as ipa_op
     from abx_tpu_torch.ops import pair_bias as pb_op
     from abx_tpu_torch.ops import recycle_embed as re_op
@@ -84,6 +126,7 @@ def kernel_cases(torch, dev):
     from abx_tpu_torch.ops import tri_mult as tm_op
     g = torch.Generator(device=dev).manual_seed(0)
     b, l = 4, 288
+    m = b * l * l
 
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=g, device=dev) * scale
@@ -93,6 +136,11 @@ def kernel_cases(torch, dev):
     mask[1, 100] = 0.0
     cases = []
 
+    def case(name, label, kern, plain, a32, a16, reads, flops, library=None):
+        cases.append(dict(name=name, label=label, kern=kern, plain=plain,
+                          a32=a32, a16=a16, reads=reads, flops=flops,
+                          library=library))
+
     def tri(label, r, c, h):
         x = rnd(b, r, l, c)
         w = [rnd(c, c, scale=c ** -0.5) for _ in range(5)]
@@ -101,13 +149,17 @@ def kernel_cases(torch, dev):
                   out_proj=(w[4], rnd(c, scale=0.1)))
         bias = rnd(b, h, l, l)
         args = (x, w[0], w[1], w[2], bias, mask)
-        cases.append((
-            'triangle_attention_packed', label,
-            lambda x, res: ta_op.triangle_attention_packed(
-                x, *args[1:], residual=res, **kw),
-            lambda x, res: ta_op.triangle_attention_packed_plain(
-                x, *args[1:], residual=res, **kw),
-            (x, x), (x.bfloat16(), x.bfloat16())))
+        rows = b * r * l
+        # q/k/v/gate and out projections; QK^T and PV over H heads of D.
+        flops = 10 * rows * c * c + 4 * b * r * l * l * c
+        case('triangle_attention_packed', label,
+             lambda x, res: ta_op.triangle_attention_packed(
+                 x, *args[1:], residual=res, **kw),
+             lambda x, res: ta_op.triangle_attention_packed_plain(
+                 x, *args[1:], residual=res, **kw),
+             (x, x), (x.bfloat16(), x.bfloat16()),
+             [*w, bias, mask, *kw['ln'], kw['gate'][1], kw['out_proj'][1]],
+             flops)
     tri('tri-attention (4,288,288,192) H=4 D=48', l, 192, 4)
     tri('seq-attention (4,1,288,544) H=32 D=17', 1, 544, 32)
 
@@ -115,64 +167,82 @@ def kernel_cases(torch, dev):
         pair = rnd(b, l, l, 192)
         s, bb, w = 1 + rnd(192, scale=0.1), rnd(192, scale=0.1), rnd(
             h, 192, scale=192 ** -0.5)
-        cases.append((
-            'pair_bias_proj', f'(4,288,288,192) -> H={h}',
-            lambda p, s=s, bb=bb, w=w: pb_op.pair_bias_proj(p, s, bb, w),
-            lambda p, s=s, bb=bb, w=w: pb_op.pair_bias_proj_plain(p, s, bb,
-                                                                  w),
-            (pair,), (pair.bfloat16(),)))
+        case('pair_bias_proj', f'(4,288,288,192) -> H={h}',
+             lambda p, s=s, bb=bb, w=w: pb_op.pair_bias_proj(p, s, bb, w),
+             lambda p, s=s, bb=bb, w=w: pb_op.pair_bias_proj_plain(p, s, bb,
+                                                                   w),
+             (pair,), (pair.bfloat16(),), [s, bb, w], 2 * m * 192 * h)
 
     x = rnd(b, l, l, 192)
     targs = (1 + rnd(192, scale=0.1), rnd(192, scale=0.1),
              rnd(768, 192, scale=192 ** -0.5), rnd(768, scale=0.1),
              rnd(192, 768, scale=768 ** -0.5), rnd(192, scale=0.1))
-    cases.append((
-        'fused_transition', '(4,288,288,192) N=768',
-        lambda x: tr_op.fused_transition(x, *targs),
-        lambda x: tr_op.fused_transition_plain(x, *targs),
-        (x,), (x.bfloat16(),)))
+    case('fused_transition', '(4,288,288,192) N=768',
+         lambda x: tr_op.fused_transition(x, *targs),
+         lambda x: tr_op.fused_transition_plain(x, *targs),
+         (x,), (x.bfloat16(),), list(targs), 4 * m * 192 * 768)
 
     c, nc = 192, 128
     x = rnd(b, l, l, c)
     pre = (1 + rnd(c, scale=0.1), rnd(c, scale=0.1),
            rnd(4 * nc + c, c, scale=c ** -0.5), rnd(4 * nc + c, scale=0.5),
            mask)
-    cases.append((
-        'tri_mult_pre', '(4,288,288,192) -> nc=128 x2 + 192',
-        lambda x: tm_op.tri_mult_pre(x, *pre),
-        lambda x: tm_op.tri_mult_pre_plain(x, *pre),
-        (x,), (x.bfloat16(),)))
+    case('tri_mult_pre', '(4,288,288,192) -> nc=128 x2 + 192',
+         lambda x: tm_op.tri_mult_pre(x, *pre),
+         lambda x: tm_op.tri_mult_pre_plain(x, *pre),
+         (x,), (x.bfloat16(),), list(pre), 2 * m * c * (4 * nc + c))
     y, fg, res = rnd(b, l, l, nc), rnd(b, l, l, c), rnd(b, l, l, c)
     post = (1 + rnd(nc, scale=0.1), rnd(nc, scale=0.1),
             rnd(c, nc, scale=nc ** -0.5), rnd(c, scale=0.1))
-    cases.append((
-        'tri_mult_post', '(4,288,288,128) -> 192',
-        lambda y, fg, res: tm_op.tri_mult_post(y, *post, fg, res),
-        lambda y, fg, res: tm_op.tri_mult_post_plain(y, *post, fg, res),
-        (y, fg, res), (y.bfloat16(), fg.bfloat16(), res.bfloat16())))
+    case('tri_mult_post', '(4,288,288,128) -> 192',
+         lambda y, fg, res: tm_op.tri_mult_post(y, *post, fg, res),
+         lambda y, fg, res: tm_op.tri_mult_post_plain(y, *post, fg, res),
+         (y, fg, res), (y.bfloat16(), fg.bfloat16(), res.bfloat16()),
+         list(post), 2 * m * nc * c)
     static, prev = rnd(b, l, l, 128), rnd(b, l, l, c, scale=2.0)
     rec = (rnd(b, 64), 1 + rnd(c, scale=0.1), rnd(c, scale=0.1),
            rnd(15, c), torch.randint(0, 15, (b, l, l), generator=g,
                                      device=dev))
-    cases.append((
-        'recycle_embed', '(4,288,288,128) + (4,288,288,192) -> 192',
-        lambda sp, pp: re_op.recycle_embed(sp, rec[0], pp, *rec[1:]),
-        lambda sp, pp: re_op.recycle_embed_plain(sp, rec[0], pp, *rec[1:]),
-        (static, prev), (static.bfloat16(), prev.bfloat16())))
+    case('recycle_embed', '(4,288,288,128) + (4,288,288,192) -> 192',
+         lambda sp, pp: re_op.recycle_embed(sp, rec[0], pp, *rec[1:]),
+         lambda sp, pp: re_op.recycle_embed_plain(sp, rec[0], pp, *rec[1:]),
+         (static, prev), (static.bfloat16(), prev.bfloat16()), list(rec), 0)
 
     h, ds, pq, pv, c = 12, 16, 4, 8, 128
     qs, ks, vs = (rnd(b, l, h, ds, scale=0.25) for _ in range(3))
     pts = [rnd(b, l, h, p, 3, scale=3.0) for p in (pq, pq, pv)]
     pw = -0.5 * (0.1 + torch.rand(h, generator=g, device=dev)) * 0.2
     ibias, pair = rnd(b, h, l, l), rnd(b, l, l, c)
-    cases.append((
-        'ipa_attention', 'pair (4,288,288,128) H=12',
-        lambda qs, ks, vs, pair: ipa_op.ipa_attention(
-            qs, ks, vs, *pts, pw, ibias, mask, pair),
-        lambda qs, ks, vs, pair: ipa_op.ipa_attention_plain(
-            qs, ks, vs, *pts, pw, ibias, mask, pair),
-        (qs, ks, vs, pair),
-        (qs.bfloat16(), ks.bfloat16(), vs.bfloat16(), pair.bfloat16())))
+    case('ipa_attention', 'pair (4,288,288,128) H=12',
+         lambda qs, ks, vs, pair: ipa_op.ipa_attention(
+             qs, ks, vs, *pts, pw, ibias, mask, pair),
+         lambda qs, ks, vs, pair: ipa_op.ipa_attention_plain(
+             qs, ks, vs, *pts, pw, ibias, mask, pair),
+         (qs, ks, vs, pair),
+         (qs.bfloat16(), ks.bfloat16(), vs.bfloat16(), pair.bfloat16()),
+         [*pts, pw, ibias, mask],
+         # logits (scalar + point terms), scalar / point / pair attends.
+         2 * b * h * l * l * (2 * ds + 3 * pq + 3 * pv + c))
+
+    # ESM2-3B attention: head-major views of the (B, L, H, D) projections
+    # (strided, as the module hands them in), q pre-scaled; the padded
+    # tail of a real complex (29 keys) and one sample padded further.
+    b, h, le, d = 4, 40, 306, 64
+    q, k, v = ((rnd(b, le, h, d) * (d ** -0.5 if i == 0 else 1.0))
+               .transpose(1, 2) for i in range(3))
+    pad = torch.zeros(b, le, dtype=torch.bool, device=dev)
+    pad[:, -29:] = True
+    pad[2, -45:] = True
+
+    def low(t):  # the same strided layout in bf16
+        return t.transpose(1, 2).bfloat16().transpose(1, 2)
+    case('esm_attention', 'ESM2-3B (4,40,306,64), 29-45 padded keys',
+         lambda q, k, v: esm_op.esm_attention(q, k, v, pad),
+         lambda q, k, v: esm_op.esm_attention_plain(q, k, v, pad),
+         (q, k, v), (low(q), low(k), low(v)), [pad],
+         4 * b * h * le * le * d,
+         lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
+             q, k, v, attn_mask=~pad[:, None, None, :], scale=1.0))
     return cases
 
 
@@ -192,6 +262,8 @@ KERNEL_META = {
                       'abx_tpu/ops/tri_mult.py:168'),
     'recycle_embed': ('abx_tpu_torch/csrc/recycle_embed.cu',
                       'abx_tpu/ops/recycle_embed.py:61'),
+    'esm_attention': ('abx_tpu_torch/csrc/esm_attention.cu',
+                      'abx_tpu/ops/esm_attention.py:47'),
 }
 FLAGS_TOL = 1e-4   # flags on vs off, relative to max|ref|
 
@@ -202,7 +274,10 @@ def as_tuple(out):
 
 def phase_kernels(torch, dev):
     results = {}
-    for name, label, kern, plain, a32, a16 in kernel_cases(torch, dev):
+    for cs in kernel_cases(torch, dev):
+        name, label, kern, plain = (cs['name'], cs['label'], cs['kern'],
+                                    cs['plain'])
+        a32, a16 = cs['a32'], cs['a16']
         ref = as_tuple(plain(*a32))
         got32 = as_tuple(kern(*a32))
         got16 = as_tuple(kern(*a16))
@@ -221,15 +296,24 @@ def phase_kernels(torch, dev):
                      f'{d16:.3g}, max|ref| {m:.3g}')
             e32, e16 = max(e32, d32 / m), max(e16, d16 / m)
             abs16 = max(abs16, d16)
+        nbytes = tensor_bytes([*a16, *cs['reads'], *got16])
+        bms, by = bound_ms(cs['flops'], nbytes)
         ms = time_ms(torch, lambda: kern(*a16))
         plain_ms = time_ms(torch, lambda: plain(*a16))
+        lib_ms = (time_ms(torch, lambda: cs['library'](*a16))
+                  if cs['library'] else None)
+        lib_txt = f', library {lib_ms:.3f} ms' if lib_ms is not None else ''
         print(f'kernel {name} {label}: f32 err/max|ref| {e32:.3g}, bf16 '
               f'err/max|ref| {e16:.3g}; bf16 kernel {ms:.3f} ms, plain '
-              f'{plain_ms:.3f} ms', flush=True)
+              f'{plain_ms:.3f} ms{lib_txt}; bound {bms:.4f} ms by {by} '
+              f'({cs["flops"] / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)',
+              flush=True)
         entry = results.setdefault(name, {'cases': []})
         entry['cases'].append({
             'case': label, 'max_abs_err': abs16, 'rel_err_bf16': e16,
-            'rel_err_f32': e32, 'ms': ms, 'plain_ms': plain_ms})
+            'rel_err_f32': e32, 'ms': ms, 'plain_ms': plain_ms,
+            'library_ms': lib_ms, 'bound_ms': bms, 'bound_by': by,
+            'flops': cs['flops'], 'bytes': nbytes})
         del ref, got32, got16
         torch.cuda.empty_cache()
     return results
@@ -242,16 +326,13 @@ def phase_flags(torch, dev):
     from abx_tpu_torch.sampling.sampler import Sampler, SamplerConfig
     from abx_tpu_torch.sampling.sampler import to_device_batch
     from abx_tpu_torch.utils import params as params_lib
-    rt = runner.build_runtime(
-        os.path.join(HERE, 'config', 'config_model.json'), seed=0,
-        device=dev.type)
+    rt = runner.build_runtime(MODEL_CONFIG, seed=0, device=dev.type)
     cfg, diffuser, model = rt.config, rt.diffuser, rt.model
     # Dense random weights: AF2's zero 'final' inits would hide layers from
     # the comparison.
     params_lib.load_flax_params(model, params_lib.dense_random_tree(
         params_lib.state_dict_tree(model), seed=0, scale=0.5))
-    feats, _ = next(runner.load_complexes(
-        os.path.join(HERE, 'testdata', '6ct7_H_L_S.pdb'), rt))
+    feats, _ = next(runner.load_complexes(PDB, rt))
     batch = {k: np.stack([v] * 4) for k, v in feats.items()}
     sampler = Sampler(model, diffuser, cfg.model, SamplerConfig(num_t=8))
     prepared = sampler.prepare(to_device_batch(batch, dev),
@@ -314,66 +395,178 @@ def check_pdb(path):
         fail(f'{path}: empty or non-finite coordinates')
 
 
-def phase_design(torch, card):
-    from abx_tpu_torch.cli import design
+def phase_esm_flags(torch, dev):
+    """Full-width f32 ESM2-3B forward of AntibodyESM on the 6ct7 antibody
+    (four samples, three with re-drawn residues, as noisy sequences), dense
+    random weights made on the card, with the ESM attention kernel on and
+    off (plain f32 version)."""
+    import numpy as np
+    from abx_tpu_torch import config as config_lib
+    from abx_tpu_torch.data import dataset as ds
+    from abx_tpu_torch.models.esm import AntibodyESM, ESM2Config
+    cfg = config_lib.load_config(MODEL_CONFIG)
+    l_ab = cfg.data.max_antibody_len
+    esm = AntibodyESM(ESM2Config.t36_3B(), l_ab, dtype=torch.float32,
+                      device='meta').to_empty(device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        # Dense weights give O(1) attention logits: kernels N(0, 1/fan_in),
+        # LayerNorm scales 1 + N(0, 0.1^2), biases N(0, 0.1^2).
+        for key, p in esm.named_parameters():
+            p.normal_(0.0, 1.0, generator=g)
+            if p.ndim == 2 and 'embed_tokens' not in key:
+                p.mul_(p.shape[1] ** -0.5)
+            elif p.ndim == 1:
+                p.mul_(0.1)
+                if key.endswith('norm.weight') or 'norm_after.weight' in key:
+                    p.add_(1.0)
+    esm.requires_grad_(False)
+    ex = ds.complex_from_pdb(PDB, 'H', 'L', ['S'])
+    feats, _ = ds.prepare_example(ex, ds.DataConfig(
+        l_ab, cfg.data.max_antigen_len, cfg.data.patch_radius,
+        cfg.data.anchor_neighbors), False)
+    ab = torch.tensor(np.stack([feats['seq'][:l_ab]] * 4), device=dev)
+    redraw = torch.rand(ab.shape, generator=g, device=dev) < 0.3
+    redraw[0] = False
+    ab = torch.where(redraw, torch.randint(0, 20, ab.shape, generator=g,
+                                           device=dev), ab)
+    hl = torch.tensor([int(feats['heavy_len'])] * 4, device=dev)
+    ll = torch.tensor([int(feats['light_len'])] * 4, device=dev)
+    lw = torch.softmax(torch.randn(37, generator=g, device=dev), dim=0)
+    outs = {}
+    for value in ('1', '0'):
+        os.environ['ABX_FUSED_ESM_ATTN'] = value
+        with torch.no_grad():
+            outs[value] = esm(ab, hl, ll, lw)
+        torch.cuda.synchronize()
+    os.environ.pop('ABX_FUSED_ESM_ATTN')
+    valid = torch.arange(l_ab, device=dev)[None] < (hl + ll)[:, None]
+    on, off = outs['1'][valid], outs['0'][valid]
+    if not (torch.isfinite(on).all() and torch.isfinite(off).all()):
+        fail('ESM flags on/off: non-finite weighted embedding')
+    d, m = rel_err(on, off)
+    print(f'ESM flags on vs off (f32 ESM2-3B, weighted embedding, valid '
+          f'rows): max |diff| {d:.3g}, max|ref| {m:.3g}', flush=True)
+    if d > FLAGS_TOL * m:
+        fail(f'ESM flags on vs off: weighted embedding differs by {d:.3g} '
+             f'(max|ref| {m:.3g})')
+    del esm, outs, on, off
+    torch.cuda.empty_cache()
+    return {'max_abs_err': d, 'max_abs_ref': m}
+
+
+def wrappers():
+    from abx_tpu_torch.ops import esm_attention as esm_op
     from abx_tpu_torch.ops import ipa_attention as ipa_op
     from abx_tpu_torch.ops import pair_bias as pb_op
     from abx_tpu_torch.ops import recycle_embed as re_op
     from abx_tpu_torch.ops import transition as tr_op
     from abx_tpu_torch.ops import tri_attention as ta_op
     from abx_tpu_torch.ops import tri_mult as tm_op
-    wrappers = {'triangle_attention_packed': ta_op.triangle_attention_packed,
-                'pair_bias_proj': pb_op.pair_bias_proj,
-                'fused_transition': tr_op.fused_transition,
-                'ipa_attention': ipa_op.ipa_attention,
-                'tri_mult_pre': tm_op.tri_mult_pre,
-                'tri_mult_post': tm_op.tri_mult_post,
-                'recycle_embed': re_op.recycle_embed}
-    num_t, num_samples, num_recycle = 8, 4, 2
-    passes = (num_t + 1) * (num_recycle + 1)     # prime step + num_t steps
-    per_pass = {'triangle_attention_packed': 3, 'pair_bias_proj': 3,
-                'fused_transition': 1, 'ipa_attention': 8,
-                'tri_mult_pre': 2, 'tri_mult_post': 2, 'recycle_embed': 1}
-    expected = {k: n * passes for k, n in per_pass.items()}
+    return {'triangle_attention_packed': ta_op.triangle_attention_packed,
+            'pair_bias_proj': pb_op.pair_bias_proj,
+            'fused_transition': tr_op.fused_transition,
+            'ipa_attention': ipa_op.ipa_attention,
+            'tri_mult_pre': tm_op.tri_mult_pre,
+            'tri_mult_post': tm_op.tri_mult_post,
+            'recycle_embed': re_op.recycle_embed,
+            'esm_attention': esm_op.esm_attention}
+
+
+NUM_T, NUM_SAMPLES, NUM_RECYCLE, ESM_LAYERS = 8, 4, 2, 36
+PASSES = (NUM_T + 1) * (NUM_RECYCLE + 1)     # prime step + num_t steps
+PER_PASS = {'triangle_attention_packed': 3, 'pair_bias_proj': 3,
+            'fused_transition': 1, 'ipa_attention': 8, 'tri_mult_pre': 2,
+            'tri_mult_post': 2, 'recycle_embed': 1}
+
+
+def check_design(out, launches, expected, what):
+    for i in range(NUM_SAMPLES):
+        path = os.path.join(out, 'design', f'{i:04d}', '6ct7_H_L_S.pdb')
+        if not os.path.exists(path):
+            fail(f'{what} wrote no {path}')
+        check_pdb(path)
+    check_pdb(os.path.join(out, 'design', 'reference', '6ct7_H_L_S.pdb'))
+    for name, n in launches.items():
+        if n != expected[name] or (expected[name] and n == 0):
+            fail(f'{name}: {n} launches on the {what} path, expected '
+                 f'{expected[name]}')
+    print(f'launches on the {what} path: {json.dumps(launches)} '
+          f'(expected {json.dumps(expected)})', flush=True)
+
+
+def design_stats(log, wall, card, what):
+    if not log:
+        fail(f'{what} returned no sampling record')
+    sampling_s = sum(e for _, _, e in log)
+    per_step = sampling_s / (NUM_T + 1)
+    sph = NUM_SAMPLES / sampling_s * 3600.0
+    wall_txt = f'wall {wall:.2f} s incl. model build, ' if wall else ''
+    print(f'{what} (bf16, B=4, L=288, num_recycle 2, num_t {NUM_T}) on '
+          f'{card}: {wall_txt}sampling '
+          f'{sampling_s:.2f} s, {per_step:.3f} s per diffusion step '
+          f'({NUM_T} steps + prime), {sph:.1f} samples/hour at num_t '
+          f'{NUM_T}', flush=True)
+    return {'wall_s': wall, 'sampling_s': sampling_s, 's_per_step': per_step,
+            'samples_per_hour': sph}
+
+
+def phase_design(torch, card):
+    """The ESM-off design path, through the design CLI."""
+    from abx_tpu_torch.cli import design
+    ws = wrappers()
+    expected = {k: PER_PASS.get(k, 0) * PASSES for k in ws}
     with tempfile.TemporaryDirectory() as out:
-        argv = ['--pdb_file', os.path.join(HERE, 'testdata',
-                                           '6ct7_H_L_S.pdb'),
-                '--output_dir', out, '--model_config',
-                os.path.join(HERE, 'config', 'config_model.json'),
-                '--seed', '0', '--bf16', '--device', 'cuda',
-                '--num_samples', str(num_samples), '--batch_samples',
-                str(num_samples), '--num_t', str(num_t)]
-        for w in wrappers.values():
+        argv = ['--pdb_file', PDB, '--output_dir', out, '--model_config',
+                MODEL_CONFIG, '--seed', '0', '--bf16', '--device', 'cuda',
+                '--num_samples', str(NUM_SAMPLES), '--batch_samples',
+                str(NUM_SAMPLES), '--num_t', str(NUM_T)]
+        for w in ws.values():
             w.launches = 0
         t0 = time.time()
         log = design.main(argv)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = {k: w.launches for k, w in wrappers.items()}
-        for i in range(num_samples):
-            path = os.path.join(out, 'design', f'{i:04d}', '6ct7_H_L_S.pdb')
-            if not os.path.exists(path):
-                fail(f'design wrote no {path}')
-            check_pdb(path)
-        check_pdb(os.path.join(out, 'design', 'reference', '6ct7_H_L_S.pdb'))
-    for name, n in launches.items():
-        if n == 0 or n != expected[name]:
-            fail(f'{name}: {n} launches on the design path, expected '
-                 f'{expected[name]}')
-    if not log:
-        fail('design returned no sampling record')
-    sampling_s = sum(e for _, _, e in log)
-    per_step = sampling_s / (num_t + 1)
-    sph = num_samples / sampling_s * 3600.0
-    print(f'design (bf16, B=4, L=288, num_recycle 2, num_t {num_t}) on '
-          f'{card}: wall {wall:.2f} s incl. model build, sampling '
-          f'{sampling_s:.2f} s, {per_step:.3f} s per diffusion step '
-          f'({num_t} steps + prime), {sph:.1f} samples/hour at num_t '
-          f'{num_t}', flush=True)
-    print(f'launches on the design path: {json.dumps(launches)} '
-          f'(expected {json.dumps(expected)})', flush=True)
-    return launches, {'wall_s': wall, 'sampling_s': sampling_s,
-                      's_per_step': per_step, 'samples_per_hour': sph}
+        launches = {k: w.launches for k, w in ws.items()}
+        check_design(out, launches, expected, 'design')
+    return launches, design_stats(log, wall, card, 'design')
+
+
+def phase_design_esm(torch, card):
+    """The ESM2-3B-conditioned design path, through the runner API (ESM2
+    with random weights made on the card), then a second trajectory in the
+    same process for the steady-state step."""
+    from abx_tpu_torch.cli import runner
+    ws = wrappers()
+    expected = {k: PER_PASS.get(k, ESM_LAYERS) * PASSES for k in ws}
+    with tempfile.TemporaryDirectory() as out:
+        for w in ws.values():
+            w.launches = 0
+        t0 = time.time()
+        rt = runner.build_runtime(MODEL_CONFIG, seed=0, bf16=True,
+                                  device='cuda', esm_random=True)
+        complexes = list(runner.load_complexes(PDB, rt))
+        log = runner.run_sampling(
+            rt, os.path.join(out, 'design'), complexes,
+            num_samples=NUM_SAMPLES, num_t=NUM_T, seed=0,
+            batch_samples=NUM_SAMPLES)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {k: w.launches for k, w in ws.items()}
+        check_design(out, launches, expected, 'ESM-on design')
+        stats = design_stats(log, wall, card, 'ESM-on design')
+        log2 = runner.run_sampling(
+            rt, os.path.join(out, 'again'), complexes,
+            num_samples=NUM_SAMPLES, num_t=NUM_T, seed=1,
+            batch_samples=NUM_SAMPLES)
+        torch.cuda.synchronize()
+    steady = design_stats(log2, None, card, 'ESM-on design, second '
+                          'trajectory')
+    stats['steady_s_per_step'] = steady['s_per_step']
+    stats['steady_samples_per_hour'] = steady['samples_per_hour']
+    del rt
+    torch.cuda.empty_cache()
+    return launches, stats
 
 
 def main():
@@ -401,20 +594,27 @@ def main():
 
     kernels = phase_kernels(torch, dev)
     flags = phase_flags(torch, dev)
-    launches, design_stats = phase_design(torch, card)
+    esm_flags = phase_esm_flags(torch, dev)
+    launches_off, design_off = phase_design(torch, card)
+    launches_on, design_on = phase_design_esm(torch, card)
 
     rows = []
     for name, (source, replaces) in KERNEL_META.items():
         cases = kernels[name]['cases']
+        first = cases[0]
         rows.append({
             'name': name, 'route': 'cuda', 'source': source,
-            'replaces': replaces, 'launches': launches[name],
+            'replaces': replaces, 'launches': launches_on[name],
+            'launches_by_path': {'design_esm_off': launches_off[name],
+                                 'design_esm_on': launches_on[name]},
             'max_abs_err': max(c['max_abs_err'] for c in cases),
-            'ms': cases[0]['ms'], 'plain_ms': cases[0]['plain_ms'],
-            'cases': cases})
+            'ms': first['ms'], 'plain_ms': first['plain_ms'],
+            'bound_ms': first['bound_ms'], 'bound_by': first['bound_by'],
+            'library_ms': first['library_ms'], 'cases': cases})
     print(card)
     print(json.dumps({'kernels': rows, 'flags_on_vs_off': flags,
-                      'design': design_stats}))
+                      'esm_flags_on_vs_off': esm_flags,
+                      'design': design_off, 'design_esm': design_on}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from abx_tpu_torch.ops import esm_attention as esm_op
 from abx_tpu_torch.ops import ipa_attention as ipa_op
 from abx_tpu_torch.ops import pair_bias as pair_bias_op
 from abx_tpu_torch.ops import recycle_embed as recycle_op
@@ -143,6 +144,24 @@ def _recycle_case(seed, b, l, c0, c, n_bins):
             rng.integers(0, n_bins, (b, l, l)))
 
 
+def _esm_case(seed, b, h, l, d, strided):
+    """q (pre-scaled), k, v as (B, H, L, D): head-major views of (B, L, H,
+    D) tensors when `strided`, as the ESM module hands them in; a padding
+    mask (True = PAD) with padded tails of different lengths."""
+    rng = np.random.default_rng(seed)
+    qkv = [rng.standard_normal((b, l, h, d)).astype(np.float32)
+           for _ in range(3)]
+    qkv[0] *= d ** -0.5
+    qkv = [t(a).transpose(1, 2) if strided
+           else t(np.ascontiguousarray(a.transpose(0, 2, 1, 3)))
+           for a in qkv]
+    pad = np.zeros((b, l), bool)
+    for i in range(b):
+        pad[i, l - 3 - 5 * i:] = True
+    pad[0, rng.integers(0, l // 2)] = True
+    return qkv, torch.as_tensor(pad)
+
+
 def _tri_mult_pre_port(args, fn=None):
     x, s, lb, w, wb, mask = args
     fn = fn or tri_mult_op.tri_mult_pre_plain
@@ -173,7 +192,8 @@ def test_wrappers_on_cpu_run_plain_version_without_counting():
     wrappers = (tri_op.triangle_attention_packed,
                 pair_bias_op.pair_bias_proj, transition_op.fused_transition,
                 ipa_op.ipa_attention, tri_mult_op.tri_mult_pre,
-                tri_mult_op.tri_mult_post, recycle_op.recycle_embed)
+                tri_mult_op.tri_mult_post, recycle_op.recycle_embed,
+                esm_op.esm_attention)
     before = [w.launches for w in wrappers]
     k = _tri_case(5, 1, 3, 7, 2, 8, 16, 'per_row')
     torch.testing.assert_close(
@@ -201,6 +221,9 @@ def test_wrappers_on_cpu_run_plain_version_without_counting():
     rec = _recycle_case(5, 1, 6, 8, 12, 5)
     torch.testing.assert_close(_recycle_port(rec, recycle_op.recycle_embed),
                                _recycle_port(rec))
+    qkv, pad = _esm_case(5, 2, 3, 9, 8, True)
+    torch.testing.assert_close(esm_op.esm_attention(*qkv, pad),
+                               esm_op.esm_attention_plain(*qkv, pad))
     assert [w.launches for w in wrappers] == before
 
 
@@ -330,5 +353,22 @@ def test_recycle_embed_kernel_matches_plain(cuda, shape, dtype):
     f32, low = _on_card(_recycle_case(12, *shape), cuda, dtype, {0, 2})
     want = recycle_op.recycle_embed_plain(*f32)
     got = recycle_op.recycle_embed(*low)
+    torch.cuda.synchronize()
+    _close_on_card(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', [(2, 3, 70, 64, True),
+                                   (1, 4, 133, 32, False),
+                                   (2, 2, 17, 24, True)])
+def test_esm_attention_kernel_matches_plain(cuda, shape, dtype):
+    """Ragged L (not a multiple of 16 or 64), D padded to 16, strided and
+    contiguous operands, padded keys."""
+    *dims, strided = shape
+    qkv, pad = _esm_case(13, *dims, strided)
+    qkv, pad = [a.to(cuda) for a in qkv], pad.to(cuda)
+    want = esm_op.esm_attention_plain(*qkv, pad)
+    got = esm_op.esm_attention(*[a.to(dtype) for a in qkv], pad)
     torch.cuda.synchronize()
     _close_on_card(got, want, dtype)

@@ -38,14 +38,16 @@ from abx_tpu_torch.diffusion.joint import JointConfig, JointDiffuser
 from abx_tpu_torch.geometry import frames as port_frames
 from abx_tpu_torch.geometry import quat as port_quat
 from abx_tpu_torch.models import heads as port_heads
+from abx_tpu_torch.models import esm as port_esm
 from abx_tpu_torch.models import ipa as port_ipa
 from abx_tpu_torch.models import seqformer as port_seqformer
 from abx_tpu_torch.models.ipa import IpaScore
 from abx_tpu_torch.models.network import (ScoreNetworkIteration,
                                           forward_with_recycling, zero_prev)
 from abx_tpu_torch.models.seqformer import SeqformerIteration
-from abx_tpu_torch.ops import (ipa_attention, pair_bias, recycle_embed,
-                               registry, transition, tri_attention, tri_mult)
+from abx_tpu_torch.ops import (esm_attention, ipa_attention, pair_bias,
+                               recycle_embed, registry, transition,
+                               tri_attention, tri_mult)
 from abx_tpu_torch.utils import params as params_lib
 
 ACT = dict(rtol=0, atol=1e-4)
@@ -140,7 +142,8 @@ def _force_kernel_route(monkeypatch):
             (port_seqformer, 'tri_mult_post', tri_mult.tri_mult_post_plain),
             (port_seqformer, 'recycle_embed',
              recycle_embed.recycle_embed_plain),
-            (port_ipa, 'ipa_attention', ipa_attention.ipa_attention_plain)):
+            (port_ipa, 'ipa_attention', ipa_attention.ipa_attention_plain),
+            (port_esm, 'esm_attention', esm_attention.esm_attention_plain)):
         monkeypatch.setattr(module, name, plain)
 
 
@@ -159,7 +162,7 @@ def test_config_matches_jax():
 
 def test_port_imports_no_jax():
     code = ('import sys; import abx_tpu_torch.cli.design; '
-            'bad = [m for m in ("jax", "flax", "ml_collections") '
+            'bad = [m for m in ("jax", "flax", "ml_collections", "abx_tpu") '
             'if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)')
     proc = subprocess.run([sys.executable, '-c', code], capture_output=True,
                           text=True, timeout=120)
