@@ -1,16 +1,18 @@
-"""Shared CLI runtime on one device: model/diffuser construction and the
-design sampling driver (counterpart of abx_tpu/cli/runner.py, without the
-mesh).
+"""Shared CLI runtime on one device: model/diffuser construction, complex
+loading (one PDB, or a name index over a directory of npz files) and the
+sampling loop of the design, optimize and trajectory modes
+(counterpart of abx_tpu/cli/runner.py, without the mesh).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import logging
 import os
 import time
 import zlib
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,7 +26,8 @@ from abx_tpu_torch.models.modules import reset_parameters
 from abx_tpu_torch.models.network import ScoreNetworkIteration
 from abx_tpu_torch.ops import _lib
 from abx_tpu_torch.sampling.output import (postprocess_reference,
-                                           postprocess_sample)
+                                           postprocess_sample,
+                                           postprocess_trajectory)
 from abx_tpu_torch.sampling.sampler import (Sampler, SamplerConfig,
                                             to_device_batch)
 from abx_tpu_torch.utils import params as params_lib
@@ -144,15 +147,24 @@ def _random_esm(cfg, dtype, dev: torch.device, seed: int) -> AntibodyESM:
     return esm
 
 
-def load_complexes(pdb_file: str, runtime: Runtime):
-    """Yield (feats, meta) for a complex PDB named <code>_<H>_<L>_<AG>.pdb."""
-    name = os.path.splitext(os.path.basename(pdb_file))[0]
-    parts = name.split('_')
-    antigens = parts[3].split('|') if len(parts) > 3 else []
-    ex = ds.complex_from_pdb(pdb_file, parts[1], parts[2], antigens)
-    prep = ds.prepare_example(ex, runtime.data_config, False)
-    if prep is not None:
-        yield prep
+def load_complexes(data_dir: Optional[str],
+                   name_idx: Optional[Sequence[str]],
+                   pdb_file: Optional[str], runtime: Runtime):
+    """Yield (feats, meta) for a complex PDB named <code>_<H>_<L>_<AG>.pdb,
+    or for each name of `name_idx` with a `<data_dir>/<name>.npz`."""
+    if pdb_file:
+        name = os.path.splitext(os.path.basename(pdb_file))[0]
+        parts = name.split('_')
+        antigens = parts[3].split('|') if len(parts) > 3 else []
+        ex = ds.complex_from_pdb(pdb_file, parts[1], parts[2], antigens)
+        prep = ds.prepare_example(ex, runtime.data_config, False)
+        if prep is not None:
+            yield prep
+        return
+    if data_dir is None or name_idx is None:
+        raise ValueError('load_complexes needs a pdb_file, or a data_dir '
+                         'and a name_idx')
+    yield from ds.ComplexDataset(data_dir, name_idx, runtime.data_config)
 
 
 def sample_generator(device: torch.device, seed: int, name: str,
@@ -163,51 +175,100 @@ def sample_generator(device: torch.device, seed: int, name: str,
     return torch.Generator(device=device).manual_seed(key % (2**63))
 
 
+def _to_host(result):
+    """Sampler result -> numpy; a collected trajectory becomes a dict of
+    arrays with a leading step axis."""
+    def host(v):
+        if not torch.is_tensor(v):
+            return np.asarray(v)
+        return (v.float() if v.is_floating_point() else v).cpu().numpy()
+    out = {k: host(v) for k, v in result.items() if k != 'trajectory'}
+    if 'trajectory' in result:
+        steps = result['trajectory']
+        out['trajectory'] = {k: np.stack([host(st[k]) for st in steps])
+                             for k in steps[0]}
+    return out
+
+
+def _first_unfinished(sub_dir: str, name: str, num_samples: int,
+                      batch_samples: int) -> int:
+    """--resume: the first sample to make, rounded down to a chunk start
+    (the chunk's generator is keyed on its first index, so a chunk is
+    regenerated whole and identically)."""
+    def done(i):
+        d = os.path.join(sub_dir, f'{i:04d}')
+        # design / optimize write <name>.pdb; trajectory one <name>@<t>.pdb
+        # per step.
+        return (os.path.exists(os.path.join(d, f'{name}.pdb'))
+                or bool(glob.glob(os.path.join(glob.escape(d),
+                                               f'{glob.escape(name)}@*.pdb'))))
+    i = 0
+    while i < num_samples and done(i):
+        i += 1
+    return (i // batch_samples) * batch_samples
+
+
 def run_sampling(runtime: Runtime, output_dir: str, complexes,
                  num_samples: int = 1, generate_area: str = 'H3',
                  num_t: Optional[int] = None, seed: int = 42,
-                 batch_samples: Optional[int] = None
+                 batch_samples: Optional[int] = None, mode: str = 'design',
+                 opt_steps: Sequence[int] = (), resume: bool = False
                  ) -> List[Tuple[str, int, float]]:
-    """Design `num_samples` samples of each complex, `batch_samples` at a
+    """Sample `num_samples` samples of each complex, `batch_samples` at a
     time in the batch axis; writes reference/<name>.pdb and
-    <NNNN>/<name>.pdb under `output_dir`.  Returns (name, n, seconds) per
-    batch."""
+    <NNNN>/<name>.pdb under `output_dir` -- under OPT-<k>/ for each
+    optimize strength k of `opt_steps` in optimize mode, and one
+    <name>@<t>.pdb per step in trajectory mode.  `resume` skips the samples
+    whose output exists.  Returns (name, n, seconds) per batch."""
     cfg = runtime.config
     num_t = num_t or cfg.diffuser.inference_step
     batch_samples = batch_samples or 1
-    sampler = Sampler(runtime.model, runtime.diffuser, cfg.model,
-                      SamplerConfig(num_t=num_t, generate_area=generate_area),
-                      esm_fn=runtime.esm)
     ref_dir = os.path.join(output_dir, 'reference')
     os.makedirs(ref_dir, exist_ok=True)
+    opt_list = list(opt_steps) if mode == 'optimize' else [None]
+    complexes = list(complexes)  # reused across optimize strengths
     results_log = []
-    for feats, meta in complexes:
-        name = meta['name']
-        batch = ds.stack_batch([feats])
-        postprocess_reference(ref_dir, meta, batch)
-        sample_idx = 0
-        while sample_idx < num_samples:
-            n = min(batch_samples, num_samples - sample_idx)
-            tiled = {k: np.repeat(v, n, axis=0) for k, v in batch.items()}
-            gen = sample_generator(runtime.device, seed, name, sample_idx)
-            t0 = time.time()
-            try:
-                result = sampler.sample(
-                    to_device_batch(tiled, runtime.device), gen)
-                result = {k: v.float().cpu().numpy()
-                          if v.is_floating_point() else v.cpu().numpy()
-                          for k, v in result.items()}
-            except Exception:
-                # Per-complex resilience, as the JAX runner: log and go on.
-                logger.exception('sampling failed for %s; skipping', name)
-                break
-            elapsed = time.time() - t0
-            logger.info('%s: %d samples in %.2fs (%.2f samples/s)', name, n,
-                        elapsed, n / elapsed)
-            results_log.append((name, n, elapsed))
-            for i in range(n):
-                sdir = os.path.join(output_dir, f'{sample_idx + i:04d}')
-                os.makedirs(sdir, exist_ok=True)
-                postprocess_sample(sdir, meta, result, i)
-            sample_idx += n
+    for opt_step in opt_list:
+        sampler = Sampler(
+            runtime.model, runtime.diffuser, cfg.model,
+            SamplerConfig(num_t=num_t, generate_area=generate_area,
+                          mode=mode, opt_step=opt_step,
+                          collect_trajectory=mode == 'trajectory'),
+            esm_fn=runtime.esm)
+        sub_dir = (os.path.join(output_dir, f'OPT-{opt_step}')
+                   if opt_step is not None else output_dir)
+        os.makedirs(sub_dir, exist_ok=True)
+        for feats, meta in complexes:
+            name = meta['name']
+            batch = ds.stack_batch([feats])
+            postprocess_reference(ref_dir, meta, batch)
+            sample_idx = (_first_unfinished(sub_dir, name, num_samples,
+                                            batch_samples) if resume else 0)
+            if sample_idx:
+                logger.info('%s: resuming at sample %d', name, sample_idx)
+            while sample_idx < num_samples:
+                n = min(batch_samples, num_samples - sample_idx)
+                tiled = {k: np.repeat(v, n, axis=0) for k, v in batch.items()}
+                gen = sample_generator(runtime.device, seed, name, sample_idx)
+                t0 = time.time()
+                try:
+                    result = _to_host(sampler.sample(
+                        to_device_batch(tiled, runtime.device), gen))
+                except Exception:
+                    # Per-complex resilience, as the JAX runner: log, go on.
+                    logger.exception('sampling failed for %s; skipping',
+                                     name)
+                    break
+                elapsed = time.time() - t0
+                logger.info('%s: %d samples in %.2fs (%.2f samples/s)', name,
+                            n, elapsed, n / elapsed)
+                results_log.append((name, n, elapsed))
+                for i in range(n):
+                    sdir = os.path.join(sub_dir, f'{sample_idx + i:04d}')
+                    os.makedirs(sdir, exist_ok=True)
+                    if mode == 'trajectory':
+                        postprocess_trajectory(sdir, meta, result, i)
+                    else:
+                        postprocess_sample(sdir, meta, result, i)
+                sample_idx += n
     return results_log

@@ -12,7 +12,15 @@
 //   * abx_tpu/ops/tri_mult.py::tri_mult_pre (LN -> the fused [left | right
 //     | left gate | right gate | final gate] projection -> left * sigmoid(
 //     left gate) * pair mask, the same for right, and the final gate
-//     pre-sigmoid: out_mode 2, entry abx_tri_mult_pre).
+//     pre-sigmoid: out_mode 2, entry abx_tri_mult_pre; without the final
+//     gate columns for emit_fgate=False);
+//   * abx_tpu/ops/gate_proj.py::gate_proj_residual ((sigmoid(gate) * y) W^T
+//     + bias + residual: the gate is applied while a tile of y is staged,
+//     entry abx_gate_proj);
+//   * abx_tpu/ops/tri_mult.py::tri_mult_post_gatefold (LN(y) W^T + b, times
+//     sigmoid(LN_x(res) Wg^T + bg) with the final gate recomputed from the
+//     residual and kept in f32, + res: two LN-staged products per output
+//     tile in one block, entry abx_tri_mult_post_gatefold).
 // Bound on the H100: the C->H bias projection does 2*H flops per byte of
 // the (B, L, L, C) pair track and is bound by device-memory bytes; the
 // wider projections are bound by the block's non-MMA phases (LayerNorm
@@ -21,11 +29,11 @@
 // narrow bias projections, 128 otherwise), K streamed in 64-wide chunks
 // with 16-byte loads.  The LayerNorm statistics are taken per row in a
 // first pass (16-byte loads, a warp's rows interleaved) and the
-// normalisation is applied while a chunk is staged in shared memory, so
-// the normalised tensor never reaches device memory.  The N tiles of one
-// M tile are consecutive blocks, so the row re-reads hit L2.  The epilogue
-// writes 8 columns per thread.  Products are wmma bf16 (bf16x3 for f32
-// inputs, see common.cuh).
+// normalisation (or the sigmoid gate) is applied while a chunk is staged in
+// shared memory, so the normalised or gated tensor never reaches device
+// memory.  The N tiles of one M tile are consecutive blocks, so the row
+// re-reads hit L2.  The epilogue writes 8 columns per thread.  Products are
+// wmma bf16 (bf16x3 for f32 inputs, see common.cuh).
 #include "common.cuh"
 
 namespace abx {
@@ -39,6 +47,8 @@ struct LinearArgs {
   const float* bias;      // (N,) nullable
   const void* residual;   // (M, N) nullable, same dtype as x
   const void* gate;       // (M, N) pre-sigmoid gate, nullable, dtype of x
+  const void* xgate;      // (M, K) pre-sigmoid gate on x (row stride ldx),
+                          // nullable, dtype of x; exclusive with ln_scale
   void* out;
   int N;
   int out_mode;           // 0: (M, N); 1: (B, N, R, Lc), m = (b*R + r)*Lc + l;
@@ -75,7 +85,14 @@ size_t linear_smem_bytes() {
          2 * carve_bytes(sizeof(float) * kBM);
 }
 
-struct LnXform {  // LayerNorm applied while a tile of X is staged
+// Transforms applied to X while a K chunk is staged; k0 is the chunk's first
+// column, set by accumulate().
+struct NoXform {
+  int k0;
+  __device__ float operator()(int, int, float v) const { return v; }
+};
+
+struct LnXform {  // LayerNorm
   const float* mean;
   const float* rstd;
   const float* scale;
@@ -85,6 +102,103 @@ struct LnXform {  // LayerNorm applied while a tile of X is staged
     return (v - mean[r]) * rstd[r] * scale[k0 + c] + bias[k0 + c];
   }
 };
+
+template <typename T>
+struct GateXform {  // y * sigmoid(gate), gate at the same place as y
+  const T* gate;    // row m0 of the gate
+  int ld;
+  int k0;
+  __device__ float operator()(int r, int c, float v) const {
+    return v * sigmoid(to_f32(gate[(size_t)r * ld + k0 + c]));
+  }
+};
+
+// LayerNorm moments of rows [0, rows) of x (row stride ldx, K columns):
+// one-pass moments, max(var, 0) clamp, eps 1e-5.  Warp w takes rows
+// w*R .. w*R+R-1, 8 columns per lane per step (16-byte loads), the R rows'
+// loads and reductions interleaved.
+template <typename T>
+__device__ __forceinline__ void row_moments(const T* x, int ldx, int K,
+                                            int rows, float* mean_s,
+                                            float* rstd_s) {
+  constexpr int R = kBM / kWarps;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float s[R], s2[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) s[r] = s2[r] = 0.f;
+  for (int c = lane * 8; c < K; c += 32 * 8) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = warp * R + r;
+      float v[8];
+      load8(x + (size_t)i * ldx + c, i < rows, c, K, v);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        s[r] += v[k];
+        s2[r] += v[k] * v[k];
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    s[r] = warp_sum(s[r]);
+    s2[r] = warp_sum(s2[r]);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float mu = s[r] / K;
+      mean_s[warp * R + r] = mu;
+      rstd_s[warp * R + r] = rsqrtf(fmaxf(s2[r] / K - mu * mu, 0.f) + 1e-5f);
+    }
+  }
+}
+
+// acc = f(X) W^T for one 64 x BN output tile: x at the tile's first row
+// (row stride ldx), w at its first output column (row stride K).  Ends with
+// a barrier, so the staging tiles may be reused.
+template <typename T, int BN, bool SPLIT, typename F>
+__device__ __forceinline__ void accumulate(FragC* acc, const T* x, int ldx,
+                                           int K, int rows, const T* w,
+                                           int cols, bf16* a_hi, bf16* a_lo,
+                                           bf16* b_hi, bf16* b_lo, F f) {
+  using Tile = LinearTile<BN>;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int t = 0; t < Tile::PER_WARP; ++t) wmma::fill_fragment(acc[t], 0.f);
+  for (int k0 = 0; k0 < K; k0 += kBK) {
+    f.k0 = k0;
+    stage_tile<T, SPLIT>(x + k0, ldx, rows, K - k0, a_hi, a_lo, kLDA, kBM,
+                         kBK, f);
+    stage_tile<T, SPLIT>(w + k0, K, cols, K - k0, b_hi, b_lo, kLDA, BN,
+                         kBK);
+    __syncthreads();
+    {  // the warp's PER_WARP tiles share one row tm: A loaded once
+      const int tile = warp * Tile::PER_WARP;
+      const int tm = tile / (BN / 16), tn = tile % (BN / 16);
+#pragma unroll
+      for (int kk = 0; kk < kBK; kk += 16)
+        mma16_row<SPLIT, FragBc, Tile::PER_WARP>(
+            acc, Tile::PER_WARP, a_hi + tm * 16 * kLDA + kk,
+            a_lo + tm * 16 * kLDA + kk, kLDA, b_hi + tn * 16 * kLDA + kk,
+            b_lo + tn * 16 * kLDA + kk, kLDA, 16 * kLDA);
+    }
+    __syncthreads();
+  }
+}
+
+template <int BN>
+__device__ __forceinline__ void store_acc(float* c_s, const FragC* acc) {
+  using Tile = LinearTile<BN>;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int t = 0; t < Tile::PER_WARP; ++t) {
+    const int tile = warp * Tile::PER_WARP + t;
+    const int tm = tile / (BN / 16), tn = tile % (BN / 16);
+    wmma::store_matrix_sync(c_s + tm * 16 * Tile::LDC + tn * 16, acc[t],
+                            Tile::LDC, wmma::mem_row_major);
+  }
+}
 
 template <typename T, int BN>
 __global__ void __launch_bounds__(kThreads) linear_kernel(LinearArgs p) {
@@ -103,86 +217,34 @@ __global__ void __launch_bounds__(kThreads) linear_kernel(LinearArgs p) {
 
   const T* x = static_cast<const T*>(p.x);
   const T* w = static_cast<const T*>(p.w);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x;
   // N tiles of one M tile are consecutive blocks, so the blocks that read
   // the same rows of X run together and share them through L2.
   const int n_tiles = (p.N + BN - 1) / BN;
   const int m0 = (blockIdx.x / n_tiles) * kBM;
   const int n0 = (blockIdx.x % n_tiles) * BN;
   const int rows = min(kBM, p.M - m0), cols = min(BN, p.N - n0);
-  const bool ln = p.ln_scale != nullptr;
-
-  if (ln) {  // one-pass moments, max(var, 0) clamp, eps 1e-5
-    // Warp w: rows w*R .. w*R+R-1, 8 columns per lane per step (16-byte
-    // loads), the R rows' loads and reductions interleaved.
-    constexpr int R = kBM / kWarps;
-    float s[R], s2[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) s[r] = s2[r] = 0.f;
-    for (int c = lane * 8; c < p.K; c += 32 * 8) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int i = warp * R + r;
-        float v[8];
-        load8(x + (size_t)(m0 + i) * p.ldx + c, i < rows, c, p.K, v);
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          s[r] += v[k];
-          s2[r] += v[k] * v[k];
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      s[r] = warp_sum(s[r]);
-      s2[r] = warp_sum(s2[r]);
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float mu = s[r] / p.K;
-        mean_s[warp * R + r] = mu;
-        rstd_s[warp * R + r] =
-            rsqrtf(fmaxf(s2[r] / p.K - mu * mu, 0.f) + 1e-5f);
-      }
-    }
-  }
-  __syncthreads();
+  const T* xa = x + (size_t)m0 * p.ldx;
+  const T* wn = w + (size_t)n0 * p.K;
 
   FragC acc[Tile::PER_WARP];
-#pragma unroll
-  for (int t = 0; t < Tile::PER_WARP; ++t) wmma::fill_fragment(acc[t], 0.f);
-  for (int k0 = 0; k0 < p.K; k0 += kBK) {
-    const T* xa = x + (size_t)m0 * p.ldx + k0;
-    if (ln)
-      stage_tile<T, SPLIT>(xa, p.ldx, rows, p.K - k0, a_hi, a_lo, kLDA, kBM,
-                           kBK, LnXform{mean_s, rstd_s, p.ln_scale,
-                                        p.ln_bias, k0});
-    else
-      stage_tile<T, SPLIT>(xa, p.ldx, rows, p.K - k0, a_hi, a_lo, kLDA, kBM,
-                           kBK);
-    stage_tile<T, SPLIT>(w + (size_t)n0 * p.K + k0, p.K, cols, p.K - k0,
-                         b_hi, b_lo, kLDA, BN, kBK);
+  if (p.ln_scale != nullptr) {
+    row_moments(xa, p.ldx, p.K, rows, mean_s, rstd_s);
     __syncthreads();
-    {  // the warp's PER_WARP tiles share one row tm: A loaded once
-      const int tile = warp * Tile::PER_WARP;
-      const int tm = tile / (BN / 16), tn = tile % (BN / 16);
-#pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16)
-        mma16_row<SPLIT, FragBc, Tile::PER_WARP>(
-            acc, Tile::PER_WARP, a_hi + tm * 16 * kLDA + kk,
-            a_lo + tm * 16 * kLDA + kk, kLDA, b_hi + tn * 16 * kLDA + kk,
-            b_lo + tn * 16 * kLDA + kk, kLDA, 16 * kLDA);
-    }
-    __syncthreads();
+    accumulate<T, BN, SPLIT>(acc, xa, p.ldx, p.K, rows, wn, cols, a_hi, a_lo,
+                             b_hi, b_lo,
+                             LnXform{mean_s, rstd_s, p.ln_scale, p.ln_bias,
+                                     0});
+  } else if (p.xgate != nullptr) {
+    accumulate<T, BN, SPLIT>(
+        acc, xa, p.ldx, p.K, rows, wn, cols, a_hi, a_lo, b_hi, b_lo,
+        GateXform<T>{static_cast<const T*>(p.xgate) + (size_t)m0 * p.ldx,
+                     p.ldx, 0});
+  } else {
+    accumulate<T, BN, SPLIT>(acc, xa, p.ldx, p.K, rows, wn, cols, a_hi, a_lo,
+                             b_hi, b_lo, NoXform{0});
   }
-#pragma unroll
-  for (int t = 0; t < Tile::PER_WARP; ++t) {
-    const int tile = warp * Tile::PER_WARP + t;
-    const int tm = tile / (BN / 16), tn = tile % (BN / 16);
-    wmma::store_matrix_sync(c_s + tm * 16 * LDC + tn * 16, acc[t], LDC,
-                            wmma::mem_row_major);
-  }
+  store_acc<BN>(c_s, acc);
   __syncthreads();
 
   const T* res = static_cast<const T*>(p.residual);
@@ -301,6 +363,109 @@ cudaError_t launch_linear(const LinearArgs& p, cudaStream_t stream) {
                    : launch_linear_bn<T, 128>(p, stream);
 }
 
+// tri_mult_post_gatefold: per 64 x 128 output tile, o = LN(y) W^T and
+// fg = LN_x(res) Wg^T, each accumulated over its own K (nc, then C) through
+// the same staging tiles; the epilogue forms (o + b) * sigmoid(fg + bg) +
+// res with fg in f32.
+struct GatefoldArgs {
+  const void* y;          // (M, NC)
+  const void* res;        // (M, C)
+  int M, NC, C;
+  const float* y_scale;   // (NC,) LayerNorm of y
+  const float* y_bias;
+  const void* w;          // (C, NC), dtype of y
+  const float* wb;        // (C,)
+  const float* x_scale;   // (C,) the pre block's LayerNorm, applied to res
+  const float* x_bias;
+  const void* wg;         // (C, C) final-gate projection, dtype of y
+  const float* wgb;       // (C,)
+  void* out;              // (M, C)
+};
+
+template <typename T>
+size_t gatefold_smem_bytes() {
+  constexpr int parts = IsF32<T>::value ? 2 : 1;
+  return parts * carve_bytes(sizeof(bf16) * kBM * kLDA) +
+         parts * carve_bytes(sizeof(bf16) * 128 * kLDA) +
+         2 * carve_bytes(sizeof(float) * kBM * LinearTile<128>::LDC) +
+         4 * carve_bytes(sizeof(float) * kBM);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) gatefold_kernel(GatefoldArgs p) {
+  constexpr bool SPLIT = IsF32<T>::value;
+  constexpr int BN = 128;
+  using Tile = LinearTile<BN>;
+  constexpr int LDC = Tile::LDC;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  SmemCarver sc(smem_raw);
+  bf16* a_hi = sc.take<bf16>(kBM * kLDA);
+  bf16* a_lo = SPLIT ? sc.take<bf16>(kBM * kLDA) : a_hi;
+  bf16* b_hi = sc.take<bf16>(BN * kLDA);
+  bf16* b_lo = SPLIT ? sc.take<bf16>(BN * kLDA) : b_hi;
+  float* o_s = sc.take<float>(kBM * LDC);
+  float* g_s = sc.take<float>(kBM * LDC);
+  float* mean_y = sc.take<float>(kBM);
+  float* rstd_y = sc.take<float>(kBM);
+  float* mean_x = sc.take<float>(kBM);
+  float* rstd_x = sc.take<float>(kBM);
+
+  const int n_tiles = (p.C + BN - 1) / BN;
+  const int m0 = (blockIdx.x / n_tiles) * kBM;
+  const int n0 = (blockIdx.x % n_tiles) * BN;
+  const int rows = min(kBM, p.M - m0), cols = min(BN, p.C - n0);
+  const T* y = static_cast<const T*>(p.y) + (size_t)m0 * p.NC;
+  const T* res = static_cast<const T*>(p.res) + (size_t)m0 * p.C;
+  row_moments(y, p.NC, p.NC, rows, mean_y, rstd_y);
+  row_moments(res, p.C, p.C, rows, mean_x, rstd_x);
+  __syncthreads();
+
+  FragC acc[Tile::PER_WARP];
+  accumulate<T, BN, SPLIT>(
+      acc, y, p.NC, p.NC, rows, static_cast<const T*>(p.w) + (size_t)n0 * p.NC,
+      cols, a_hi, a_lo, b_hi, b_lo,
+      LnXform{mean_y, rstd_y, p.y_scale, p.y_bias, 0});
+  store_acc<BN>(o_s, acc);
+  accumulate<T, BN, SPLIT>(
+      acc, res, p.C, p.C, rows, static_cast<const T*>(p.wg) + (size_t)n0 * p.C,
+      cols, a_hi, a_lo, b_hi, b_lo,
+      LnXform{mean_x, rstd_x, p.x_scale, p.x_bias, 0});
+  store_acc<BN>(g_s, acc);
+  __syncthreads();
+
+  T* out = static_cast<T*>(p.out);
+  const bool vec = p.C % 8 == 0;
+  for (int idx = threadIdx.x; idx < kBM * BN / 8; idx += kThreads) {
+    const int i = idx / (BN / 8), j = (idx % (BN / 8)) * 8;
+    if (i >= rows || j >= cols) continue;
+    float r[8], v[8];
+    load8(res + (size_t)i * p.C + n0 + j, true, j, cols, r);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int n = min(n0 + j + k, p.C - 1);
+      const float fg = g_s[i * LDC + j + k] + p.wgb[n];
+      v[k] = (o_s[i * LDC + j + k] + p.wb[n]) * sigmoid(fg) + r[k];
+    }
+    const size_t o = (size_t)(m0 + i) * p.C + n0 + j;
+    if (vec && j + 8 <= cols) {
+      store8(out + o, v);
+    } else {
+      for (int k = 0; k < 8 && j + k < cols; ++k)
+        out[o + k] = from_f32<T>(v[k]);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_gatefold(const GatefoldArgs& p, cudaStream_t stream) {
+  const size_t smem = gatefold_smem_bytes<T>();
+  cudaError_t e = set_smem(gatefold_kernel<T>, smem);
+  if (e != cudaSuccess) return e;
+  const int grid = ((p.M + kBM - 1) / kBM) * ((p.C + 127) / 128);
+  gatefold_kernel<T><<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace abx
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
@@ -310,10 +475,10 @@ extern "C" int abx_row_linear(int dtype, const void* x, int M, int K, int ldx,
                               const void* residual, const void* gate,
                               void* out, int N, int out_mode, int R, int Lc,
                               void* stream) {
-  abx::LinearArgs p{x,        M,    K,   ldx, ln_scale, ln_bias,
-                    w,        bias, residual, gate,     out,
-                    N,        out_mode,  R,   Lc,       nullptr,
-                    nullptr,  0};
+  abx::LinearArgs p{x,        M,    K,        ldx,     ln_scale, ln_bias,
+                    w,        bias, residual, gate,    nullptr,  out,
+                    N,        out_mode, R,    Lc,      nullptr,  nullptr,
+                    0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? abx::launch_linear<float>(p, s)
                     : abx::launch_linear<abx::bf16>(p, s);
@@ -325,17 +490,49 @@ extern "C" int abx_row_linear(int dtype, const void* x, int M, int K, int ldx,
 // gate rows (zero rows pad the last chunk), then the ungated final-gate
 // rows.  out_lr is (2, M, nc): left * sigmoid(left gate) * pair mask, then
 // right; out_fg is (M, N - 4 * 64 * ceil(nc / 64)), the final gate
-// pre-sigmoid.  Rows are m = (b*R + r)*Lc + l; seq_mask is (B, Lc).
+// pre-sigmoid (null, and no final-gate rows in w, for emit_fgate=False).
+// Rows are m = (b*R + r)*Lc + l; seq_mask is (B, Lc).
 extern "C" int abx_tri_mult_pre(int dtype, const void* x, int M, int K,
                                 const float* ln_scale, const float* ln_bias,
                                 const void* w, const float* bias, int N,
                                 const float* seq_mask, int R, int Lc, int nc,
                                 void* out_lr, void* out_fg, void* stream) {
-  abx::LinearArgs p{x,       M,    K,       K,      ln_scale, ln_bias,
-                    w,       bias, nullptr, nullptr, out_lr,
-                    N,       2,    R,       Lc,     seq_mask,
-                    out_fg,  nc};
+  abx::LinearArgs p{x,       M,    K,       K,       ln_scale, ln_bias,
+                    w,       bias, nullptr, nullptr, nullptr,  out_lr,
+                    N,       2,    R,       Lc,      seq_mask, out_fg,
+                    nc};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? abx::launch_linear_bn<float, 128>(p, s)
                     : abx::launch_linear_bn<abx::bf16, 128>(p, s);
+}
+
+// gate_proj_residual: out = (y * sigmoid(gate)) W^T + bias + residual, the
+// product z = y * sigmoid(gate) rounded to the dtype of y as it is staged.
+// y and gate (M, K); w (N, K); bias (N,); residual and out (M, N).
+extern "C" int abx_gate_proj(int dtype, const void* y, const void* gate,
+                             int M, int K, const void* w, const float* bias,
+                             const void* residual, void* out, int N,
+                             void* stream) {
+  abx::LinearArgs p{y,       M,    K,        K,       nullptr, nullptr,
+                    w,       bias, residual, nullptr, gate,    out,
+                    N,       0,    0,        0,       nullptr, nullptr,
+                    0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? abx::launch_linear<float>(p, s)
+                    : abx::launch_linear<abx::bf16>(p, s);
+}
+
+// tri_mult_post_gatefold: out = (LN(y) W^T + wb) * sigmoid(LN_x(res) Wg^T +
+// wgb) + res.  y (M, NC); res and out (M, C); w (C, NC); wg (C, C); the
+// LayerNorm params and biases f32.
+extern "C" int abx_tri_mult_post_gatefold(
+    int dtype, const void* y, const void* res, int M, int NC, int C,
+    const float* y_scale, const float* y_bias, const void* w, const float* wb,
+    const float* x_scale, const float* x_bias, const void* wg,
+    const float* wgb, void* out, void* stream) {
+  abx::GatefoldArgs p{y,  res,     M,       NC, C,   y_scale, y_bias,
+                      w,  wb,      x_scale, x_bias, wg, wgb,  out};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? abx::launch_gatefold<float>(p, s)
+                    : abx::launch_gatefold<abx::bf16>(p, s);
 }

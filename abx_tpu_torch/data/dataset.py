@@ -1,11 +1,13 @@
-"""Host-side dataset: PDB complexes -> static-shape model batches.
+"""Host-side dataset: npz/PDB complexes -> static-shape model batches.
 
 The port's own copy of the parts of `abx_tpu/data/dataset.py` that its
-runner calls, with the same names: `complex_from_pdb`, `prepare_example`
-(antibody-CA centering, `Patch_Around_Anchor` interface cropping, antigen
-windowing to <= max_antigen_len residues, static-shape padding of the
-[antibody ‖ antigen] layout), `stack_batch` and `DataConfig`.  Padding is
-masked (mask=0, seq=UNK).
+runner calls, with the same names: `complex_from_pdb`, `load_complex_npz`
+(the reference's per-complex npz schema, which `complex_from_pdb` also
+returns), `ComplexDataset`, `prepare_example` (antibody-CA centering,
+`Patch_Around_Anchor` interface cropping, antigen windowing to <=
+max_antigen_len residues, static-shape padding of the [antibody ‖
+antigen] layout), `stack_batch` and `DataConfig`.  Padding is masked
+(mask=0, seq=UNK).
 
 Known reference quirk reproduced deliberately: `antigen_origin_*` fields are
 captured AFTER the interface crop, so output PDBs carry the cropped antigen
@@ -17,7 +19,7 @@ from __future__ import annotations
 import dataclasses
 import pathlib
 import random
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -33,8 +35,21 @@ def str_seq_to_index(seq: str) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Complex assembly from a PDB file.
+# Complex assembly (npz or PDB).
 # ---------------------------------------------------------------------------
+
+def load_complex_npz(path: str, name: str) -> Dict[str, np.ndarray]:
+    """Load one complex from the reference's npz schema."""
+    struc = dict(np.load(path, allow_pickle=False))
+    out = {'name': name}
+    for k, v in struc.items():
+        if k == 'name':
+            continue  # the caller's name wins over a stray 'name' array
+        out[k] = v
+    for k in ('antibody_str_seq', 'antigen_str_seq'):
+        out[k] = str(out[k]) if k in out else ''
+    return out
+
 
 def complex_from_pdb(pdb_file: str, heavy_chain: str, light_chain: str,
                      antigen_chains: Sequence[str]) -> Dict[str, np.ndarray]:
@@ -360,4 +375,54 @@ def prepare_example(example: Dict, cfg: DataConfig,
     renamed = antigen_window(renamed, cfg.max_antigen_len, random_window,
                              rng)
     return pad_example(renamed, cfg.max_antibody_len, cfg.max_antigen_len)
+
+
+
+class ComplexDataset:
+    """Iterator over per-complex npz files (reference IgStructureDataset, at
+    inference): `<data_dir>/<name>.npz` for each name, prepared as
+    `prepare_example` does; missing files and complexes without an
+    interface are skipped."""
+
+    def __init__(self, data_dir: str, name_idx: Sequence[str],
+                 cfg: DataConfig, seed: int = 2022):
+        self.data_dir = pathlib.Path(data_dir)
+        self.name_idx = list(name_idx)
+        self.cfg = cfg
+        self.seed = seed
+
+    def __len__(self):
+        return len(self.name_idx)
+
+    def __iter__(self) -> Iterator:
+        rng = random.Random(self.seed)
+        for name in self.name_idx:
+            path = self.data_dir / f'{name}.npz'
+            if not path.exists():
+                continue
+            raw = _npz_to_example(load_complex_npz(str(path), name))
+            prepared = prepare_example(raw, self.cfg, False, rng)
+            if prepared is not None:
+                yield prepared
+
+
+def _npz_to_example(raw: Dict) -> Dict:
+    """Reference npz keys -> the example schema, with defaults for the
+    optional fields."""
+    out = {'name': raw['name']}
+    for prefix in ('antibody', 'antigen'):
+        out[f'{prefix}_str_seq'] = raw.get(f'{prefix}_str_seq', '')
+        n = len(out[f'{prefix}_str_seq'])
+        out[f'{prefix}_coords'] = raw.get(
+            f'{prefix}_coords', np.zeros((n, 14, 3), np.float32))
+        out[f'{prefix}_coord_mask'] = raw.get(
+            f'{prefix}_coord_mask', np.zeros((n, 14), bool))
+        out[f'{prefix}_cdr_def'] = raw.get(
+            f'{prefix}_cdr_def',
+            np.full((n,), rc.antigen_cdr_index, np.int32))
+        out[f'{prefix}_chain_ids'] = raw.get(
+            f'{prefix}_chain_ids', np.zeros((n,), np.int32))
+        out[f'{prefix}_residx'] = raw.get(
+            f'{prefix}_residx', np.arange(n, dtype=np.int32))
+    return out
 

@@ -172,9 +172,13 @@ def make_static_pair_features(batch, is_training=False):
 
 @register
 def make_diffuser_features(batch, diffuser=None, generate_area='H3',
-                           generator=None, is_training=False):
-    """Fixed/diffused masks + the initial (t=1) noisy state of design mode
-    (the train / optimize noising modes are not ported yet)."""
+                           generator=None, mode='design', t_value=None,
+                           is_training=False):
+    """Fixed/diffused masks + the initial noisy state.
+
+    Modes: 'design' (the t=1 reference sample, fixed residues imputed) and
+    'optimize' (the forward marginal at t = t_value, fixed residues kept).
+    The training mode is not ported yet."""
     if diffuser is None or generator is None:
         raise ValueError('make_diffuser_features needs a diffuser and a '
                          'generator')
@@ -197,10 +201,17 @@ def make_diffuser_features(batch, diffuser=None, generate_area='H3',
         d + torch.roll(d, 1, dims=-1) + torch.roll(d, -1, dims=-1), 0, 1)
     struc_loss_mask = batch['mask'].long().clone()
     struc_loss_mask[:, :antibody_len] = dilated
-    t = torch.ones((b,), device=dev)
-    feats = diffuser.sample_ref(generator, rigids_0.shape[:2],
-                                impute_rigids=rigids_0, impute_seq=seq_0,
-                                diffuse_mask=diffused_mask, device=dev)
+    if mode == 'design':
+        t = torch.ones((b,), device=dev)
+        feats = diffuser.sample_ref(generator, rigids_0.shape[:2],
+                                    impute_rigids=rigids_0, impute_seq=seq_0,
+                                    diffuse_mask=diffused_mask, device=dev)
+    elif mode == 'optimize':
+        t = torch.full((b,), float(t_value), device=dev)
+        feats = diffuser.forward_marginal(generator, rigids_0, seq_0, t,
+                                          diffused_mask)
+    else:
+        raise ValueError(f'make_diffuser_features: mode {mode!r}')
     batch.update(feats)
     batch.update(t=t, struc_loss_mask=struc_loss_mask, fixed_mask=fixed_mask,
                  rigids_0=rigids_0, diffused_mask=diffused_mask)

@@ -68,6 +68,31 @@ class DiscreteDiffuser:
         return torch.randint(0, self.num_states, tuple(shape),
                              generator=generator, device=device)
 
+    def forward_marginal(self, generator, x_0, t):
+        """Sample x_t ~ q(x_t | x_0) plus one auxiliary corrupted site per
+        example (the tauLDR one-forward-pass scheme: the network reads the
+        corrupted x_tilde).  Returns (x_tilde, q_t0, rate_t, x_t), x_t
+        before the corruption."""
+        s = self.num_states
+        batch, length = x_0.shape
+        qt0 = self.transition(t)
+        rate = self.rate(t)
+        x_0 = x_0.clamp(0, s - 1).long()
+        rows = torch.gather(qt0, 1, x_0[..., None].expand(-1, -1, s))
+        x_t = torch.multinomial(rows.reshape(-1, s), 1,
+                                generator=generator).reshape(batch, length)
+        # Rate rows at the sampled state, diagonal zeroed.
+        rate_rows = torch.gather(rate, 1, x_t[..., None].expand(-1, -1, s))
+        rate_rows = (rate_rows * (1.0 - F.one_hot(x_t, s).float())
+                     ).clamp(min=0.0)
+        # One site per example in proportion to its total outgoing rate,
+        # then its new value in proportion to that site's rates.
+        site = torch.multinomial(rate_rows.sum(-1), 1, generator=generator)
+        site_rates = torch.gather(rate_rows, 1,
+                                  site[..., None].expand(-1, -1, s))[:, 0]
+        new_val = torch.multinomial(site_rates, 1, generator=generator)
+        return x_t.scatter(1, site, new_val), qt0, rate, x_t
+
     def reverse_rates(self, x_t, logits_t, t, eps_ratio: float = 1e-9):
         """Model-implied reverse jump rates R̂_t(x_t -> s), (B, D, S)."""
         batch = x_t.shape[0]

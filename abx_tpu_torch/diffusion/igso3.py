@@ -163,6 +163,15 @@ class SO3Diffuser:
     def score_scaling(self, t):
         return self._score_scaling[self.t_to_idx(t)]
 
+    def forward_marginal(self, generator, rot_0, t):
+        """Noise rotation vectors rot_0 (B, L, 3) to time t (B,); returns
+        (rot_t, the score of the sampled perturbation)."""
+        sampled = self.sample(generator, t, rot_0.shape[:-1])
+        rot_score = self.score(sampled, t)
+        quat_t = quat_ops.quat_multiply(quat_ops.rotvec_to_quat(rot_0),
+                                        quat_ops.rotvec_to_quat(sampled))
+        return quat_ops.quat_to_rotvec(quat_t), rot_score
+
     def reverse(self, generator, rot_t, score_t, t, dt,
                 mask: Optional[torch.Tensor] = None,
                 z: Optional[torch.Tensor] = None):

@@ -64,6 +64,57 @@ class JointDiffuser:
         self.r3 = R3Diffuser(config.r3)
         self.seq = DiscreteDiffuser(config.seq)
 
+    def forward_marginal(self, generator, rigids_0, seq_0, t,
+                         diffuse_mask: Optional[torch.Tensor] = None
+                         ) -> Dict[str, torch.Tensor]:
+        """Noise (rigids (B, L, 7) tensor7, sequence (B, L)) to time t (B,);
+        residues outside `diffuse_mask` (1 = diffused) keep their values
+        and get zero scores."""
+        c = self.config
+        trans_0, rot_0 = tensor7_split(rigids_0)
+        if c.diffuse_rot:
+            rot_t, rot_score = self.so3.forward_marginal(generator, rot_0, t)
+            rot_score_scaling = self.so3.score_scaling(t)
+        else:
+            rot_t, rot_score = rot_0, torch.zeros_like(rot_0)
+            rot_score_scaling = torch.ones_like(t)
+        if c.diffuse_trans:
+            trans_t, trans_score = self.r3.forward_marginal(generator,
+                                                            trans_0, t)
+            trans_score_scaling = self.r3.score_scaling(t)
+        else:
+            trans_t, trans_score = trans_0, torch.zeros_like(trans_0)
+            trans_score_scaling = torch.ones_like(t)
+        s = self.seq.num_states
+        if c.diffuse_seq:
+            # seq_t is x_tilde (the one-extra-site corruption the network
+            # reads); seq_xt the pre-corruption x_t.
+            seq_t, q_t0, rate_t, seq_xt = self.seq.forward_marginal(
+                generator, seq_0, t)
+        else:
+            seq_t = seq_xt = seq_0
+            q_t0 = torch.eye(s, device=t.device).expand(t.shape[0], s, s)
+            rate_t = torch.zeros((t.shape[0], s, s), device=t.device)
+        if diffuse_mask is not None:
+            m = diffuse_mask
+            rot_t = _mask_mix(rot_t, rot_0, m[..., None])
+            trans_t = _mask_mix(trans_t, trans_0, m[..., None])
+            rot_score = rot_score * m[..., None]
+            trans_score = trans_score * m[..., None]
+            seq_t = _mask_mix(seq_t, seq_0, m).to(seq_0.dtype)
+            seq_xt = _mask_mix(seq_xt, seq_0, m).to(seq_0.dtype)
+        return {
+            'rigids_t': tensor7_join(rot_t, trans_t),
+            'trans_score': trans_score,
+            'rot_score': rot_score,
+            'trans_score_scaling': trans_score_scaling,
+            'rot_score_scaling': rot_score_scaling,
+            'seq_t': seq_t,
+            'seq_xt': seq_xt,
+            'q_t0': q_t0,
+            'rate_t': rate_t,
+        }
+
     def calc_trans_score(self, trans_t, trans_0, t, scale: bool = True):
         return self.r3.score(trans_t, trans_0, t, scale=scale)
 

@@ -61,6 +61,18 @@ class R3Diffuser:
         return -(x_t - torch.exp(-0.5 * self.marginal_b_t(t)) * x_0) \
             / self.conditional_var(t)
 
+    def forward_marginal(self, generator, x_0, t):
+        """Sample p(x_t | x_0); x_0 in Angstroms, t (B,); returns (x_t in
+        Angstroms, the score in scaled units)."""
+        x_0s = self.scale(x_0)
+        log_mean_coeff = (-0.5 * self.marginal_b_t(t)).reshape(
+            (t.shape[0],) + (1,) * (x_0.dim() - 1))
+        mean = torch.exp(log_mean_coeff) * x_0s
+        std = torch.sqrt(1.0 - torch.exp(2.0 * log_mean_coeff))
+        x_t = mean + std * torch.randn(x_0.shape, generator=generator,
+                                       device=x_0.device)
+        return self.unscale(x_t), self.score(x_t, x_0s, t)
+
     def sample_ref(self, generator, shape, device):
         return torch.randn(tuple(shape) + (3,), generator=generator,
                            device=device)

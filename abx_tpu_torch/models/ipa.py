@@ -6,7 +6,8 @@ rotation/translation scores through the diffuser's closed forms.  The point
 attention runs in f32.  On the card, with ABX_FUSED_IPA_ATTN on, the
 logits, softmax and the three attends run in the hand-written kernel
 (`ops/ipa_attention.py`); it masks keys only, the plain path also masks
-query rows.
+query rows.  With it off and ABX_IPA_ATTEND on, the attend over the pair
+track runs in its own kernel (`ops/ipa_attend.py`).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from abx_tpu_torch.geometry import quat as quat_ops
 from abx_tpu_torch.geometry.rigid import Rigid
 from abx_tpu_torch.models.modules import LayerNorm, Linear, fused_dense
 from abx_tpu_torch.ops import registry
+from abx_tpu_torch.ops.ipa_attend import ipa_pair_attend
 from abx_tpu_torch.ops.ipa_attention import ipa_attention
 
 BIG_NEG = -1e9
@@ -112,9 +114,13 @@ class InvariantPointAttention(nn.Module):
                                          v_scalar).reshape(b, l, h * nsv)
             result_point_global = torch.einsum(
                 'bhij,bjhnr->bihnr', attn, v_point).reshape(b, l, h * npv, 3)
-            result_2d = torch.einsum(
-                'bhij,bijc->bihc', attn.to(dt), inputs_2d).reshape(
-                    b, l, h * inputs_2d.shape[-1])
+            if (registry.on_device(inputs_2d)
+                    and registry.use_ipa_attend_kernel()):
+                result_2d = ipa_pair_attend(attn, inputs_2d)
+            else:
+                result_2d = torch.einsum(
+                    'bhij,bijc->bihc', attn.to(dt), inputs_2d).reshape(
+                        b, l, h * inputs_2d.shape[-1])
 
         result_point_local = rigids.invert().apply(result_point_global)
         outputs = [

@@ -5,8 +5,12 @@ path.  On tensors that live on the card, and with the registry flags on
 (their defaults), the recycled pair-input assembly, the seq-attention
 pair bias, the seq attention, the triangle-multiplication blocks around
 the contraction, both triangle attentions and the pair transition run
-through the hand-written kernels in `abx_tpu_torch/ops`; elsewhere the
-modules take the same plain path as the JAX package off the TPU.
+through the hand-written kernels in `abx_tpu_torch/ops`; the opt-in flags
+route as in the JAX package (the triangle contraction kernel under
+`ABX_PALLAS_TRIANGLE`, the gate-fold triangle multiplication under
+`ABX_TRIMULT_GATEFOLD`, the triangle-attention epilogue kernel under
+`ABX_GATE_PROJ_KERNEL` without the LN-fold).  Elsewhere the modules take
+the same plain path as the JAX package off the TPU.
 With `esm.enabled`, `EmbeddingAndSeqformer` adds the projected, learned
 layer-weighted ESM2 embedding of the pass's noisy antibody sequence to the
 antibody track (`models/esm.py`).  `SpatialDepthWiseInception`
@@ -26,11 +30,13 @@ from abx_tpu_torch.models.modules import (MLP, Embedding, LayerNorm, Linear,
                                           fused_dense, get_timestep_embedding,
                                           layer_norm)
 from abx_tpu_torch.ops import registry
+from abx_tpu_torch.ops.gate_proj import gate_proj_residual
 from abx_tpu_torch.ops.pair_bias import pair_bias_proj
 from abx_tpu_torch.ops.recycle_embed import recycle_embed
 from abx_tpu_torch.ops.transition import fused_transition
 from abx_tpu_torch.ops.tri_attention import triangle_attention_packed
-from abx_tpu_torch.ops.tri_mult import tri_mult_post, tri_mult_pre
+from abx_tpu_torch.ops.tri_mult import (tri_mult_post,
+                                        tri_mult_post_gatefold, tri_mult_pre)
 from abx_tpu_torch.ops.triangle import triangle_multiply
 
 BIG_NEG = -1e9
@@ -96,7 +102,8 @@ class GatedAttention(nn.Module):
         `kernel` routes through the packed attention wrapper; with `ln`
         (LayerNorm params; needs gating and `residual`) q_data is RAW and
         the LayerNorm, the gate, the out-proj and the residual run inside
-        it."""
+        it.  Without `ln`, the gate, the out-proj and the residual run in
+        the `gate_proj_residual` kernel under `ABX_GATE_PROJ_KERNEL`."""
         h = self.num_head
         dt = self.dtype
         if kernel:
@@ -109,6 +116,11 @@ class GatedAttention(nn.Module):
                     out_proj=(self.proj_out.weight, self.proj_out.bias),
                     residual=residual)
             out = triangle_attention_packed(q_data, wq, wk, wv, bias, mask)
+            if (self.gating and residual is not None
+                    and registry.use_gate_proj_kernel()):
+                return gate_proj_residual(out, self.gate(q_data),
+                                          self.proj_out.weight,
+                                          self.proj_out.bias, residual)
             if self.gating:
                 out = out * torch.sigmoid(self.gate(q_data))
             out = self.proj_out(out)
@@ -234,7 +246,9 @@ class OuterProductMean(nn.Module):
 
 class TriangleMultiplication(nn.Module):
     """Triangle multiplication; on the card (residual, gated) the blocks
-    around the contraction run as the tri_mult pre/post kernels."""
+    around the contraction run as the tri_mult pre/post kernels, or as
+    pre without the final gate and the gate-fold post under
+    `ABX_TRIMULT_GATEFOLD`."""
 
     def __init__(self, config, num_in: int, dtype=torch.float32):
         super().__init__()
@@ -255,17 +269,37 @@ class TriangleMultiplication(nn.Module):
 
     def forward(self, act, mask, residual: bool = False):
         dt = self.dtype
+        use_pallas = registry.use_pallas_triangle()
         if (residual and self.gating and act.dim() == 4
                 and registry.on_device(act) and registry.use_fused_trimult()):
+            if registry.use_trimult_c_major() and not use_pallas:
+                raise NotImplementedError(
+                    'ABX_TRIMULT_C_MAJOR: the channel-major triangle-'
+                    'multiplication route is not ported yet (ROADMAP '
+                    'Queue 2)')
             branches = [self.left_proj, self.right_proj, self.left_gate,
-                        self.right_gate, self.final_gate]
+                        self.right_gate]
+            fscale, fbias = self.final_norm.scale, self.final_norm.bias
+            if registry.use_trimult_gatefold():
+                left, right = tri_mult_pre(
+                    act, self.norm.scale, self.norm.bias,
+                    torch.cat([m.weight for m in branches]),
+                    torch.cat([m.bias for m in branches]), mask,
+                    emit_fgate=False)
+                out = triangle_multiply(left, right, per_row=self.per_row,
+                                        use_pallas=use_pallas)
+                return tri_mult_post_gatefold(
+                    out, fscale, fbias, self.proj_out.weight,
+                    self.proj_out.bias, self.norm.scale, self.norm.bias,
+                    self.final_gate.weight, self.final_gate.bias, act)
+            branches.append(self.final_gate)
             left, right, fg = tri_mult_pre(
                 act, self.norm.scale, self.norm.bias,
                 torch.cat([m.weight for m in branches]),
                 torch.cat([m.bias for m in branches]), mask)
-            out = triangle_multiply(left, right, per_row=self.per_row)
-            return tri_mult_post(out, self.final_norm.scale,
-                                 self.final_norm.bias, self.proj_out.weight,
+            out = triangle_multiply(left, right, per_row=self.per_row,
+                                    use_pallas=use_pallas)
+            return tri_mult_post(out, fscale, fbias, self.proj_out.weight,
                                  self.proj_out.bias, fg, act)
         pair_mask = (mask[:, :, None, None] * mask[:, None, :, None]).to(dt)
         x = self.norm(act)
@@ -280,7 +314,8 @@ class TriangleMultiplication(nn.Module):
             left, right = fused_dense(x, branches, dt)
         left = left * pair_mask
         right = right * pair_mask
-        out = triangle_multiply(left, right, per_row=self.per_row)
+        out = triangle_multiply(left, right, per_row=self.per_row,
+                                use_pallas=use_pallas)
         out = self.proj_out(self.final_norm(out))
         if self.gating:
             out = out * torch.sigmoid(fg)

@@ -38,6 +38,10 @@ _SIGNATURES = {
                                _P, _P],
     'abx_ipa_attention': [_I] + [_P] * 14 + [_I] * 7 + [_P],
     'abx_esm_attention': [_I] + [_P] * 6 + [_I] * 4 + [_P],
+    'abx_gate_proj': [_I, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
+    'abx_tri_mult_post_gatefold': [_I, _P, _P, _I, _I, _I] + [_P] * 10,
+    'abx_ipa_pair_attend': [_I, _P, _P, _P, _I, _I, _I, _I, _P],
+    'abx_triangle_multiply': [_I, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -1,9 +1,13 @@
 """Kernel dispatch switches for the ported Hopper kernels.
 
 The same `ABX_*` environment flags and defaults as `abx_tpu/ops/registry.py`
-for the kernels this package has ported.  Where the JAX package asks
-`jax.default_backend() == 'tpu'`, the port asks `on_device(tensor)`: a
-kernel route is taken only for tensors that live on a CUDA device.
+for every kernel route of the model (one exception, `ABX_FUSED_ESM_ATTN`,
+says why).  Where the JAX package asks `jax.default_backend() == 'tpu'`,
+the port asks `on_device(tensor)`: a kernel route is taken only for
+tensors that live on a CUDA device.  A route the port has not ported
+raises on the card instead of being ignored (`ABX_TRIMULT_C_MAJOR`).  The
+defaults were chosen by TPU measurements; which suit the H100 waits for
+the port's benchmark.
 """
 
 from __future__ import annotations
@@ -93,3 +97,38 @@ def use_flash_esm() -> bool:
     flash kernel.  A library call, not a kernel of this repository; default
     off, and only taken with `ABX_FUSED_ESM_ATTN=0`."""
     return os.environ.get('ABX_FLASH_ESM', '0') == '1'
+
+
+def use_pallas_triangle() -> bool:
+    """Triangle-multiplication contraction through the hand-written kernel
+    (`ops/triangle.py::triangle_multiply_kernel`) instead of the einsum.
+    Default off, as in the JAX package."""
+    return os.environ.get('ABX_PALLAS_TRIANGLE', '0') == '1'
+
+
+def use_ipa_attend_kernel() -> bool:
+    """IPA attend-over-pair through its kernel (`ops/ipa_attend.py`) on the
+    IPA's non-fused route (`ABX_FUSED_IPA_ATTN=0`)."""
+    return os.environ.get('ABX_IPA_ATTEND', '1') == '1'
+
+
+def use_gate_proj_kernel() -> bool:
+    """Triangle-attention epilogue (sigmoid gate -> out-proj -> +residual)
+    in one kernel (`ops/gate_proj.py`) on the route without the LN-fold
+    (`ABX_TRI_ATTN_LN_FOLD=0`).  Default off, as in the JAX package."""
+    return os.environ.get('ABX_GATE_PROJ_KERNEL', '0') == '1'
+
+
+def use_trimult_gatefold() -> bool:
+    """Triangle multiplication with the final gate recomputed inside the
+    post block from the residual (`tri_mult_pre(emit_fgate=False)` +
+    `tri_mult_post_gatefold`): the (B, L, L, C) gate never reaches device
+    memory.  Default off, as in the JAX package."""
+    return os.environ.get('ABX_TRIMULT_GATEFOLD', '0') == '1'
+
+
+def use_trimult_c_major() -> bool:
+    """Channel-major triangle-multiplication data path.  Not ported yet
+    (ROADMAP Queue 2): on the card, the route the JAX package would take
+    under this flag raises NotImplementedError.  Default off."""
+    return os.environ.get('ABX_TRIMULT_C_MAJOR', '0') == '1'

@@ -1,13 +1,17 @@
 """Fused triangle-multiplication pre and post blocks.
 
-Counterparts of abx_tpu/ops/tri_mult.py::tri_mult_pre and ::tri_mult_post
-(Pallas TPU kernels), in their default form (natural layout, the final gate
-emitted by pre); the contraction between them stays a plain batched GEMM
-(`ops/triangle.py`).  On the card both run `csrc/row_linear.cu`: pre as
-its gated-pairs mode (entry `abx_tri_mult_pre`), post as the plain row
-linear with a sigmoid gate and the residual in its epilogue.  The
-LayerNorm is applied while a tile is staged, so the normalised tensor never
-reaches device memory; see the source note there for what bounds them.
+Counterparts of abx_tpu/ops/tri_mult.py::tri_mult_pre, ::tri_mult_post and
+::tri_mult_post_gatefold (Pallas TPU kernels), in the natural layout: pre
+with or without the final gate (`emit_fgate`), post with the emitted final
+gate, and the gate-fold post that recomputes the final gate from the
+residual.  The contraction between them is `ops/triangle.py`.  On the
+card all run `csrc/row_linear.cu`: pre as its gated-pairs mode (entry
+`abx_tri_mult_pre`), post as the plain row linear with a sigmoid gate and
+the residual in its epilogue, the gate-fold post as two LN-staged products
+per output tile (entry `abx_tri_mult_post_gatefold`).  The LayerNorm is
+applied while a tile is staged, so the normalised tensor never reaches
+device memory; see the source note there for what bounds them.  The
+channel-major variants (`ABX_TRIMULT_C_MAJOR`) are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,17 +25,23 @@ from abx_tpu_torch.ops import _lib, registry
 _HALF = 64   # value channels per packed N tile (csrc/row_linear.cu kHalf)
 
 
-def tri_mult_pre_plain(x, scale, bias, w, wb, mask, eps: float = 1e-5):
+def _nc(w, c: int, emit_fgate: bool) -> int:
+    return (w.shape[0] - c) // 4 if emit_fgate else w.shape[0] // 4
+
+
+def tri_mult_pre_plain(x, scale, bias, w, wb, mask, eps: float = 1e-5,
+                       emit_fgate: bool = True):
     """Plain PyTorch version (mirrors tri_mult_pre_reference): LN in f32,
     the product in the input dtype, bias / gating / mask in f32."""
-    c = x.shape[-1]
-    nc = (w.shape[0] - c) // 4
+    nc = _nc(w, x.shape[-1], emit_fgate)
     dt = x.dtype
     ln = layer_norm(x, scale, bias, eps, dtype=dt)
     y = F.linear(ln, w.to(dt)).float() + wb.float()
     pm = (mask[:, :, None] * mask[:, None, :]).float()[..., None]
     left = y[..., :nc] * torch.sigmoid(y[..., 2 * nc:3 * nc]) * pm
     right = y[..., nc:2 * nc] * torch.sigmoid(y[..., 3 * nc:4 * nc]) * pm
+    if not emit_fgate:
+        return left.to(dt), right.to(dt)
     return left.to(dt), right.to(dt), y[..., 4 * nc:].to(dt)
 
 
@@ -48,31 +58,34 @@ def _pack(value, gate):
         (-1,) + value.shape[1:])
 
 
-def tri_mult_pre(x, scale, bias, w, wb, mask):
-    """LN -> fused [left|right|left gate|right gate|final gate] projection
-    -> left * sigmoid(left gate) * pair mask, likewise right.
+def tri_mult_pre(x, scale, bias, w, wb, mask, emit_fgate: bool = True):
+    """LN -> fused [left|right|left gate|right gate(|final gate)]
+    projection -> left * sigmoid(left gate) * pair mask, likewise right.
 
     Args:
         x: (B, L, L, C) pair activations.
         scale, bias: (C,) LayerNorm params.
         w: (4*nc + C, C), wb: (4*nc + C,): the five projections stacked
-            in that order (nn.Linear layout).
+            in that order (nn.Linear layout) -- or (4*nc, C), (4*nc,)
+            without the final gate when `emit_fgate=False` (the gate-fold
+            post recomputes it).
         mask: (B, L) sequence mask; the pair mask is mask_i * mask_j.
-    Returns: left, right (B, L, L, nc) and the pre-sigmoid final gate
-        (B, L, L, C), all in x.dtype.
+    Returns: left, right (B, L, L, nc) and, with `emit_fgate`, the
+        pre-sigmoid final gate (B, L, L, C), all in x.dtype.
     """
     if not registry.on_device(x):
-        return tri_mult_pre_plain(x, scale, bias, w, wb, mask)
+        return tri_mult_pre_plain(x, scale, bias, w, wb, mask,
+                                  emit_fgate=emit_fgate)
     b, r, l, c = x.shape
-    nc = (w.shape[0] - c) // 4
+    nc = _nc(w, c, emit_fgate)
+    n_fg = c if emit_fgate else 0
     dt = x.dtype
-    _lib.require(r == l and w.shape == (4 * nc + c, c)
-                 and wb.shape == (4 * nc + c,) and mask.shape == (b, l),
-                 'tri_mult_pre: x (B, L, L, C), w (4*nc + C, C), wb, '
+    _lib.require(r == l and w.shape == (4 * nc + n_fg, c)
+                 and wb.shape == (4 * nc + n_fg,) and mask.shape == (b, l),
+                 'tri_mult_pre: x (B, L, L, C), w (4*nc [+ C], C), wb, '
                  'mask (B, L)')
-    wf, bf = w.float(), wb.float()
-    w_parts = torch.split(wf, [nc, nc, nc, nc, c])
-    b_parts = torch.split(bf, [nc, nc, nc, nc, c])
+    w_parts = torch.split(w.float(), [nc] * 4 + [n_fg])
+    b_parts = torch.split(wb.float(), [nc] * 4 + [n_fg])
     w_packed = torch.cat([_pack(w_parts[0], w_parts[2]),
                           _pack(w_parts[1], w_parts[3]),
                           w_parts[4]]).to(dt).contiguous()
@@ -87,18 +100,24 @@ def tri_mult_pre(x, scale, bias, w, wb, mask):
     _lib.require(scale.shape == (c,) and bias.shape == (c,),
                  'tri_mult_pre: LN params must be (C,)')
     lr = torch.empty((2, b, r, l, nc), dtype=dt, device=x.device)
-    fg = torch.empty((b, r, l, c), dtype=dt, device=x.device)
+    fg = (torch.empty((b, r, l, c), dtype=dt, device=x.device)
+          if emit_fgate else None)
     err = _lib.lib().abx_tri_mult_pre(
         _lib.DTYPE_CODE[dt], x.data_ptr(), b * r * l, c, scale.data_ptr(),
         bias.data_ptr(), w_packed.data_ptr(), b_packed.data_ptr(),
         w_packed.shape[0], maskf.data_ptr(), r, l, nc, lr.data_ptr(),
-        fg.data_ptr(), _lib.stream(x))
+        _lib.ptr(fg), _lib.stream(x))
     _lib.check(err, 'tri_mult_pre')
     tri_mult_pre.launches += 1
+    if not emit_fgate:
+        tri_mult_pre.launches_no_fgate += 1
+        return lr[0], lr[1]
     return lr[0], lr[1], fg
 
 
+# All launches, and those of the emit_fgate=False variant among them.
 tri_mult_pre.launches = 0
+tri_mult_pre.launches_no_fgate = 0
 
 
 def tri_mult_post_plain(y, scale, bias, w, wb, fg, res, eps: float = 1e-5):
@@ -148,3 +167,68 @@ def tri_mult_post(y, scale, bias, w, wb, fg, res):
 
 
 tri_mult_post.launches = 0
+
+
+def tri_mult_post_gatefold_plain(y, scale, bias, w, wb, x_scale, x_bias, wg,
+                                 wgb, res, eps: float = 1e-5):
+    """Plain PyTorch version (mirrors tri_mult_post_gatefold_reference): the
+    final gate recomputed from res with the pre block's LayerNorm, kept in
+    f32."""
+    dt = y.dtype
+    ln = layer_norm(y, scale, bias, eps, dtype=dt)
+    o = F.linear(ln, w.to(dt)).float() + wb.float()
+    lnx = layer_norm(res, x_scale, x_bias, eps, dtype=res.dtype)
+    fg = F.linear(lnx, wg.to(res.dtype)).float() + wgb.float()
+    o = o * torch.sigmoid(fg)
+    return (o + res.float()).to(res.dtype)
+
+
+def tri_mult_post_gatefold(y, scale, bias, w, wb, x_scale, x_bias, wg, wgb,
+                           res):
+    """tri_mult_post with the final gate recomputed from `res`:
+    (LN(y) @ w^T + wb) * sigmoid(LN_x(res) @ wg^T + wgb) + res.
+
+    Args:
+        y: (B, L, L, nc) triangle contraction output.
+        scale, bias: (nc,) final LayerNorm params.
+        w: (C, nc), wb: (C,) (nn.Linear layout).
+        x_scale, x_bias: (C,) the pre block's LayerNorm params.
+        wg: (C, C), wgb: (C,): the final-gate projection.
+        res: (B, L, L, C), the pre block's input.
+    Returns: (B, L, L, C) in res.dtype.
+    """
+    if not registry.on_device(y):
+        return tri_mult_post_gatefold_plain(y, scale, bias, w, wb, x_scale,
+                                            x_bias, wg, wgb, res)
+    b, r, l, nc = y.shape
+    c = w.shape[0]
+    dt = y.dtype
+    y, res = y.contiguous(), res.contiguous()
+    w, wg = w.to(dt).contiguous(), wg.to(dt).contiguous()
+    f32 = {k: v.float().contiguous() for k, v in dict(
+        wb=wb, scale=scale, bias=bias, x_scale=x_scale, x_bias=x_bias,
+        wgb=wgb).items()}
+    _lib.check_cuda_inputs('tri_mult_post_gatefold', dt, y=y, w=w, wg=wg,
+                           res=res, f32=f32)
+    _lib.require(w.shape == (c, nc) and wg.shape == (c, c)
+                 and f32['wb'].shape == (c,) and f32['wgb'].shape == (c,)
+                 and f32['scale'].shape == (nc,)
+                 and f32['bias'].shape == (nc,)
+                 and f32['x_scale'].shape == (c,)
+                 and f32['x_bias'].shape == (c,)
+                 and res.shape == (b, r, l, c),
+                 'tri_mult_post_gatefold: w (C, nc), wg (C, C), wb and wgb '
+                 '(C,), LN params (nc,) and (C,), res (B, L, L, C)')
+    out = torch.empty_like(res)
+    err = _lib.lib().abx_tri_mult_post_gatefold(
+        _lib.DTYPE_CODE[dt], y.data_ptr(), res.data_ptr(), b * r * l, nc, c,
+        f32['scale'].data_ptr(), f32['bias'].data_ptr(), w.data_ptr(),
+        f32['wb'].data_ptr(), f32['x_scale'].data_ptr(),
+        f32['x_bias'].data_ptr(), wg.data_ptr(), f32['wgb'].data_ptr(),
+        out.data_ptr(), _lib.stream(y))
+    _lib.check(err, 'tri_mult_post_gatefold')
+    tri_mult_post_gatefold.launches += 1
+    return out
+
+
+tri_mult_post_gatefold.launches = 0

@@ -1,18 +1,62 @@
-"""Triangle-multiplication contraction (plain batched GEMM).
+"""Triangle-multiplication contraction.
 
-Counterpart of `abx_tpu/ops/triangle.py::triangle_multiply_einsum`, the
-einsum the JAX package leaves to XLA on its main path (its Pallas variant,
-`triangle_multiply_pallas`, is off by default and not ported yet):
+Counterpart of `abx_tpu/ops/triangle.py`:
     per_row:    out[b,i,j,c] = sum_k left[b,i,k,c] * right[b,j,k,c]
     per_column: out[b,i,j,c] = sum_k left[b,k,i,c] * right[b,k,j,c]
+`triangle_multiply` dispatches as the JAX package's does: to the kernel
+(`triangle_multiply_kernel`, the counterpart of `triangle_multiply_pallas`,
+on the card `csrc/triangle.cu`) when `use_pallas` is set (the callers pass
+`ABX_PALLAS_TRIANGLE`) and the tensors live on the card, and to the einsum
+(`triangle_multiply_einsum`, a batched GEMM) otherwise.
+The channel-major variant (`triangle_multiply_c_major`) is not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
+from abx_tpu_torch.ops import _lib, registry
 
-def triangle_multiply(left, right, per_row: bool = True):
+
+def triangle_multiply_einsum(left, right, per_row: bool = True):
+    """Plain version: the contraction as one einsum."""
     if per_row:
         return torch.einsum('bikc,bjkc->bijc', left, right)
     return torch.einsum('bkic,bkjc->bijc', left, right)
+
+
+def triangle_multiply_kernel(left, right, per_row: bool = True):
+    """The contraction in one kernel that reads and writes the natural
+    (B, L, L, C) layout: no transposes in device memory.
+
+    Args:
+        left, right: (B, L, L, C), same dtype.
+    Returns: (B, L, L, C) in that dtype.
+    """
+    if not registry.on_device(left):
+        return triangle_multiply_einsum(left, right, per_row)
+    b, l, l2, c = left.shape
+    dt = left.dtype
+    left, right = left.contiguous(), right.contiguous()
+    _lib.check_cuda_inputs('triangle_multiply', dt, left=left, right=right)
+    _lib.require(l == l2 and right.shape == left.shape,
+                 'triangle_multiply: left and right (B, L, L, C)')
+    out = torch.empty_like(left)
+    err = _lib.lib().abx_triangle_multiply(
+        _lib.DTYPE_CODE[dt], left.data_ptr(), right.data_ptr(),
+        out.data_ptr(), b, l, c, int(per_row), _lib.stream(left))
+    _lib.check(err, 'triangle_multiply')
+    triangle_multiply_kernel.launches += 1
+    return out
+
+
+triangle_multiply_kernel.launches = 0
+
+
+def triangle_multiply(left, right, per_row: bool = True,
+                      use_pallas: bool = False):
+    """Dispatch: the kernel on the card when `use_pallas`, the einsum
+    otherwise."""
+    if use_pallas and registry.on_device(left):
+        return triangle_multiply_kernel(left, right, per_row)
+    return triangle_multiply_einsum(left, right, per_row)

@@ -1,15 +1,15 @@
 """Host-side post-processing: sampler outputs -> PDB files.
 
-The port's own copy of `postprocess_sample` and `postprocess_reference` of
-`abx_tpu/sampling/output.py` (same names, same PDB text): designed
-antibody chains with per-residue pLDDT b-factors, plus the (cropped)
-antigen context chains.
+The port's own copy of `postprocess_sample`, `postprocess_reference` and
+`postprocess_trajectory` of `abx_tpu/sampling/output.py` (same names, same
+PDB text): designed antibody chains with per-residue pLDDT b-factors, plus
+the (cropped) antigen context chains.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -18,8 +18,8 @@ from abx_tpu_torch.data.pdb_io import save_complex_pdb
 
 
 def postprocess_sample(output_dir: str, meta: Dict, result: Dict,
-                       batch_index: int = 0):
-    """Write one designed complex to `<output_dir>/<name>.pdb`."""
+                       batch_index: int = 0, time_tag: Optional[float] = None):
+    """Write one designed complex to `<output_dir>/<name>[@t].pdb`."""
     name = meta['name']
     str_heavy = meta['str_heavy_seq']
     str_light = meta['str_light_seq']
@@ -43,7 +43,8 @@ def postprocess_sample(output_dir: str, meta: Dict, result: Dict,
         'antigen_chains': antigen_chains,
     }
 
-    pdb_file = os.path.join(output_dir, f'{name}.pdb')
+    suffix = f'@{time_tag:.4f}' if time_tag is not None else ''
+    pdb_file = os.path.join(output_dir, f'{name}{suffix}.pdb')
     heavy_chain = name.split('_')[1] if name.count('_') >= 2 else 'H'
     light_chain = name.split('_')[2] if name.count('_') >= 2 else 'L'
     save_complex_pdb(pdb_file, heavy_seq, heavy_chain, light_seq, light_chain,
@@ -76,3 +77,22 @@ def postprocess_reference(output_dir: str, meta: Dict, feats: Dict,
                      atom14[:h_len + l_len], plddt_res, antigen_data)
     return pdb_file
 
+
+def postprocess_trajectory(output_dir: str, meta: Dict, result: Dict,
+                           batch_index: int = 0) -> List[str]:
+    """Write every step of a collected trajectory (`result['trajectory']`:
+    't' (S,), 'seq', 'atom14', 'plddt' with a leading step axis) as
+    `<name>@<t>.pdb`."""
+    traj = result['trajectory']
+    times = np.asarray(traj['t'])
+    files = []
+    for i in range(times.shape[0]):
+        step_result = {
+            'seq': traj['seq'][i],
+            'atom14': traj['atom14'][i],
+            'plddt': traj['plddt'][i],
+        }
+        files.append(postprocess_sample(
+            output_dir, meta, step_result, batch_index,
+            time_tag=float(times[i])))
+    return files

@@ -1,12 +1,18 @@
-"""Reverse-diffusion sampler, design mode.
+"""Reverse-diffusion sampler: design, optimize and trajectory modes.
 
 Counterpart of abx_tpu/sampling/sampler.py: the same step grid (with the
 reference's final-step `t_model` quirk and the self-conditioning prime
 step), the same per-step update, and the same injectable per-step `noise`.
+Modes:
+  * design     -- start from the t=1 reference distribution;
+  * optimize   -- re-noise the input complex to t = opt_step / num_t with
+                  the forward marginal, then denoise over the steps of the
+                  design grid with t <= opt_step / num_t;
+  * trajectory -- design, with every step's outputs kept (the runner sets
+                  `collect_trajectory`).
 The JAX package scans the steps inside one jitted program; here the loop
 is a Python loop over device work.  The trajectory-invariant embeddings are
-computed once per trajectory.  Optimize and trajectory modes and
-`sample_resumable` are not ported yet.
+computed once per trajectory.  `sample_resumable` is not ported yet.
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ MIN_T = 0.01  # the last reverse step's time
 class SamplerConfig:
     num_t: int = 100
     generate_area: str = 'H3'
+    mode: str = 'design'            # design | optimize | trajectory
+    opt_step: Optional[int] = None  # optimize mode: re-noise to opt_step/num_t
     # Keep every step's outputs (the shared-noise parity harness compares
     # them step by step); otherwise only the last step's are kept.
     collect_trajectory: bool = False
@@ -67,14 +75,24 @@ class Sampler:
         self.diffuser = diffuser
         self.model_config = model_config
         self.config = c = sampler_config
-        steps = np.linspace(MIN_T, 1.0, c.num_t)[::-1].astype(np.float32)
+        if c.mode not in ('design', 'optimize', 'trajectory'):
+            raise ValueError(f'SamplerConfig.mode {c.mode!r}')
+        steps = np.linspace(MIN_T, 1.0, c.num_t)[::-1].copy()
+        if c.mode == 'optimize':
+            if c.opt_step is None:
+                raise ValueError('optimize mode needs opt_step')
+            steps = steps[steps <= c.opt_step / c.num_t + 1e-8]
+            if not len(steps):
+                raise ValueError(f'optimize: no step of the num_t '
+                                 f'{c.num_t} grid has t <= opt_step / num_t '
+                                 f'= {c.opt_step / c.num_t}')
         t_model = steps.copy()
         # Parity: at the final step (t <= MIN_T) the reference skips
         # _set_t_feats, so the model sees the previous step's t.
         if len(steps) > 1 and steps[-1] <= MIN_T + 1e-8:
             t_model[-1] = steps[-2]
-        self.reverse_steps = steps
-        self.model_steps = t_model
+        self.reverse_steps = steps.astype(np.float32)
+        self.model_steps = t_model.astype(np.float32)
         self.dt = float(np.float32(1.0 / c.num_t))
 
     def step_grids(self):
@@ -85,11 +103,16 @@ class Sampler:
 
     def prepare(self, feats: Dict[str, torch.Tensor],
                 generator: torch.Generator) -> Dict:
-        """Geometry features + the initial (t=1) noisy state."""
+        """Geometry features + the initial noisy state for the mode (t=1
+        in design and trajectory modes, t = opt_step / num_t in optimize
+        mode)."""
+        c = self.config
         batch = FeatureBuilder()(feats)
+        optimize = c.mode == 'optimize'
         batch = make_diffuser_features(
-            batch, diffuser=self.diffuser,
-            generate_area=self.config.generate_area, generator=generator)
+            batch, diffuser=self.diffuser, generate_area=c.generate_area,
+            generator=generator, mode='optimize' if optimize else 'design',
+            t_value=c.opt_step / c.num_t if optimize else None)
         return make_static_pair_features(batch)
 
     def sample(self, feats: Dict[str, torch.Tensor],
@@ -107,7 +130,7 @@ class Sampler:
         returns it, or the JAX package's `Sampler.prepare` output).
 
         `noise` optionally injects the per-step primitive draws: arrays
-        with a leading axis over the step grid (num_t + 1 with the prime
+        with a leading axis over the step grid (its steps + 1 with the prime
         step), keys as in `JointDiffuser.reverse`.  Without it, draws come
         from `generator`."""
         c = self.config

@@ -49,7 +49,7 @@ def _setup(esm: bool):
                                                 to_device_batch)
     rt = runner.build_runtime(MODEL_CONFIG, seed=0, bf16=True, device='cuda',
                               esm_random=esm)
-    feats, _ = next(runner.load_complexes(PDB, rt))
+    feats, _ = next(runner.load_complexes(None, None, PDB, rt))
     batch = {k: np.repeat(v, BATCH, axis=0)
              for k, v in ds.stack_batch([feats]).items()}
     batch = to_device_batch(batch, rt.device)

@@ -10,10 +10,14 @@ fatal on failure:
   3. each kernel against its plain PyTorch version at the flagship shapes
      (B=4, L=288): f32 to 1e-4 * max|ref|, bf16 against the f32 plain
      version to 3e-2 * max|ref|; kernel and plain times (median of CUDA
-     event timings after warm-up, bf16);
-  4. one full-width f32 forward_with_recycling with the kernel flags on and
-     off (dense random weights): rot_score, trans_score and logits agree
-     to 1e-4 * max|ref| on valid rows;
+     event timings after warm-up, bf16), and the time of the one torch
+     call that computes the same function where there is one;
+  4. one full-width f32 forward_with_recycling with every kernel flag off
+     (dense random weights); each of its passes run again on the same
+     inputs (the recycled ones included) with the default kernel flags on:
+     rot_score, trans_score, logits and rigids agree to 1e-4 * max|ref| on
+     valid rows in every pass;
+  4c. the same in the opt-in kernel configuration (OPT_IN below);
   4b. one full-width f32 ESM2-3B forward of AntibodyESM (dense random
      weights, learned layer weights given) on the tokens of
      testdata/6ct7_H_L_S.pdb with ABX_FUSED_ESM_ATTN on and off: the
@@ -28,15 +32,26 @@ fatal on failure:
      card, runner.build_runtime(esm_random=True) + runner.run_sampling): 4
      PDBs, esm_attention launched 36 x 3 x (num_t + 1) times and the trunk
      kernels as in phase 5; then a second trajectory in the same process
-     for the steady-state seconds per step.
-Each main path (phases 5 and 6) is driven with the launch counts set to 0
-just before it and read just after.  The lines before the last are the
-nvidia-smi card line and the kernels JSON (each kernel's launches on the
-ESM-on design path, its error, its time, its plain version's time, the
-least time the card could take for the same work and, for esm_attention,
-the time of torch's scaled_dot_product_attention on the same inputs); the
-last line is the result JSON.  The kernels are built with one nvcc per
-source, all started together.  No JAX is imported.
+     for the steady-state seconds per step;
+  7. full-width bf16 test-set CDR-H3 optimization through
+     abx_tpu_torch.cli.inference (--mode optimize --optimize_steps 4
+     --num_t 8, 4 samples, random weights from seed 0) over an npz
+     directory of both test complexes, written by the port's
+     data/dataset.py::complex_from_pdb, in the opt-in kernel configuration:
+     4 PDBs per complex under OPT-4/ with the complex's chains and finite
+     coordinates, every kernel launched the expected number of times (4
+     reverse steps + the prime step, 3 trunk passes each, 2 complexes);
+     then one trajectory-mode run at the default flags on 6ct7 (num_t 3),
+     which writes one <name>@<t>.pdb per step.
+Each main path (phases 5, 6, 7 and the trajectory run) is driven with the
+launch counts set to 0 just before it and read just after.  The lines
+before the last are the nvidia-smi card line and the kernels JSON (each
+kernel's launches on each main path in `launches_by_path`, and in
+`launches` the largest of them, its error, its time, its plain
+version's time, the least time the card could take for the same work and
+the time of the torch call that computes the same function, where there
+is one); the last line is the result JSON.  The kernels are built with one
+nvcc per source, all started together.  No JAX is imported.
 """
 
 import json
@@ -49,6 +64,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PDB = os.path.join(HERE, 'testdata', '6ct7_H_L_S.pdb')
+TEST_SET = [PDB, os.path.join(HERE, 'testdata', '6qd7_X_Z_F|E.pdb')]
 MODEL_CONFIG = os.path.join(HERE, 'config', 'config_model.json')
 F32_TOL, BF16_TOL = 1e-4, 3e-2
 TIMING_REPS = 7
@@ -118,12 +134,15 @@ def kernel_cases(torch, dev):
     tensors the function reads, its tensor-core FLOPs, and the one torch
     call that computes the same function (or None)."""
     from abx_tpu_torch.ops import esm_attention as esm_op
+    from abx_tpu_torch.ops import gate_proj as gp_op
+    from abx_tpu_torch.ops import ipa_attend as ia_op
     from abx_tpu_torch.ops import ipa_attention as ipa_op
     from abx_tpu_torch.ops import pair_bias as pb_op
     from abx_tpu_torch.ops import recycle_embed as re_op
     from abx_tpu_torch.ops import transition as tr_op
     from abx_tpu_torch.ops import tri_attention as ta_op
     from abx_tpu_torch.ops import tri_mult as tm_op
+    from abx_tpu_torch.ops import triangle as tg_op
     g = torch.Generator(device=dev).manual_seed(0)
     b, l = 4, 288
     m = b * l * l
@@ -199,6 +218,42 @@ def kernel_cases(torch, dev):
          lambda y, fg, res: tm_op.tri_mult_post_plain(y, *post, fg, res),
          (y, fg, res), (y.bfloat16(), fg.bfloat16(), res.bfloat16()),
          list(post), 2 * m * nc * c)
+    pre4 = (pre[0], pre[1], pre[2][:4 * nc].contiguous(), pre[3][:4 * nc],
+            mask)
+    case('tri_mult_pre_no_fgate', '(4,288,288,192) -> nc=128 x2',
+         lambda x: tm_op.tri_mult_pre(x, *pre4, emit_fgate=False),
+         lambda x: tm_op.tri_mult_pre_plain(x, *pre4, emit_fgate=False),
+         (x,), (x.bfloat16(),), list(pre4), 2 * m * c * 4 * nc)
+    fold = (1 + rnd(c, scale=0.1), rnd(c, scale=0.1),
+            rnd(c, c, scale=c ** -0.5), rnd(c, scale=0.5))
+    case('tri_mult_post_gatefold', '(4,288,288,128) + res 192 -> 192',
+         lambda y, res: tm_op.tri_mult_post_gatefold(y, *post, *fold, res),
+         lambda y, res: tm_op.tri_mult_post_gatefold_plain(y, *post, *fold,
+                                                           res),
+         (y, res), (y.bfloat16(), res.bfloat16()), list(post) + list(fold),
+         2 * m * (nc * c + c * c))
+    hd = 192
+    gy, gate = rnd(b, l, l, hd), rnd(b, l, l, hd, scale=2.0)
+    gw = (rnd(c, hd, scale=hd ** -0.5), rnd(c, scale=0.1))
+    case('gate_proj_residual', '(4,288,288,192) x gate -> 192 + res',
+         lambda y, gt, res: gp_op.gate_proj_residual(y, gt, *gw, res),
+         lambda y, gt, res: gp_op.gate_proj_residual_plain(y, gt, *gw, res),
+         (gy, gate, res), (gy.bfloat16(), gate.bfloat16(), res.bfloat16()),
+         list(gw), 2 * m * hd * c)
+    del gy, gate
+    left, right = rnd(b, l, l, nc), rnd(b, l, l, nc)
+    for per_row, eq in ((True, 'bikc,bjkc->bijc'),
+                        (False, 'bkic,bkjc->bijc')):
+        case('triangle_multiply',
+             f'(4,288,288,128) {"per_row" if per_row else "per_column"}',
+             lambda lt, rt, pr=per_row: tg_op.triangle_multiply_kernel(
+                 lt, rt, pr),
+             lambda lt, rt, pr=per_row: tg_op.triangle_multiply_einsum(
+                 lt, rt, pr),
+             (left, right), (left.bfloat16(), right.bfloat16()), [],
+             2 * b * l * l * l * nc,
+             lambda lt, rt, eq=eq: torch.einsum(eq, lt, rt))
+    del left, right
     static, prev = rnd(b, l, l, 128), rnd(b, l, l, c, scale=2.0)
     rec = (rnd(b, 64), 1 + rnd(c, scale=0.1), rnd(c, scale=0.1),
            rnd(15, c), torch.randint(0, 15, (b, l, l), generator=g,
@@ -223,6 +278,12 @@ def kernel_cases(torch, dev):
          [*pts, pw, ibias, mask],
          # logits (scalar + point terms), scalar / point / pair attends.
          2 * b * h * l * l * (2 * ds + 3 * pq + 3 * pv + c))
+    attn = torch.softmax(rnd(b, h, l, l, scale=2.0), dim=-1)
+    case('ipa_pair_attend', 'attn (4,12,288,288) f32, pair (4,288,288,128)',
+         lambda at, pr: ia_op.ipa_pair_attend(at, pr),
+         lambda at, pr: ia_op.ipa_pair_attend_plain(at, pr),
+         (attn, pair), (attn, pair.bfloat16()), [], 2 * b * h * l * l * c,
+         lambda at, pr: torch.einsum('bhij,bijc->bihc', at.to(pr.dtype), pr))
 
     # ESM2-3B attention: head-major views of the (B, L, H, D) projections
     # (strided, as the module hands them in), q pre-scaled; the padded
@@ -264,6 +325,16 @@ KERNEL_META = {
                       'abx_tpu/ops/recycle_embed.py:61'),
     'esm_attention': ('abx_tpu_torch/csrc/esm_attention.cu',
                       'abx_tpu/ops/esm_attention.py:47'),
+    'tri_mult_pre_no_fgate': ('abx_tpu_torch/csrc/row_linear.cu',
+                              'abx_tpu/ops/tri_mult.py:72'),
+    'ipa_pair_attend': ('abx_tpu_torch/csrc/ipa_attend.cu',
+                        'abx_tpu/ops/ipa_attend.py:36'),
+    'triangle_multiply': ('abx_tpu_torch/csrc/triangle.cu',
+                          'abx_tpu/ops/triangle.py:81'),
+    'tri_mult_post_gatefold': ('abx_tpu_torch/csrc/row_linear.cu',
+                               'abx_tpu/ops/tri_mult.py:245'),
+    'gate_proj_residual': ('abx_tpu_torch/csrc/row_linear.cu',
+                           'abx_tpu/ops/gate_proj.py:34'),
 }
 FLAGS_TOL = 1e-4   # flags on vs off, relative to max|ref|
 
@@ -319,9 +390,40 @@ def phase_kernels(torch, dev):
     return results
 
 
+# The eight default-on kernel flags, and the opt-in kernel configuration:
+# the JAX package's opt-in kernel flags with the triangle-attention LN-fold
+# off (the route on which the gate_proj kernel applies).
+DEFAULT_FLAGS = ['ABX_FUSED_TRI_ATTN', 'ABX_TRI_ATTN_LN_FOLD',
+                 'ABX_PACKED_SEQ_ATTN', 'ABX_FUSED_PAIR_BIAS',
+                 'ABX_FUSED_TRANSITION', 'ABX_FUSED_IPA_ATTN',
+                 'ABX_FUSED_TRIMULT', 'ABX_FUSED_RECYCLE']
+OPT_IN = {'ABX_FUSED_IPA_ATTN': '0', 'ABX_IPA_ATTEND': '1',
+          'ABX_PALLAS_TRIANGLE': '1', 'ABX_TRIMULT_GATEFOLD': '1',
+          'ABX_TRI_ATTN_LN_FOLD': '0', 'ABX_GATE_PROJ_KERNEL': '1'}
+ALL_FLAGS = DEFAULT_FLAGS + [k for k in OPT_IN if k not in DEFAULT_FLAGS]
+
+
+def set_flags(env):
+    """Set the kernel flags to `env` (unlisted ones removed)."""
+    for k in ALL_FLAGS:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+
+
 def phase_flags(torch, dev):
+    """Phases 4 and 4c: one full-width f32 forward_with_recycling with every
+    kernel flag off, each of whose passes is then run again, on the same
+    inputs, with the default flags and in the opt-in configuration.
+
+    The recycled inputs are step functions of the previous pass (the
+    distogram bins of its positions, the argmax of its logits): a 1e-6
+    difference flips the bin of a pair that sits on an edge and the next
+    pass then differs by O(1) there, whatever the precision.  So every pass
+    of the two kernel routes is fed the recycled inputs of the flags-off
+    run and held to that run's pass."""
     import numpy as np
     from abx_tpu_torch.cli import runner
+    from abx_tpu_torch.geometry import quat as quat_ops
     from abx_tpu_torch.models.network import forward_with_recycling, zero_prev
     from abx_tpu_torch.sampling.sampler import Sampler, SamplerConfig
     from abx_tpu_torch.sampling.sampler import to_device_batch
@@ -332,7 +434,7 @@ def phase_flags(torch, dev):
     # the comparison.
     params_lib.load_flax_params(model, params_lib.dense_random_tree(
         params_lib.state_dict_tree(model), seed=0, scale=0.5))
-    feats, _ = next(runner.load_complexes(PDB, rt))
+    feats, _ = next(runner.load_complexes(None, None, PDB, rt))
     batch = {k: np.stack([v] * 4) for k, v in feats.items()}
     sampler = Sampler(model, diffuser, cfg.model, SamplerConfig(num_t=8))
     prepared = sampler.prepare(to_device_batch(batch, dev),
@@ -345,42 +447,91 @@ def phase_flags(torch, dev):
     prepared.update(zero_prev(b, l, cfg.model, device=dev))
     prepared = {k: v for k, v in prepared.items() if torch.is_tensor(v)}
     static = model.static_embeddings(prepared)
-    flags = ['ABX_FUSED_TRI_ATTN', 'ABX_TRI_ATTN_LN_FOLD',
-             'ABX_PACKED_SEQ_ATTN', 'ABX_FUSED_PAIR_BIAS',
-             'ABX_FUSED_TRANSITION', 'ABX_FUSED_IPA_ATTN',
-             'ABX_FUSED_TRIMULT', 'ABX_FUSED_RECYCLE']
-    outs = {}
-    for value in ('1', '0'):
-        for f in flags:
-            os.environ[f] = value
-        out = forward_with_recycling(
-            lambda mb: model(mb, static_acts=static), prepared,
-            cfg.model.num_recycle, cfg.model.embeddings_and_seqformer.prev_pos)
+
+    def one_pass(mb):
+        out = model(mb, static_acts=static)
         torch.cuda.synchronize()
-        outs[value] = {
-            'rot_score': out['heads']['folding']['rot_score'],
-            'trans_score': out['heads']['folding']['trans_score'],
-            'logits': out['heads']['sequence_module']['logits'],
-        }
-    for f in flags:
-        os.environ.pop(f)
+        return out
+
+    def picked(out):
+        return {'rot_score': out['heads']['folding']['rot_score'],
+                'trans_score': out['heads']['folding']['trans_score'],
+                'logits': out['heads']['sequence_module']['logits'],
+                'rigids': out['heads']['folding']['rigids']}
+
+    set_flags({k: '0' for k in ALL_FLAGS})
+    inputs, ref = [], []
+
+    def recorded(mb):
+        inputs.append(dict(mb))
+        out = one_pass(mb)
+        ref.append(picked(out))
+        return out
+    forward_with_recycling(recorded, prepared, cfg.model.num_recycle,
+                           cfg.model.embeddings_and_seqformer.prev_pos)
     valid = prepared['mask'] > 0
-    report = {}
-    for key in outs['0']:
-        on, off = outs['1'][key][valid], outs['0'][key][valid]
-        if not (torch.isfinite(on).all() and torch.isfinite(off).all()):
-            fail(f'flags on/off: non-finite {key}')
-        d, m = rel_err(on, off)
-        report[key] = {'max_abs_err': d, 'max_abs_ref': m}
-        print(f'flags on vs off (f32, full width, valid rows) {key}: max '
-              f'|diff| {d:.3g}, max|ref| {m:.3g}', flush=True)
-        if d > FLAGS_TOL * m:
-            fail(f'flags on vs off: {key} differs by {d:.3g} '
-                 f'(max|ref| {m:.3g})')
+
+    def omega_bin(rigids):
+        """The IGSO(3) table bin of the rotation whose score is rot_score
+        (SO3Diffuser.score, as IpaScore calls it)."""
+        q = quat_ops.quat_multiply(quat_ops.invert_quat(rigids[..., :4]),
+                                   prepared['rigids_t'][..., :4].float())
+        omega = torch.linalg.norm(quat_ops.quat_to_rotvec(q), dim=-1) + 1e-6
+        grid = diffuser.so3.discrete_omega[:-1].contiguous()
+        return torch.searchsorted(grid, omega.contiguous())
+
+    # rot_score is piecewise constant in the rotation angle (a table of
+    # 1000 bins): where a residue's angle crosses a bin edge between two
+    # runs, its score jumps by the table's step (~1e-3), whatever the
+    # precision.  It is held on the residues whose bin is the same in both
+    # runs, and the crossings are counted; the predicted rigids, which
+    # rot_score is a function of, are held everywhere.
+    report, errors = {}, []
+    for name, env in (('on', {k: '1' for k in DEFAULT_FLAGS}),
+                      ('opt_in', OPT_IN)):
+        set_flags(env)
+        worst, crossed_n, crossed_d = {}, 0, 0.0
+        for p, mb in enumerate(inputs):
+            got, want = picked(one_pass(mb)), ref[p]
+            same_bin = omega_bin(got['rigids']) == omega_bin(want['rigids'])
+            crossed = valid & ~same_bin
+            crossed_n += int(crossed.sum())
+            if crossed.any():
+                crossed_d = max(crossed_d, rel_err(
+                    got['rot_score'][crossed], want['rot_score'][crossed])[0])
+            for key in want:
+                rows = valid & same_bin if key == 'rot_score' else valid
+                g, w = got[key][rows], want[key][rows]
+                if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
+                    errors.append(f'flags {name} vs off: non-finite {key}')
+                d, m = rel_err(g, w)
+                if key not in worst or d / m > worst[key][0] / worst[key][1]:
+                    worst[key] = (d, m)
+        for key, (d, m) in worst.items():
+            report.setdefault(name, {})[key] = {'max_abs_err': d,
+                                                'max_abs_ref': m}
+            print(f'flags {name} vs off (f32, full width, {len(inputs)} '
+                  f'passes on the same inputs, valid rows) {key}: max '
+                  f'|diff| {d:.3g}, max|ref| {m:.3g}', flush=True)
+            if d > FLAGS_TOL * m:
+                errors.append(f'flags {name} vs off: {key} differs by '
+                              f'{d:.3g} (max|ref| {m:.3g})')
+        report[name]['rot_score_bin_crossings'] = {
+            'residues': crossed_n, 'of': int(valid.sum()) * len(inputs),
+            'max_abs_diff': crossed_d}
+        print(f'flags {name} vs off: {crossed_n} of '
+              f'{int(valid.sum()) * len(inputs)} valid residue-passes crossed '
+              f'an angle bin edge (rot_score max |diff| there '
+              f'{crossed_d:.3g})', flush=True)
+    set_flags({})
+    if errors:
+        fail('; '.join(errors))
+    del rt, model, inputs, ref
+    torch.cuda.empty_cache()
     return report
 
 
-def check_pdb(path):
+def check_pdb(path, want=('H', 'L', 'S')):
     chains, coords = set(), []
     with open(path) as f:
         for line in f:
@@ -388,8 +539,8 @@ def check_pdb(path):
                 chains.add(line[21])
                 coords.append([float(line[30:38]), float(line[38:46]),
                                float(line[46:54])])
-    if chains != {'H', 'L', 'S'}:
-        fail(f'{path}: chains {sorted(chains)}, expected H, L, S')
+    if chains != set(want):
+        fail(f'{path}: chains {sorted(chains)}, expected {sorted(want)}')
     import math
     if not coords or not all(math.isfinite(v) for c in coords for v in c):
         fail(f'{path}: empty or non-finite coordinates')
@@ -457,12 +608,15 @@ def phase_esm_flags(torch, dev):
 
 def wrappers():
     from abx_tpu_torch.ops import esm_attention as esm_op
+    from abx_tpu_torch.ops import gate_proj as gp_op
+    from abx_tpu_torch.ops import ipa_attend as ia_op
     from abx_tpu_torch.ops import ipa_attention as ipa_op
     from abx_tpu_torch.ops import pair_bias as pb_op
     from abx_tpu_torch.ops import recycle_embed as re_op
     from abx_tpu_torch.ops import transition as tr_op
     from abx_tpu_torch.ops import tri_attention as ta_op
     from abx_tpu_torch.ops import tri_mult as tm_op
+    from abx_tpu_torch.ops import triangle as tg_op
     return {'triangle_attention_packed': ta_op.triangle_attention_packed,
             'pair_bias_proj': pb_op.pair_bias_proj,
             'fused_transition': tr_op.fused_transition,
@@ -470,7 +624,25 @@ def wrappers():
             'tri_mult_pre': tm_op.tri_mult_pre,
             'tri_mult_post': tm_op.tri_mult_post,
             'recycle_embed': re_op.recycle_embed,
-            'esm_attention': esm_op.esm_attention}
+            'esm_attention': esm_op.esm_attention,
+            'ipa_pair_attend': ia_op.ipa_pair_attend,
+            'triangle_multiply': tg_op.triangle_multiply_kernel,
+            'tri_mult_post_gatefold': tm_op.tri_mult_post_gatefold,
+            'gate_proj_residual': gp_op.gate_proj_residual}
+
+
+def reset_counts(ws):
+    for w in ws.values():
+        w.launches = 0
+    ws['tri_mult_pre'].launches_no_fgate = 0
+
+
+def read_counts(ws):
+    """Launches per kernel; tri_mult_pre's two variants apart."""
+    counts = {k: w.launches for k, w in ws.items()}
+    counts['tri_mult_pre_no_fgate'] = ws['tri_mult_pre'].launches_no_fgate
+    counts['tri_mult_pre'] -= counts['tri_mult_pre_no_fgate']
+    return counts
 
 
 NUM_T, NUM_SAMPLES, NUM_RECYCLE, ESM_LAYERS = 8, 4, 2, 36
@@ -478,6 +650,25 @@ PASSES = (NUM_T + 1) * (NUM_RECYCLE + 1)     # prime step + num_t steps
 PER_PASS = {'triangle_attention_packed': 3, 'pair_bias_proj': 3,
             'fused_transition': 1, 'ipa_attention': 8, 'tri_mult_pre': 2,
             'tri_mult_post': 2, 'recycle_embed': 1}
+# The opt-in configuration, per trunk pass: tri start and end without the
+# LN-fold (their bias in torch) plus the seq attention; the pair bias of the
+# seq attention only; the IPA attends in the non-fused route of 8 layers;
+# the gate-fold triangle multiplications with the contraction kernel; the
+# gate_proj epilogue of both triangle attentions.
+OPT_PER_PASS = {'triangle_attention_packed': 3, 'pair_bias_proj': 1,
+                'fused_transition': 1, 'ipa_pair_attend': 8,
+                'tri_mult_pre_no_fgate': 2, 'tri_mult_post_gatefold': 2,
+                'triangle_multiply': 2, 'gate_proj_residual': 2,
+                'recycle_embed': 1}
+OPT_STEP, TRAJ_NUM_T = 4, 3
+
+
+def check_launches(launches, expected, what):
+    for name, n in launches.items():
+        if n != expected.get(name, 0):
+            fail(f'{name}: {n} launches on the {what} path, expected '
+                 f'{expected.get(name, 0)}')
+    print(f'launches on the {what} path: {json.dumps(launches)}', flush=True)
 
 
 def check_design(out, launches, expected, what):
@@ -487,12 +678,7 @@ def check_design(out, launches, expected, what):
             fail(f'{what} wrote no {path}')
         check_pdb(path)
     check_pdb(os.path.join(out, 'design', 'reference', '6ct7_H_L_S.pdb'))
-    for name, n in launches.items():
-        if n != expected[name] or (expected[name] and n == 0):
-            fail(f'{name}: {n} launches on the {what} path, expected '
-                 f'{expected[name]}')
-    print(f'launches on the {what} path: {json.dumps(launches)} '
-          f'(expected {json.dumps(expected)})', flush=True)
+    check_launches(launches, expected, what)
 
 
 def design_stats(log, wall, card, what):
@@ -515,19 +701,18 @@ def phase_design(torch, card):
     """The ESM-off design path, through the design CLI."""
     from abx_tpu_torch.cli import design
     ws = wrappers()
-    expected = {k: PER_PASS.get(k, 0) * PASSES for k in ws}
+    expected = {k: n * PASSES for k, n in PER_PASS.items()}
     with tempfile.TemporaryDirectory() as out:
         argv = ['--pdb_file', PDB, '--output_dir', out, '--model_config',
                 MODEL_CONFIG, '--seed', '0', '--bf16', '--device', 'cuda',
                 '--num_samples', str(NUM_SAMPLES), '--batch_samples',
                 str(NUM_SAMPLES), '--num_t', str(NUM_T)]
-        for w in ws.values():
-            w.launches = 0
+        reset_counts(ws)
         t0 = time.time()
         log = design.main(argv)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = {k: w.launches for k, w in ws.items()}
+        launches = read_counts(ws)
         check_design(out, launches, expected, 'design')
     return launches, design_stats(log, wall, card, 'design')
 
@@ -538,21 +723,21 @@ def phase_design_esm(torch, card):
     same process for the steady-state step."""
     from abx_tpu_torch.cli import runner
     ws = wrappers()
-    expected = {k: PER_PASS.get(k, ESM_LAYERS) * PASSES for k in ws}
+    expected = {k: n * PASSES for k, n in PER_PASS.items()}
+    expected['esm_attention'] = ESM_LAYERS * PASSES
     with tempfile.TemporaryDirectory() as out:
-        for w in ws.values():
-            w.launches = 0
+        reset_counts(ws)
         t0 = time.time()
         rt = runner.build_runtime(MODEL_CONFIG, seed=0, bf16=True,
                                   device='cuda', esm_random=True)
-        complexes = list(runner.load_complexes(PDB, rt))
+        complexes = list(runner.load_complexes(None, None, PDB, rt))
         log = runner.run_sampling(
             rt, os.path.join(out, 'design'), complexes,
             num_samples=NUM_SAMPLES, num_t=NUM_T, seed=0,
             batch_samples=NUM_SAMPLES)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = {k: w.launches for k, w in ws.items()}
+        launches = read_counts(ws)
         check_design(out, launches, expected, 'ESM-on design')
         stats = design_stats(log, wall, card, 'ESM-on design')
         log2 = runner.run_sampling(
@@ -567,6 +752,114 @@ def phase_design_esm(torch, card):
     del rt
     torch.cuda.empty_cache()
     return launches, stats
+
+
+def write_test_set(torch, out):
+    """npz files of the test complexes, as the port's complex_from_pdb
+    writes them, and their name index."""
+    import numpy as np
+    from abx_tpu_torch.data import dataset as ds
+    names = []
+    for pdb in TEST_SET:
+        name = os.path.basename(pdb)[:-4]
+        parts = name.split('_')
+        ex = ds.complex_from_pdb(pdb, parts[1], parts[2], parts[3].split('|'))
+        np.savez(os.path.join(out, f'{name}.npz'), **ex)
+        names.append(name)
+    index = os.path.join(out, 'names.txt')
+    with open(index, 'w') as f:
+        f.write('\n'.join(names) + '\n')
+    return names, index
+
+
+def chains_of(name):
+    return name.split('_', 1)[1].replace('|', '_').split('_')
+
+
+def phase_optimize(torch, card):
+    """Phase 7: test-set CDR optimization through the inference CLI in the
+    opt-in kernel configuration."""
+    from abx_tpu_torch.cli import inference
+    from abx_tpu_torch.sampling.sampler import Sampler, SamplerConfig
+    ws = wrappers()
+    n_steps = len(Sampler(None, None, None, SamplerConfig(
+        num_t=NUM_T, mode='optimize', opt_step=OPT_STEP)).reverse_steps)
+    with tempfile.TemporaryDirectory() as data, \
+            tempfile.TemporaryDirectory() as out:
+        names, index = write_test_set(torch, data)
+        passes = (n_steps + 1) * (NUM_RECYCLE + 1) * len(names)
+        expected = {k: n * passes for k, n in OPT_PER_PASS.items()}
+        argv = ['--data_dir', data, '--name_idx', index, '--output_dir', out,
+                '--mode', 'optimize', '--optimize_steps', str(OPT_STEP),
+                '--num_t', str(NUM_T), '--num_samples', str(NUM_SAMPLES),
+                '--batch_samples', str(NUM_SAMPLES), '--bf16',
+                '--model_config', MODEL_CONFIG, '--seed', '0', '--device',
+                'cuda']
+        set_flags(OPT_IN)
+        reset_counts(ws)
+        t0 = time.time()
+        log = inference.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = read_counts(ws)
+        set_flags({})
+        for name in names:
+            for i in range(NUM_SAMPLES):
+                path = os.path.join(out, 'optimize', f'OPT-{OPT_STEP}',
+                                    f'{i:04d}', f'{name}.pdb')
+                if not os.path.exists(path):
+                    fail(f'optimize wrote no {path}')
+                check_pdb(path, chains_of(name))
+            check_pdb(os.path.join(out, 'optimize', 'reference',
+                                   f'{name}.pdb'), chains_of(name))
+        check_launches(launches, expected, 'optimize (opt-in kernels)')
+    if [n for n, _, _ in log] != names:
+        fail(f'optimize sampled {[n for n, _, _ in log]}, expected {names}')
+    sampling_s = sum(e for _, _, e in log)
+    steps = (n_steps + 1) * len(names)
+    sph = NUM_SAMPLES * len(names) / sampling_s * 3600.0
+    print(f'optimize, opt-in kernels (bf16, B=4, L=288, num_recycle 2, '
+          f'num_t {NUM_T}, opt_step {OPT_STEP}: {n_steps} steps + prime per '
+          f'complex, {len(names)} complexes) on {card}: wall {wall:.2f} s '
+          f'incl. model build, sampling {sampling_s:.2f} s, '
+          f'{sampling_s / steps:.3f} s per diffusion step, {sph:.1f} '
+          f'samples/hour', flush=True)
+    return launches, {'wall_s': wall, 'sampling_s': sampling_s,
+                      's_per_step': sampling_s / steps,
+                      'samples_per_hour': sph, 'passes': passes}
+
+
+def phase_trajectory(torch):
+    """Trajectory mode at the default flags on 6ct7: one <name>@<t>.pdb per
+    reverse step."""
+    from abx_tpu_torch.cli import inference
+    ws = wrappers()
+    passes = (TRAJ_NUM_T + 1) * (NUM_RECYCLE + 1)
+    expected = {k: n * passes for k, n in PER_PASS.items()}
+    with tempfile.TemporaryDirectory() as data, \
+            tempfile.TemporaryDirectory() as out:
+        names, _ = write_test_set(torch, data)
+        index = os.path.join(data, 'first.txt')
+        with open(index, 'w') as f:
+            f.write(names[0] + '\n')
+        reset_counts(ws)
+        inference.main(['--data_dir', data, '--name_idx', index,
+                        '--output_dir', out, '--mode', 'trajectory',
+                        '--num_t', str(TRAJ_NUM_T), '--num_samples', '1',
+                        '--bf16', '--model_config', MODEL_CONFIG, '--seed',
+                        '0', '--device', 'cuda'])
+        torch.cuda.synchronize()
+        launches = read_counts(ws)
+        sdir = os.path.join(out, 'trajectory', '0000')
+        files = sorted(f for f in os.listdir(sdir)
+                       if f.startswith(f'{names[0]}@'))
+        if len(files) != TRAJ_NUM_T:
+            fail(f'trajectory wrote {files}, expected {TRAJ_NUM_T} steps')
+        for f in files:
+            check_pdb(os.path.join(sdir, f), chains_of(names[0]))
+        check_launches(launches, expected, 'trajectory')
+    print(f'trajectory (num_t {TRAJ_NUM_T}) wrote {files}', flush=True)
+    return launches
 
 
 def main():
@@ -595,26 +888,30 @@ def main():
     kernels = phase_kernels(torch, dev)
     flags = phase_flags(torch, dev)
     esm_flags = phase_esm_flags(torch, dev)
-    launches_off, design_off = phase_design(torch, card)
-    launches_on, design_on = phase_design_esm(torch, card)
+    paths, stats = {}, {}
+    paths['design_esm_off'], stats['design'] = phase_design(torch, card)
+    paths['design_esm_on'], stats['design_esm'] = phase_design_esm(torch,
+                                                                   card)
+    paths['optimize_opt_in'], stats['optimize_opt_in'] = phase_optimize(
+        torch, card)
+    paths['trajectory'] = phase_trajectory(torch)
 
     rows = []
     for name, (source, replaces) in KERNEL_META.items():
         cases = kernels[name]['cases']
         first = cases[0]
+        by_path = {p: counts[name] for p, counts in paths.items()}
         rows.append({
             'name': name, 'route': 'cuda', 'source': source,
-            'replaces': replaces, 'launches': launches_on[name],
-            'launches_by_path': {'design_esm_off': launches_off[name],
-                                 'design_esm_on': launches_on[name]},
+            'replaces': replaces, 'launches': max(by_path.values()),
+            'launches_by_path': by_path,
             'max_abs_err': max(c['max_abs_err'] for c in cases),
             'ms': first['ms'], 'plain_ms': first['plain_ms'],
             'bound_ms': first['bound_ms'], 'bound_by': first['bound_by'],
             'library_ms': first['library_ms'], 'cases': cases})
     print(card)
-    print(json.dumps({'kernels': rows, 'flags_on_vs_off': flags,
-                      'esm_flags_on_vs_off': esm_flags,
-                      'design': design_off, 'design_esm': design_on}))
+    print(json.dumps({'kernels': rows, 'flags_vs_off': flags,
+                      'esm_flags_on_vs_off': esm_flags, **stats}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -16,12 +16,15 @@ import pytest
 import torch
 
 from abx_tpu_torch.ops import esm_attention as esm_op
+from abx_tpu_torch.ops import gate_proj as gate_proj_op
+from abx_tpu_torch.ops import ipa_attend as ipa_attend_op
 from abx_tpu_torch.ops import ipa_attention as ipa_op
 from abx_tpu_torch.ops import pair_bias as pair_bias_op
 from abx_tpu_torch.ops import recycle_embed as recycle_op
 from abx_tpu_torch.ops import transition as transition_op
 from abx_tpu_torch.ops import tri_attention as tri_op
 from abx_tpu_torch.ops import tri_mult as tri_mult_op
+from abx_tpu_torch.ops import triangle as triangle_op
 
 
 def t(a):
@@ -131,6 +134,71 @@ def _tri_mult_post_case(seed, b, l, nc, c):
             rng.standard_normal((b, l, l, c)).astype(np.float32))
 
 
+def _no_fgate(args):
+    """A tri_mult_pre case without the final-gate columns."""
+    x, s, lb, w, wb, mask = args
+    nc = (w.shape[1] - x.shape[-1]) // 4
+    return x, s, lb, w[:, :4 * nc].copy(), wb[:4 * nc].copy(), mask
+
+
+def _gatefold_case(seed, b, l, nc, c):
+    """y, scale, bias, w (nc, C), wb, x_scale, x_bias, wg (C, C) flax
+    layout, wgb, res."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    return (rng.standard_normal((b, l, l, nc)).astype(f),
+            (rng.random(nc) + 0.5).astype(f),
+            (0.1 * rng.standard_normal(nc)).astype(f),
+            (rng.standard_normal((nc, c)) / np.sqrt(nc)).astype(f),
+            (0.1 * rng.standard_normal(c)).astype(f),
+            (rng.random(c) + 0.5).astype(f),
+            (0.1 * rng.standard_normal(c)).astype(f),
+            (rng.standard_normal((c, c)) / np.sqrt(c)).astype(f),
+            (0.5 * rng.standard_normal(c)).astype(f),
+            rng.standard_normal((b, l, l, c)).astype(f))
+
+
+def _gate_proj_case(seed, b, r, l, hd, c):
+    """y, gate_pre, w (HD, C) flax layout, wb, res."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    return (rng.standard_normal((b, r, l, hd)).astype(f),
+            (2.0 * rng.standard_normal((b, r, l, hd))).astype(f),
+            (rng.standard_normal((hd, c)) / np.sqrt(hd)).astype(f),
+            (0.1 * rng.standard_normal(c)).astype(f),
+            rng.standard_normal((b, r, l, c)).astype(f))
+
+
+def _ipa_attend_case(seed, b, h, l, c):
+    """attn (B, H, L, L) softmax rows, pair (B, L, L, C)."""
+    rng = np.random.default_rng(seed)
+    logits = 2.0 * rng.standard_normal((b, h, l, l))
+    attn = np.exp(logits - logits.max(-1, keepdims=True))
+    attn /= attn.sum(-1, keepdims=True)
+    return (attn.astype(np.float32),
+            rng.standard_normal((b, l, l, c)).astype(np.float32))
+
+
+def _triangle_case(seed, b, l, c):
+    """left, right (B, L, L, C)."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((b, l, l, c)).astype(np.float32)
+                 for _ in range(2))
+
+
+def _gatefold_port(args, fn=None):
+    y, s, lb, w, wb, xs, xb, wg, wgb, res = args
+    fn = fn or tri_mult_op.tri_mult_post_gatefold_plain
+    return fn(t(y), t(s), t(lb), t(w.T), t(wb), t(xs), t(xb), t(wg.T),
+              t(wgb), t(res))
+
+
+def _gate_proj_port(args, fn=None):
+    y, g, w, wb, res = args
+    fn = fn or gate_proj_op.gate_proj_residual_plain
+    return fn(t(y), t(g), t(w.T), t(wb), t(res))
+
+
 def _recycle_case(seed, b, l, c0, c, n_bins):
     """static_pair, t_vec, prev_pair, scale, bias, table, bins (int)."""
     rng = np.random.default_rng(seed)
@@ -225,6 +293,48 @@ def test_wrappers_on_cpu_run_plain_version_without_counting():
     torch.testing.assert_close(esm_op.esm_attention(*qkv, pad),
                                esm_op.esm_attention_plain(*qkv, pad))
     assert [w.launches for w in wrappers] == before
+
+
+def test_opt_in_wrappers_on_cpu_run_plain_version_without_counting():
+    wrappers = (gate_proj_op.gate_proj_residual,
+                tri_mult_op.tri_mult_post_gatefold,
+                ipa_attend_op.ipa_pair_attend,
+                triangle_op.triangle_multiply_kernel)
+    before = [w.launches for w in wrappers]
+    before_pre = (tri_mult_op.tri_mult_pre.launches,
+                  tri_mult_op.tri_mult_pre.launches_no_fgate)
+    gp = _gate_proj_case(5, 1, 3, 7, 8, 12)
+    torch.testing.assert_close(
+        _gate_proj_port(gp, gate_proj_op.gate_proj_residual),
+        _gate_proj_port(gp))
+    gf = _gatefold_case(5, 1, 7, 4, 8)
+    torch.testing.assert_close(
+        _gatefold_port(gf, tri_mult_op.tri_mult_post_gatefold),
+        _gatefold_port(gf))
+    pre = _no_fgate(_tri_mult_pre_case(5, 1, 7, 8, 4))
+    x, s, lb, w, wb, mask = (t(a) for a in pre)
+    got = tri_mult_op.tri_mult_pre(x, s, lb, w.T, wb, mask, emit_fgate=False)
+    want = tri_mult_op.tri_mult_pre_plain(x, s, lb, w.T, wb, mask,
+                                          emit_fgate=False)
+    assert len(got) == len(want) == 2
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_)
+    attn, pair = (t(a) for a in _ipa_attend_case(5, 1, 3, 6, 8))
+    torch.testing.assert_close(ipa_attend_op.ipa_pair_attend(attn, pair),
+                               ipa_attend_op.ipa_pair_attend_plain(attn,
+                                                                   pair))
+    left, right = (t(a) for a in _triangle_case(5, 1, 6, 4))
+    for per_row in (True, False):
+        want = triangle_op.triangle_multiply_einsum(left, right, per_row)
+        for use_pallas in (True, False):
+            torch.testing.assert_close(
+                triangle_op.triangle_multiply(left, right, per_row,
+                                              use_pallas=use_pallas), want)
+        torch.testing.assert_close(
+            triangle_op.triangle_multiply_kernel(left, right, per_row), want)
+    assert [w.launches for w in wrappers] == before
+    assert (tri_mult_op.tri_mult_pre.launches,
+            tri_mult_op.tri_mult_pre.launches_no_fgate) == before_pre
 
 
 # --- on the card: CUDA kernel vs plain version ------------------------------
@@ -370,5 +480,80 @@ def test_esm_attention_kernel_matches_plain(cuda, shape, dtype):
     qkv, pad = [a.to(cuda) for a in qkv], pad.to(cuda)
     want = esm_op.esm_attention_plain(*qkv, pad)
     got = esm_op.esm_attention(*[a.to(dtype) for a in qkv], pad)
+    torch.cuda.synchronize()
+    _close_on_card(got, want, dtype)
+
+
+# --- the opt-in kernels: ragged L, both orientations, f32 and bf16 ----------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', TRI_MULT_SHAPES)
+def test_tri_mult_pre_no_fgate_kernel_matches_plain(cuda, shape, dtype):
+    x, s, lb, w, wb, mask = _no_fgate(_tri_mult_pre_case(16, *shape))
+    f32, low = _on_card((x, s, lb, w.T.copy(), wb, mask), cuda, dtype, {0})
+    want = tri_mult_op.tri_mult_pre_plain(*f32, emit_fgate=False)
+    got = tri_mult_op.tri_mult_pre(*low, emit_fgate=False)
+    torch.cuda.synchronize()
+    assert len(got) == 2
+    for g, w_ in zip(got, want):
+        _close_on_card(g, w_, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', TRI_MULT_SHAPES)
+def test_tri_mult_post_gatefold_kernel_matches_plain(cuda, shape, dtype):
+    b, l, c, nc = shape
+    y, s, lb, w, wb, xs, xb, wg, wgb, res = _gatefold_case(17, b, l, nc, c)
+    f32, low = _on_card((y, s, lb, w.T.copy(), wb, xs, xb, wg.T.copy(), wgb,
+                         res), cuda, dtype, {0, 9})
+    want = tri_mult_op.tri_mult_post_gatefold_plain(*f32)
+    got = tri_mult_op.tri_mult_post_gatefold(*low)
+    torch.cuda.synchronize()
+    _close_on_card(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', [(2, 9, 37, 48, 40), (1, 1, 21, 200, 72)])
+def test_gate_proj_kernel_matches_plain(cuda, shape, dtype):
+    """(b, r, l, hd, c): r != l, HD above one 64-wide K chunk with a ragged
+    last chunk, C below and above one 128-wide N tile."""
+    y, g, w, wb, res = _gate_proj_case(18, *shape)
+    f32, low = _on_card((y, g, w.T.copy(), wb, res), cuda, dtype, {0, 1, 4})
+    want = gate_proj_op.gate_proj_residual_plain(*f32)
+    got = gate_proj_op.gate_proj_residual(*low)
+    torch.cuda.synchronize()
+    _close_on_card(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', [(2, 12, 37, 128), (1, 5, 70, 24),
+                                   (1, 16, 9, 136)])
+def test_ipa_pair_attend_kernel_matches_plain(cuda, shape, dtype):
+    """(b, h, l, c): ragged L, H below and at 16, C below, at and above one
+    128-column block.  The bf16 route rounds attn to bf16 as the plain
+    version does."""
+    attn, pair = (t(a).to(cuda) for a in _ipa_attend_case(19, *shape))
+    want = ipa_attend_op.ipa_pair_attend_plain(attn, pair)
+    got = ipa_attend_op.ipa_pair_attend(attn, pair.to(dtype))
+    torch.cuda.synchronize()
+    _close_on_card(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('per_row', [True, False])
+@pytest.mark.parametrize('shape', [(2, 37, 24), (1, 70, 16), (1, 33, 20)])
+def test_triangle_multiply_kernel_matches_plain(cuda, shape, per_row,
+                                                dtype):
+    """(b, l, c): L not a multiple of the 32-wide tile, C a multiple of the
+    16-channel block, above it, and not a multiple of 8."""
+    left, right = (t(a).to(cuda) for a in _triangle_case(20, *shape))
+    want = triangle_op.triangle_multiply_einsum(left, right, per_row)
+    got = triangle_op.triangle_multiply_kernel(left.to(dtype),
+                                               right.to(dtype), per_row)
     torch.cuda.synchronize()
     _close_on_card(got, want, dtype)

@@ -45,9 +45,10 @@ from abx_tpu_torch.models.ipa import IpaScore
 from abx_tpu_torch.models.network import (ScoreNetworkIteration,
                                           forward_with_recycling, zero_prev)
 from abx_tpu_torch.models.seqformer import SeqformerIteration
-from abx_tpu_torch.ops import (esm_attention, ipa_attention, pair_bias,
-                               recycle_embed, registry, transition,
-                               tri_attention, tri_mult)
+from abx_tpu_torch.ops import (esm_attention, gate_proj, ipa_attend,
+                               ipa_attention, pair_bias, recycle_embed,
+                               registry, transition, tri_attention, tri_mult,
+                               triangle)
 from abx_tpu_torch.utils import params as params_lib
 
 ACT = dict(rtol=0, atol=1e-4)
@@ -143,7 +144,14 @@ def _force_kernel_route(monkeypatch):
             (port_seqformer, 'recycle_embed',
              recycle_embed.recycle_embed_plain),
             (port_ipa, 'ipa_attention', ipa_attention.ipa_attention_plain),
-            (port_esm, 'esm_attention', esm_attention.esm_attention_plain)):
+            (port_esm, 'esm_attention', esm_attention.esm_attention_plain),
+            (port_seqformer, 'gate_proj_residual',
+             gate_proj.gate_proj_residual_plain),
+            (port_seqformer, 'tri_mult_post_gatefold',
+             tri_mult.tri_mult_post_gatefold_plain),
+            (triangle, 'triangle_multiply_kernel',
+             triangle.triangle_multiply_einsum),
+            (port_ipa, 'ipa_pair_attend', ipa_attend.ipa_pair_attend_plain)):
         monkeypatch.setattr(module, name, plain)
 
 
@@ -426,7 +434,10 @@ def test_heads_match_jax(setup):
 
 # --- the whole network with recycling ---------------------------------------------
 
-def test_forward_with_recycling_matches_jax(setup):
+@pytest.fixture(scope='module')
+def network(setup):
+    """The JAX network's forward with recycling (eager) and the port's
+    network with the same weights and inputs."""
     cfg, jdiff, pcfg, pdiff, batch = setup
     jm = JaxScoreNetwork(cfg.model, diffuser=jdiff, antibody_len=L_AB)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -436,6 +447,11 @@ def test_forward_with_recycling_matches_jax(setup):
     params_lib.load_flax_params(pm, tree)
     pb = {k: t(v) for k, v in batch.items()}
     pb.update(zero_prev(2, L_AB + L_AG, pcfg.model))
+    return pcfg, pm, pb, want
+
+
+def _assert_network_matches(network):
+    pcfg, pm, pb, want = network
     assert pcfg.model.num_recycle == 1
     got = forward_with_recycling(pm, pb, pcfg.model.num_recycle,
                                  pcfg.model.embeddings_and_seqformer.prev_pos)
@@ -455,6 +471,28 @@ def test_forward_with_recycling_matches_jax(setup):
         np.testing.assert_allclose(n(got['representations'][key]),
                                    np.asarray(want['representations'][key]),
                                    **ACT, err_msg=key)
+
+
+def test_forward_with_recycling_matches_jax(network):
+    _assert_network_matches(network)
+
+
+# The opt-in kernel configuration: the JAX package's opt-in kernel flags,
+# with the triangle-attention LN-fold off.
+OPT_IN = {'ABX_FUSED_IPA_ATTN': '0', 'ABX_IPA_ATTEND': '1',
+          'ABX_PALLAS_TRIANGLE': '1', 'ABX_TRIMULT_GATEFOLD': '1',
+          'ABX_TRI_ATTN_LN_FOLD': '0', 'ABX_GATE_PROJ_KERNEL': '1'}
+
+
+def test_opt_in_forward_with_recycling_matches_jax(network, monkeypatch):
+    """The whole network under the opt-in kernel configuration, on the
+    forced kernel routes (tests/test_torch_optin.py checks which), against
+    the JAX network: the JAX side runs with the flags unset, since off the
+    TPU its modules take their plain path whatever the flags say."""
+    _force_kernel_route(monkeypatch)
+    for k, v in OPT_IN.items():
+        monkeypatch.setenv(k, v)
+    _assert_network_matches(network)
 
 
 def test_trunk_with_recycled_inputs_kernel_route_matches_plain(setup,

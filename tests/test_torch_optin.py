@@ -1,0 +1,254 @@
+"""The opt-in kernel configuration of the port against the JAX package.
+
+The opt-in configuration is the JAX package's opt-in kernel flags, with
+the triangle-attention LN-fold off:
+
+    ABX_FUSED_IPA_ATTN=0 ABX_IPA_ATTEND=1 ABX_PALLAS_TRIANGLE=1
+    ABX_TRIMULT_GATEFOLD=1 ABX_TRI_ATTN_LN_FOLD=0 ABX_GATE_PROJ_KERNEL=1
+
+Kernels: the plain versions of `ipa_pair_attend`, `triangle_multiply`
+(both orientations, ragged L), `tri_mult_post_gatefold`,
+`gate_proj_residual` and `tri_mult_pre(emit_fgate=False)` against the JAX
+`*_reference` functions and the Pallas kernels in interpret mode, in f32,
+to 1e-4 * max|ref|.
+
+Routes: with `registry.on_device` forced true and every kernel wrapper
+swapped for its plain version (counted), each of the five mirrored flags
+sends the modules down the route the JAX package takes, and
+`ABX_TRIMULT_C_MAJOR=1` raises NotImplementedError on that route.  The
+port's full network forward under the opt-in configuration is held to the
+JAX network in tests/test_torch_modules.py
+(`test_opt_in_forward_with_recycling_matches_jax`).
+"""
+
+import collections
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from abx_tpu.ops.gate_proj import gate_proj_residual as jax_gate_proj
+from abx_tpu.ops.gate_proj import gate_proj_residual_reference
+from abx_tpu.ops.ipa_attend import ipa_pair_attend as jax_ipa_attend
+from abx_tpu.ops.ipa_attend import ipa_pair_attend_reference
+from abx_tpu.ops.tri_mult import tri_mult_post_gatefold as jax_gatefold
+from abx_tpu.ops.tri_mult import tri_mult_post_gatefold_reference
+from abx_tpu.ops.tri_mult import tri_mult_pre as jax_tri_mult_pre
+from abx_tpu.ops.tri_mult import tri_mult_pre_reference
+from abx_tpu.ops.triangle import (triangle_multiply_einsum,
+                                  triangle_multiply_pallas)
+from abx_tpu_torch import config as port_config
+from abx_tpu_torch.data import features as port_features
+from abx_tpu_torch.diffusion.joint import JointConfig, JointDiffuser
+from abx_tpu_torch.models import ipa as port_ipa
+from abx_tpu_torch.models import seqformer as port_seqformer
+from abx_tpu_torch.models.network import ScoreNetworkIteration, zero_prev
+from abx_tpu_torch.ops import ipa_attend as ipa_attend_op
+from abx_tpu_torch.ops import registry
+from abx_tpu_torch.ops import tri_mult as tri_mult_op
+from abx_tpu_torch.ops import triangle as triangle_op
+from abx_tpu_torch.utils import params as params_lib
+from tests.test_torch_kernels import (TRI_MULT_SHAPES, _gate_proj_case,
+                                      _gate_proj_port, _gatefold_case,
+                                      _gatefold_port, _ipa_attend_case,
+                                      _no_fgate, _tri_mult_pre_case,
+                                      _triangle_case, t)
+from tests.test_torch_modules import (L_AB, L_AG, OPT_IN, _feats,
+                                      _force_kernel_route)
+
+REL_TOL = 1e-4   # max|plain - JAX| <= REL_TOL * max|JAX|, f32
+
+
+def _close(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    err = np.abs(got - want).max()
+    assert err <= REL_TOL * np.abs(want).max(), err
+
+
+def _jnp(args):
+    return [jnp.asarray(a) for a in args]
+
+
+# --- kernels: plain version vs JAX reference and interpret-mode Pallas ------
+
+@pytest.mark.parametrize('shape', [(2, 9, 9, 16, 24), (1, 5, 11, 40, 8)])
+def test_gate_proj_plain_matches_jax(shape):
+    """(b, r, l, hd, c), r != l and odd."""
+    args = _gate_proj_case(21, *shape)
+    got = _gate_proj_port(args).numpy()
+    _close(got, gate_proj_residual_reference(*_jnp(args)))
+    _close(got, jax_gate_proj(*_jnp(args), row_block=4, interpret=True))
+
+
+def test_tri_mult_post_gatefold_plain_matches_jax():
+    """nc = 72: above one 64-channel chunk, odd L."""
+    b, l, c, nc = TRI_MULT_SHAPES[1]
+    args = _gatefold_case(22, b, l, nc, c)
+    got = _gatefold_port(args).numpy()
+    _close(got, tri_mult_post_gatefold_reference(*_jnp(args)))
+    _close(got, jax_gatefold(*_jnp(args), row_block=4, interpret=True))
+
+
+def test_tri_mult_pre_no_fgate_plain_matches_jax():
+    """The emit_fgate=False variant: w without the final-gate columns; its
+    left and right equal the reference's (which always has the gate)."""
+    full = _tri_mult_pre_case(23, *TRI_MULT_SHAPES[1])
+    x, s, lb, w, wb, mask = _no_fgate(full)
+    got = tri_mult_op.tri_mult_pre_plain(t(x), t(s), t(lb), t(w.T), t(wb),
+                                         t(mask), emit_fgate=False)
+    assert len(got) == 2
+    want_ref = tri_mult_pre_reference(*_jnp(full))[:2]
+    want_kern = jax_tri_mult_pre(*_jnp((x, s, lb, w, wb, mask)),
+                                 row_block=4, emit_fgate=False,
+                                 interpret=True)
+    for g, wr, wk in zip(got, want_ref, want_kern):
+        _close(g.numpy(), wr)
+        _close(g.numpy(), wk)
+
+
+@pytest.mark.parametrize('shape', [(2, 3, 11, 16), (1, 12, 13, 8)])
+def test_ipa_pair_attend_plain_matches_jax(shape):
+    """(b, h, l, c), odd L."""
+    attn, pair = _ipa_attend_case(24, *shape)
+    got = ipa_attend_op.ipa_pair_attend_plain(t(attn), t(pair)).numpy()
+    _close(got, ipa_pair_attend_reference(jnp.asarray(attn),
+                                          jnp.asarray(pair)))
+    _close(got, jax_ipa_attend(jnp.asarray(attn), jnp.asarray(pair),
+                               row_block=4, interpret=True))
+
+
+@pytest.mark.parametrize('per_row', [True, False])
+@pytest.mark.parametrize('shape', [(2, 19, 8), (1, 13, 16)])
+def test_triangle_multiply_plain_matches_jax(shape, per_row):
+    """Ragged L: 19 and 13 against a tile of 8 in the Pallas kernel."""
+    left, right = _triangle_case(25, *shape)
+    got = triangle_op.triangle_multiply(t(left), t(right), per_row,
+                                        use_pallas=True).numpy()
+    jl, jr = jnp.asarray(left), jnp.asarray(right)
+    _close(got, triangle_multiply_einsum(jl, jr, per_row))
+    _close(got, triangle_multiply_pallas(jl, jr, per_row=per_row, tile=8,
+                                         interpret=True))
+
+
+# --- routes: the flags send the modules where the JAX package goes ----------
+
+COUNTED = {
+    port_seqformer: ('tri_mult_pre', 'tri_mult_post',
+                     'tri_mult_post_gatefold', 'gate_proj_residual',
+                     'triangle_attention_packed', 'pair_bias_proj'),
+    port_ipa: ('ipa_attention', 'ipa_pair_attend'),
+    triangle_op: ('triangle_multiply_kernel',),
+}
+
+
+def _count_kernel_routes(monkeypatch):
+    """_force_kernel_route, with each counted (plain) wrapper wrapped in a
+    call counter; tri_mult_pre is counted per variant."""
+    _force_kernel_route(monkeypatch)
+    calls = collections.Counter()
+    for module, names in COUNTED.items():
+        for name in names:
+            fn = getattr(module, name)
+
+            def counted(*a, _fn=fn, _name=name, **kw):
+                key = _name
+                if _name == 'tri_mult_pre' and not kw.get('emit_fgate', True):
+                    key = 'tri_mult_pre_no_fgate'
+                calls[key] += 1
+                return _fn(*a, **kw)
+            monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+@pytest.fixture(scope='module')
+def setup():
+    """The port's network (tiny config, dense random weights) and one
+    prepared batch, at L = 14 + 5."""
+    pcfg = port_config.tiny_model_config()
+    pdiff = JointDiffuser(JointConfig.from_dict(pcfg.diffuser.to_dict()))
+    pm = ScoreNetworkIteration(pcfg.model, pdiff, L_AB)
+    params_lib.load_flax_params(pm, params_lib.dense_random_tree(
+        params_lib.state_dict_tree(pm), seed=31, scale=0.5))
+    pb = port_features.FeatureBuilder()(
+        {k: torch.tensor(v) for k, v in _feats(30).items()})
+    pb = port_features.make_diffuser_features(
+        pb, diffuser=pdiff, generator=torch.Generator().manual_seed(3))
+    pb = port_features.make_static_pair_features(pb)
+    t_vec = torch.tensor([0.55, 0.3])
+    rs, ts = pdiff.score_scaling(t_vec)
+    pb.update(t=t_vec, rot_score_scaling=rs, trans_score_scaling=ts)
+    pb.update(zero_prev(2, L_AB + L_AG, pcfg.model))
+    return pm, pb
+
+
+def _one_pass(setup):
+    pm, pb = setup
+    with torch.no_grad():
+        return pm(pb)
+
+
+def _set_flags(monkeypatch, flags):
+    for k, v in flags.items():
+        monkeypatch.setenv(k, v)
+
+
+@pytest.mark.parametrize('flag,on,off', [
+    ('ABX_PALLAS_TRIANGLE', {'triangle_multiply_kernel': 2},
+     {'triangle_multiply_kernel': 0}),
+    ('ABX_IPA_ATTEND', {'ipa_pair_attend': 2}, {'ipa_pair_attend': 0}),
+    ('ABX_GATE_PROJ_KERNEL', {'gate_proj_residual': 2},
+     {'gate_proj_residual': 0}),
+    ('ABX_TRIMULT_GATEFOLD',
+     {'tri_mult_pre_no_fgate': 2, 'tri_mult_pre': 0,
+      'tri_mult_post_gatefold': 2, 'tri_mult_post': 0},
+     {'tri_mult_pre_no_fgate': 0, 'tri_mult_pre': 2,
+      'tri_mult_post_gatefold': 0, 'tri_mult_post': 2}),
+])
+def test_forced_kernel_route_follows_each_flag(setup, monkeypatch, flag, on,
+                                               off):
+    """One trunk pass + structure module (tiny: 1 Seqformer block, 2 IPA
+    layers), the other opt-in flags set so that the flag's route is
+    reachable; the counts are per pass."""
+    calls = _count_kernel_routes(monkeypatch)
+    _set_flags(monkeypatch, OPT_IN)
+    for value, want in (('1', on), ('0', off)):
+        monkeypatch.setenv(flag, value)
+        calls.clear()
+        _one_pass(setup)
+        got = {k: calls[k] for k in want}
+        assert got == want, (flag, value, dict(calls))
+
+
+def test_registry_mirrors_the_jax_flags(monkeypatch):
+    from abx_tpu.ops import registry as jax_registry
+    for name in ('use_pallas_triangle', 'use_ipa_attend_kernel',
+                 'use_gate_proj_kernel', 'use_trimult_gatefold',
+                 'use_trimult_c_major'):
+        flag_fn, jax_fn = getattr(registry, name), getattr(jax_registry, name)
+        assert flag_fn() == jax_fn(), name          # same default
+        for value in ('0', '1'):
+            env = {'ABX_PALLAS_TRIANGLE': value, 'ABX_IPA_ATTEND': value,
+                   'ABX_GATE_PROJ_KERNEL': value,
+                   'ABX_TRIMULT_GATEFOLD': value,
+                   'ABX_TRIMULT_C_MAJOR': value}
+            _set_flags(monkeypatch, env)
+            assert flag_fn() == jax_fn() == (value == '1'), name
+        for k in env:
+            monkeypatch.delenv(k)
+
+
+def test_c_major_on_the_kernel_route_raises(setup, monkeypatch):
+    """The JAX package takes its channel-major route under
+    ABX_TRIMULT_C_MAJOR=1 (without ABX_PALLAS_TRIANGLE); the port has not
+    ported it and refuses instead of silently taking another route."""
+    _count_kernel_routes(monkeypatch)
+    monkeypatch.setenv('ABX_TRIMULT_C_MAJOR', '1')
+    with pytest.raises(NotImplementedError, match='ROADMAP Queue 2'):
+        _one_pass(setup)
+    # With the contraction kernel on, the JAX package's route is the
+    # natural-layout one, which the port has.
+    monkeypatch.setenv('ABX_PALLAS_TRIANGLE', '1')
+    _one_pass(setup)
+

@@ -4,11 +4,12 @@ give the same results.
 
 The import check runs in a subprocess in which `abx_tpu`, `jax`, `flax`
 and `ml_collections` cannot be imported: every module under
-`abx_tpu_torch/` and `chip_smoke.py` are imported there, and the design
-CLI makes one tiny CPU sample.  The data check holds the port's
-`prepare_example` to the JAX package's on the repository's test complexes
-(integers exact, floats to 1e-6) and compares the PDB text both packages
-write.
+`abx_tpu_torch/` and `chip_smoke.py` are imported there, the design CLI
+makes one tiny CPU sample, and the test-set CLI (`cli/inference.py`) one
+tiny CPU optimize sample from an npz the port writes itself.  The data
+check holds the port's `prepare_example` to the JAX package's on the
+repository's test complexes (integers exact, floats to 1e-6) and compares
+the PDB text both packages write.
 """
 
 import subprocess
@@ -39,9 +40,20 @@ mods = [m.name for m in pkgutil.walk_packages(abx_tpu_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
-from abx_tpu_torch.cli import design
+import numpy as np
+from abx_tpu_torch.cli import design, inference
+from abx_tpu_torch.data import dataset
 design.main(['--pdb_file', {PDBS[0]!r}, '--output_dir', {str(out)!r},
              '--tiny', '--device', 'cpu', '--num_t', '2'])
+np.savez({str(tmp_path / '6ct7_H_L_S.npz')!r},
+         **dataset.complex_from_pdb({PDBS[0]!r}, 'H', 'L', ['S']))
+with open({str(tmp_path / 'names.txt')!r}, 'w') as f:
+    f.write('6ct7_H_L_S\\n')
+inference.main(['--data_dir', {str(tmp_path)!r}, '--name_idx',
+                {str(tmp_path / 'names.txt')!r}, '--output_dir',
+                {str(out)!r}, '--tiny', '--device', 'cpu', '--mode',
+                'optimize', '--optimize_steps', '1', '--num_t', '2',
+                '--num_samples', '1'])
 print(len(mods))
 """
     proc = subprocess.run([sys.executable, '-c', code], capture_output=True,
@@ -50,6 +62,8 @@ print(len(mods))
     assert int(proc.stdout.split()[-1]) >= 40
     for sub in ('reference', '0000'):
         assert (out / 'design' / sub / '6ct7_H_L_S.pdb').exists(), sub
+    for sub in ('reference', 'OPT-1/0000'):
+        assert (out / 'optimize' / sub / '6ct7_H_L_S.pdb').exists(), sub
 
 
 def _prepare(ds, path):
