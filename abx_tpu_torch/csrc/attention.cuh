@@ -1,25 +1,33 @@
 // Masked multi-head attention core shared by the packed triangle / seq
-// attention (tri_attention.cu) and the ESM2 self-attention
-// (esm_attention.cu).
+// attention and its column variant, the head-major triangle attention
+// (tri_attention.cu) and the ESM2 self-attention (esm_attention.cu).
 //
-// out[b, r, l, h, :] = softmax_j(q_l . k_j + bias[b, h, l, j] + mb[b, j])
-//                      . v[j]  (x sigmoid(gate[l]) when a gate is given)
+// out[b, r, l, h, :] = softmax_j(qscale * q_l . k_j + bias[b, h, l, j]
+//                                + mb[b, j]) . v[j]
+//                      (x sigmoid(gate[l]) when a gate is given)
 // for every batch element b, row r < R, query l < L and head h < H, with
-// head dim D.  q arrives pre-scaled.  Operands are read through strides
-// (batch-row, position, head; unit stride along D), so callers hand in
-// slices of a fused projection or head-major views without copies.
-// The logits live only in shared memory.
+// head dim D.  Operands are read through strides (batch, row, position,
+// head; unit stride along D), so callers hand in slices of a fused
+// projection, head-major views or the columns of a natural pair tensor
+// without copies.  The logits live only in shared memory.
 //
 // Design: one block per (query block of 64 rows, head, batch*row).  Keys
 // stream in blocks of 64 with an f32 online softmax (running max and sum
-// per query row, f32 exp).  The bias arrives in the input dtype (or is
+// per query row).  The bias arrives in the input dtype or in f32 (or is
 // absent) and the additive key mask (BIG_NEG) as a separate f32 row; both
 // are summed in f32 while the bias tile is staged into the logits tile,
-// which then seeds the QK^T accumulators.  Each warp runs its eight rows'
-// softmax reductions interleaved.  Head dim D need not be a multiple of
-// 16: it is zero-padded to Dp inside shared memory (seq attention has
-// D = 17), and a ragged last query or key block (L = 306 in ESM) is
-// zero-padded and its keys masked to -inf.
+// which is added to the f32 QK^T accumulators after the query scale.  Each
+// warp runs its eight rows' softmax reductions interleaved.  Head dim D
+// need not be a multiple of 16: it is zero-padded to Dp inside shared
+// memory (seq attention has D = 17), and a ragged last query or key block
+// (L = 306 in ESM) is zero-padded and its keys masked to -inf.
+// Rounding: products are bf16 with f32 accumulation (bf16x3 for f32
+// operands), and the probabilities are rounded to bf16 for the PV product
+// in the bf16 kernel.  With bf16_exp (bf16 inputs only) the exponent is
+// taken as the TPU's packed kernel takes it, exp(bf16(s - m)) rounded to
+// bf16 and summed in f32, with m the running maximum of the row (the TPU
+// kernel's m is the row's final maximum; the two agree once the block
+// holding the maximum has been seen).
 #pragma once
 
 #include "common.cuh"
@@ -37,10 +45,10 @@ struct MaskAdd {  // adds the key-mask bias of the tile's key columns
   __device__ float operator()(int, int c, float v) const { return v + mb[c]; }
 };
 
-// Element (br, l, h, d) of an operand lies at
-// base + br * s.b + l * s.l + h * s.h + d, with br = batch * R + row.
+// Element (b, r, l, h, d) of an operand lies at
+// base + b * s.b + r * s.r + l * s.l + h * s.h + d.
 struct Strides {
-  long long b, l, h;
+  long long b, r, l, h;
 };
 
 struct AttnArgs {
@@ -48,11 +56,14 @@ struct AttnArgs {
   const void* k;
   const void* v;
   const void* gate;       // optional: out *= sigmoid(gate), strides gs
-  const void* bias;       // optional: (B, H, L, L) in the input dtype
+  const void* bias;       // optional: (B, H, L, L), input dtype or f32
+  int bias_f32;           // the bias is f32
   const float* maskbias;  // (B, L) f32 additive key mask
   void* out;
   Strides qs, ks, vs, gs, os;
   int R, L, H, D;
+  float qscale;           // applied to q . k in f32
+  int bf16_exp;           // exponent rounded through bf16 (bf16 only)
 };
 
 struct AttnLayout {
@@ -102,14 +113,16 @@ __global__ void __launch_bounds__(kThreads)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = blockIdx.x * kQB, h = blockIdx.y, br = blockIdx.z;
-  const int b = br / R;
-  const T* qp = static_cast<const T*>(a.q) + br * a.qs.b + h * a.qs.h;
-  const T* kp = static_cast<const T*>(a.k) + br * a.ks.b + h * a.ks.h;
-  const T* vp = static_cast<const T*>(a.v) + br * a.vs.b + h * a.vs.h;
-  const T* bias_bh =
-      a.bias ? static_cast<const T*>(a.bias) + ((size_t)b * H + h) * L * L
-             : nullptr;
+  const int b = br / R, row = br % R;
+  auto at = [&](const Strides& st) {
+    return b * st.b + row * st.r + h * st.h;
+  };
+  const T* qp = static_cast<const T*>(a.q) + at(a.qs);
+  const T* kp = static_cast<const T*>(a.k) + at(a.ks);
+  const T* vp = static_cast<const T*>(a.v) + at(a.vs);
+  const size_t bias_bh = ((size_t)b * H + h) * L * L;
   const float* mb = a.maskbias + (size_t)b * L;
+  const bool bf16_exp = !SPLIT && a.bf16_exp;
 
   stage_tile<T, SPLIT>(qp + q0 * a.qs.l, a.qs.l, L - q0, D, q_hi, q_lo,
                        q.ldq, kQB, q.dp);
@@ -128,9 +141,14 @@ __global__ void __launch_bounds__(kThreads)
                          q.ldq, kKB, q.dp);
     // bias + key-mask bias (or the key-mask bias alone), staged into the
     // logits tile, which then seeds the QK^T accumulators.
-    if (bias_bh) {
-      stage_tile_f32<T>(bias_bh + (size_t)q0 * L + k0, L, L - q0, L - k0,
-                        s_s, q.lds, kQB, kKB, MaskAdd{mb + k0});
+    const size_t tile0 = bias_bh + (size_t)q0 * L + k0;
+    if (a.bias && a.bias_f32) {
+      stage_tile_f32<float>(static_cast<const float*>(a.bias) + tile0, L,
+                            L - q0, L - k0, s_s, q.lds, kQB, kKB,
+                            MaskAdd{mb + k0});
+    } else if (a.bias) {
+      stage_tile_f32<T>(static_cast<const T*>(a.bias) + tile0, L, L - q0,
+                        L - k0, s_s, q.lds, kQB, kKB, MaskAdd{mb + k0});
     } else {
       for (int idx = tid; idx < kQB * kKB; idx += kThreads) {
         const int i = idx / kKB, j = idx % kKB;
@@ -142,9 +160,7 @@ __global__ void __launch_bounds__(kThreads)
       const int tm = warp % (kQB / 16), tn = 2 * (warp / (kQB / 16));
       FragC acc[2];
 #pragma unroll
-      for (int t = 0; t < 2; ++t)
-        wmma::load_matrix_sync(acc[t], s_s + tm * 16 * q.lds + (tn + t) * 16,
-                               q.lds, wmma::mem_row_major);
+      for (int t = 0; t < 2; ++t) wmma::fill_fragment(acc[t], 0.f);
       for (int kk = 0; kk < q.dp; kk += 16)
         mma16_row<SPLIT, FragBc, 2>(acc, 2, q_hi + tm * 16 * q.ldq + kk,
                                     q_lo + tm * 16 * q.ldq + kk, q.ldq,
@@ -152,9 +168,17 @@ __global__ void __launch_bounds__(kThreads)
                                     k_lo + tn * 16 * q.ldq + kk, q.ldq,
                                     16 * q.ldq);
 #pragma unroll
-      for (int t = 0; t < 2; ++t)
-        wmma::store_matrix_sync(s_s + tm * 16 * q.lds + (tn + t) * 16,
-                                acc[t], q.lds, wmma::mem_row_major);
+      for (int t = 0; t < 2; ++t) {
+        // s = qscale * (q . k) + (bias + key-mask bias): two accumulator
+        // fragments of one shape map their elements alike.
+        float* tile = s_s + tm * 16 * q.lds + (tn + t) * 16;
+        FragC seed;
+        wmma::load_matrix_sync(seed, tile, q.lds, wmma::mem_row_major);
+#pragma unroll
+        for (int e = 0; e < acc[t].num_elements; ++e)
+          acc[t].x[e] = acc[t].x[e] * a.qscale + seed.x[e];
+        wmma::store_matrix_sync(tile, acc[t], q.lds, wmma::mem_row_major);
+      }
     }
     __syncthreads();
     // Online softmax: warp w owns rows w*8 .. w*8+7, two keys per lane;
@@ -181,7 +205,11 @@ __global__ void __launch_bounds__(kThreads)
         psum[r] = 0.f;
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
-          const float pv = expf(s[r][u] - m_new[r]);
+          const float pv =
+              bf16_exp ? __bfloat162float(__float2bfloat16(expf(
+                             __bfloat162float(__float2bfloat16(
+                                 s[r][u] - m_new[r])))))
+                       : expf(s[r][u] - m_new[r]);
           psum[r] += pv;
           put<SPLIT>(p_hi, p_lo, (i0 + r) * q.ldp + lane + 32 * u, pv);
         }
@@ -219,10 +247,8 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
-  const T* gp = a.gate ? static_cast<const T*>(a.gate) + br * a.gs.b +
-                             h * a.gs.h
-                       : nullptr;
-  T* op = static_cast<T*>(a.out) + br * a.os.b + h * a.os.h;
+  const T* gp = a.gate ? static_cast<const T*>(a.gate) + at(a.gs) : nullptr;
+  T* op = static_cast<T*>(a.out) + at(a.os);
   for (int idx = tid; idx < kQB * D; idx += kThreads) {
     const int i = idx / D, d = idx % D, l = q0 + i;
     if (l >= L) continue;

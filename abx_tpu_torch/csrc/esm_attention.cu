@@ -32,16 +32,19 @@ extern "C" int abx_esm_attention(int dtype, const void* q, const void* k,
   a.v = v;
   a.gate = nullptr;
   a.bias = nullptr;
+  a.bias_f32 = 0;
   a.maskbias = maskbias;
   a.out = out;
-  a.qs = abx::Strides{strides[0], strides[1], strides[2]};
-  a.ks = abx::Strides{strides[3], strides[4], strides[5]};
-  a.vs = abx::Strides{strides[6], strides[7], strides[8]};
+  a.qs = abx::Strides{strides[0], 0, strides[1], strides[2]};
+  a.ks = abx::Strides{strides[3], 0, strides[4], strides[5]};
+  a.vs = abx::Strides{strides[6], 0, strides[7], strides[8]};
   a.gs = a.qs;
-  a.os = abx::Strides{strides[9], strides[10], strides[11]};
+  a.os = abx::Strides{strides[9], 0, strides[10], strides[11]};
   a.R = 1;
   a.L = L;
   a.H = H;
   a.D = D;
+  a.qscale = 1.f;
+  a.bf16_exp = 0;
   return abx::launch_attention(dtype, a, B, stream);
 }

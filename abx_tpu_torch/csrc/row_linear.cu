@@ -13,7 +13,10 @@
 //     | left gate | right gate | final gate] projection -> left * sigmoid(
 //     left gate) * pair mask, the same for right, and the final gate
 //     pre-sigmoid: out_mode 2, entry abx_tri_mult_pre; without the final
-//     gate columns for emit_fgate=False);
+//     gate columns for emit_fgate=False; left and right written channel-
+//     major, (B, nc, R, L), for c_major=True);
+//   * abx_tpu/ops/tri_mult.py::tri_mult_post with y_c_major=True (its input
+//     read channel-major, (B, nc, R, L): entry abx_tri_mult_post_c_major);
 //   * abx_tpu/ops/gate_proj.py::gate_proj_residual ((sigmoid(gate) * y) W^T
 //     + bias + residual: the gate is applied while a tile of y is staged,
 //     entry abx_gate_proj);
@@ -34,6 +37,14 @@
 // memory.  The N tiles of one M tile are consecutive blocks, so the row
 // re-reads hit L2.  The epilogue writes 8 columns per thread.  Products are
 // wmma bf16 (bf16x3 for f32 inputs, see common.cuh).
+// Channel-major operands: a 64-row M tile is 64 consecutive positions m =
+// (b*R + r)*L + l, which may straddle two batch elements when R*L is not a
+// multiple of 64, so every row finds its own batch element.  pre's c_major
+// store stages the gated 64 x 64 tile transposed in shared memory, so that
+// each channel writes a run of consecutive positions; post's channel-major
+// input is read with consecutive threads on consecutive positions (the
+// LayerNorm statistics with four threads per row, each over a quarter of
+// the channels) and transposed into the [row][k] staging tile.
 #include "common.cuh"
 
 namespace abx {
@@ -57,6 +68,7 @@ struct LinearArgs {
   const float* seq_mask;  // out_mode 2: (B, Lc), pair mask m[b,r] * m[b,l]
   void* out2;             // out_mode 2: (M, N - gated columns) ungated part
   int gated;              // out_mode 2: value channels per side (nc)
+  int lr_c_major;         // out_mode 2: gated sides as (B, nc, R, Lc)
 };
 
 constexpr int kHalf = 64;  // out_mode 2: [64 values | 64 gates] per N tile
@@ -154,22 +166,82 @@ __device__ __forceinline__ void row_moments(const T* x, int ldx, int K,
   }
 }
 
+// row_moments for a channel-major x (B, K, R*Lc = rl): element (m, k) at
+// x[(b*K + k)*rl + m % rl], b = m / rl, for the tile's rows m0 + [0, rows).
+// Four threads per row, each over every fourth channel; consecutive
+// threads take consecutive rows.  part: 2 * kThreads floats of scratch.
+template <typename T>
+__device__ __forceinline__ void row_moments_cmajor(const T* x, int K, int m0,
+                                                   int rows, int rl,
+                                                   float* part, float* mean_s,
+                                                   float* rstd_s) {
+  constexpr int kParts = kThreads / kBM;
+  const int i = threadIdx.x % kBM, q = threadIdx.x / kBM;
+  float s = 0.f, s2 = 0.f;
+  if (i < rows) {
+    const int m = m0 + i;
+    const T* xr = x + (size_t)(m / rl) * K * rl + m % rl;
+    for (int k = q; k < K; k += kParts) {
+      const float v = to_f32(xr[(size_t)k * rl]);
+      s += v;
+      s2 += v * v;
+    }
+  }
+  part[threadIdx.x] = s;
+  part[kThreads + threadIdx.x] = s2;
+  __syncthreads();
+  if (threadIdx.x < kBM) {
+    s = s2 = 0.f;
+#pragma unroll
+    for (int p = 0; p < kParts; ++p) {
+      s += part[p * kBM + i];
+      s2 += part[kThreads + p * kBM + i];
+    }
+    const float mu = s / K;
+    mean_s[i] = mu;
+    rstd_s[i] = rsqrtf(fmaxf(s2 / K - mu * mu, 0.f) + 1e-5f);
+  }
+}
+
+// stage_tile for the K chunk k0 of a channel-major x (layout as above):
+// the (kBM x kBK) tile lands in [row][k] order, f applied on the way.
+template <typename T, bool SPLIT, typename F>
+__device__ __forceinline__ void stage_cmajor(const T* x, int K, int m0,
+                                             int rows, int rl, int k0,
+                                             bf16* hi, bf16* lo, F f) {
+  for (int idx = threadIdx.x; idx < kBM * kBK; idx += kThreads) {
+    const int i = idx % kBM, k = idx / kBM;
+    float v = 0.f;
+    if (i < rows && k0 + k < K) {
+      const int m = m0 + i;
+      v = f(i, k, to_f32(x[((size_t)(m / rl) * K + k0 + k) * rl + m % rl]));
+    }
+    put<SPLIT>(hi, lo, i * kLDA + k, v);
+  }
+}
+
 // acc = f(X) W^T for one 64 x BN output tile: x at the tile's first row
-// (row stride ldx), w at its first output column (row stride K).  Ends with
-// a barrier, so the staging tiles may be reused.
-template <typename T, int BN, bool SPLIT, typename F>
+// (row stride ldx), w at its first output column (row stride K).  With XCM,
+// x is the whole channel-major tensor (see stage_cmajor), the tile's rows
+// m0 + [0, rows) of rl positions per batch element.  Ends with a barrier,
+// so the staging tiles may be reused.
+template <typename T, int BN, bool SPLIT, bool XCM = false, typename F>
 __device__ __forceinline__ void accumulate(FragC* acc, const T* x, int ldx,
                                            int K, int rows, const T* w,
                                            int cols, bf16* a_hi, bf16* a_lo,
-                                           bf16* b_hi, bf16* b_lo, F f) {
+                                           bf16* b_hi, bf16* b_lo, F f,
+                                           int m0 = 0, int rl = 0) {
   using Tile = LinearTile<BN>;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
   for (int t = 0; t < Tile::PER_WARP; ++t) wmma::fill_fragment(acc[t], 0.f);
   for (int k0 = 0; k0 < K; k0 += kBK) {
     f.k0 = k0;
-    stage_tile<T, SPLIT>(x + k0, ldx, rows, K - k0, a_hi, a_lo, kLDA, kBM,
-                         kBK, f);
+    if constexpr (XCM)
+      stage_cmajor<T, SPLIT>(x, K, m0, rows, rl, k0, a_hi, a_lo, f);
+    else
+      stage_tile<T, SPLIT>(x + k0, ldx, rows, K - k0, a_hi, a_lo, kLDA, kBM,
+                           kBK, f);
     stage_tile<T, SPLIT>(w + k0, K, cols, K - k0, b_hi, b_lo, kLDA, BN,
                          kBK);
     __syncthreads();
@@ -200,7 +272,7 @@ __device__ __forceinline__ void store_acc(float* c_s, const FragC* acc) {
   }
 }
 
-template <typename T, int BN>
+template <typename T, int BN, bool XCM>
 __global__ void __launch_bounds__(kThreads) linear_kernel(LinearArgs p) {
   constexpr bool SPLIT = IsF32<T>::value;
   using Tile = LinearTile<BN>;
@@ -228,7 +300,14 @@ __global__ void __launch_bounds__(kThreads) linear_kernel(LinearArgs p) {
   const T* wn = w + (size_t)n0 * p.K;
 
   FragC acc[Tile::PER_WARP];
-  if (p.ln_scale != nullptr) {
+  if constexpr (XCM) {  // with the LayerNorm (abx_tri_mult_post_c_major)
+    const int rl = p.R * p.Lc;
+    row_moments_cmajor(x, p.K, m0, rows, rl, c_s, mean_s, rstd_s);
+    __syncthreads();
+    accumulate<T, BN, SPLIT, true>(
+        acc, x, p.ldx, p.K, rows, wn, cols, a_hi, a_lo, b_hi, b_lo,
+        LnXform{mean_s, rstd_s, p.ln_scale, p.ln_bias, 0}, m0, rl);
+  } else if (p.ln_scale != nullptr) {
     row_moments(xa, p.ldx, p.K, rows, mean_s, rstd_s);
     __syncthreads();
     accumulate<T, BN, SPLIT>(acc, xa, p.ldx, p.K, rows, wn, cols, a_hi, a_lo,
@@ -291,26 +370,62 @@ __global__ void __launch_bounds__(kThreads) linear_kernel(LinearArgs p) {
     if (tile < 2 * per_side) {
       const int c0 = (tile % per_side) * kHalf;
       T* dst = out + (size_t)(tile / per_side) * p.M * p.gated;
-      const bool vec = p.gated % 8 == 0;
       const int rl = p.R * p.Lc;
-      for (int idx = tid; idx < kBM * kHalf / 8; idx += kThreads) {
+      // The gated 64 x 64 tile, 8 consecutive channels of one row per
+      // thread and step, kept in registers.
+      constexpr int kSteps = kBM * kHalf / 8 / kThreads;
+      float v[kSteps][8];
+#pragma unroll
+      for (int st = 0; st < kSteps; ++st) {
+        const int idx = tid + st * kThreads;
         const int i = idx / (kHalf / 8), j = (idx % (kHalf / 8)) * 8;
-        if (i >= rows || c0 + j >= p.gated) continue;
-        const int m = m0 + i, b = m / rl;
-        const float pm = p.seq_mask[b * p.Lc + (m / p.Lc) % p.R] *
-                         p.seq_mask[b * p.Lc + m % p.Lc];
-        float v[8];
+        const int m = m0 + i;
+        const int b = m / rl;
+        const float pm = i < rows ? p.seq_mask[b * p.Lc + (m / p.Lc) % p.R] *
+                                        p.seq_mask[b * p.Lc + m % p.Lc]
+                                  : 0.f;
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
-          const float g = c_s[i * LDC + kHalf + j + k] + p.bias[n0 + kHalf + j + k];
-          v[k] = (c_s[i * LDC + j + k] + p.bias[n0 + j + k]) * sigmoid(g) * pm;
+          const int n = n0 + j + k;  // gated N tiles are whole
+          const float g = c_s[i * LDC + kHalf + j + k] + p.bias[n + kHalf];
+          v[st][k] = (c_s[i * LDC + j + k] + p.bias[n]) * sigmoid(g) * pm;
         }
-        const size_t o = (size_t)m * p.gated + c0 + j;
-        if (vec && c0 + j + 8 <= p.gated) {
-          store8(dst + o, v);
-        } else {
-          for (int k = 0; k < 8 && c0 + j + k < p.gated; ++k)
-            dst[o + k] = from_f32<T>(v[k]);
+      }
+      if (!p.lr_c_major) {
+        const bool vec = p.gated % 8 == 0;
+#pragma unroll
+        for (int st = 0; st < kSteps; ++st) {
+          const int idx = tid + st * kThreads;
+          const int i = idx / (kHalf / 8), j = (idx % (kHalf / 8)) * 8;
+          if (i >= rows || c0 + j >= p.gated) continue;
+          const size_t o = (size_t)(m0 + i) * p.gated + c0 + j;
+          if (vec && c0 + j + 8 <= p.gated) {
+            store8(dst + o, v[st]);
+          } else {
+            for (int k = 0; k < 8 && c0 + j + k < p.gated; ++k)
+              dst[o + k] = from_f32<T>(v[st][k]);
+          }
+        }
+      } else {
+        // (B, nc, R, Lc): the tile goes through shared memory transposed,
+        // [channel][row], so that a warp writes 32 consecutive positions of
+        // one channel.
+        constexpr int kLDT = kBM + 1;
+        __syncthreads();  // every thread has read its part of c_s
+#pragma unroll
+        for (int st = 0; st < kSteps; ++st) {
+          const int idx = tid + st * kThreads;
+          const int i = idx / (kHalf / 8), j = (idx % (kHalf / 8)) * 8;
+#pragma unroll
+          for (int k = 0; k < 8; ++k) c_s[(j + k) * kLDT + i] = v[st][k];
+        }
+        __syncthreads();
+        for (int idx = tid; idx < kHalf * kBM; idx += kThreads) {
+          const int c = idx / kBM, i = idx % kBM;
+          if (i >= rows || c0 + c >= p.gated) continue;
+          const int m = m0 + i;
+          dst[((size_t)(m / rl) * p.gated + c0 + c) * rl + m % rl] =
+              from_f32<T>(c_s[c * kLDT + i]);
         }
       }
     } else {
@@ -347,13 +462,13 @@ __global__ void __launch_bounds__(kThreads) linear_kernel(LinearArgs p) {
   }
 }
 
-template <typename T, int BN>
+template <typename T, int BN, bool XCM = false>
 cudaError_t launch_linear_bn(const LinearArgs& p, cudaStream_t stream) {
   const size_t smem = linear_smem_bytes<T, BN>();
-  cudaError_t e = set_smem(linear_kernel<T, BN>, smem);
+  cudaError_t e = set_smem(linear_kernel<T, BN, XCM>, smem);
   if (e != cudaSuccess) return e;
   const int grid = ((p.M + kBM - 1) / kBM) * ((p.N + BN - 1) / BN);
-  linear_kernel<T, BN><<<grid, kThreads, smem, stream>>>(p);
+  linear_kernel<T, BN, XCM><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -478,7 +593,7 @@ extern "C" int abx_row_linear(int dtype, const void* x, int M, int K, int ldx,
   abx::LinearArgs p{x,        M,    K,        ldx,     ln_scale, ln_bias,
                     w,        bias, residual, gate,    nullptr,  out,
                     N,        out_mode, R,    Lc,      nullptr,  nullptr,
-                    0};
+                    0,        0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? abx::launch_linear<float>(p, s)
                     : abx::launch_linear<abx::bf16>(p, s);
@@ -489,21 +604,41 @@ extern "C" int abx_row_linear(int dtype, const void* x, int M, int K, int ldx,
 // 64-channel chunk of its nc value channels, 64 value rows then their 64
 // gate rows (zero rows pad the last chunk), then the ungated final-gate
 // rows.  out_lr is (2, M, nc): left * sigmoid(left gate) * pair mask, then
-// right; out_fg is (M, N - 4 * 64 * ceil(nc / 64)), the final gate
-// pre-sigmoid (null, and no final-gate rows in w, for emit_fgate=False).
+// right -- or (2, B, nc, R, Lc) with c_major; out_fg is (M, N - 4 * 64 *
+// ceil(nc / 64)), the final gate pre-sigmoid (null, and no final-gate rows
+// in w, for emit_fgate=False).
 // Rows are m = (b*R + r)*Lc + l; seq_mask is (B, Lc).
 extern "C" int abx_tri_mult_pre(int dtype, const void* x, int M, int K,
                                 const float* ln_scale, const float* ln_bias,
                                 const void* w, const float* bias, int N,
                                 const float* seq_mask, int R, int Lc, int nc,
-                                void* out_lr, void* out_fg, void* stream) {
+                                int c_major, void* out_lr, void* out_fg,
+                                void* stream) {
   abx::LinearArgs p{x,       M,    K,       K,       ln_scale, ln_bias,
                     w,       bias, nullptr, nullptr, nullptr,  out_lr,
                     N,       2,    R,       Lc,      seq_mask, out_fg,
-                    nc};
+                    nc,      c_major};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? abx::launch_linear_bn<float, 128>(p, s)
                     : abx::launch_linear_bn<abx::bf16, 128>(p, s);
+}
+
+// tri_mult_post with a channel-major input: out = (LN(y) W^T + bias) *
+// sigmoid(gate) + residual, y (B, K, R, Lc) with M = B*R*Lc positions; w (N,
+// K); bias (N,); gate, residual and out (M, N) in the natural order.
+extern "C" int abx_tri_mult_post_c_major(int dtype, const void* y, int M,
+                                         int K, const float* ln_scale,
+                                         const float* ln_bias, const void* w,
+                                         const float* bias, const void* gate,
+                                         const void* residual, void* out,
+                                         int N, int R, int Lc, void* stream) {
+  abx::LinearArgs p{y,       M,    K,        K,       ln_scale, ln_bias,
+                    w,       bias, residual, gate,    nullptr,  out,
+                    N,       0,    R,        Lc,      nullptr,  nullptr,
+                    0,       0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? abx::launch_linear_bn<float, 128, true>(p, s)
+                    : abx::launch_linear_bn<abx::bf16, 128, true>(p, s);
 }
 
 // gate_proj_residual: out = (y * sigmoid(gate)) W^T + bias + residual, the
@@ -516,7 +651,7 @@ extern "C" int abx_gate_proj(int dtype, const void* y, const void* gate,
   abx::LinearArgs p{y,       M,    K,        K,       nullptr, nullptr,
                     w,       bias, residual, nullptr, gate,    out,
                     N,       0,    0,        0,       nullptr, nullptr,
-                    0};
+                    0,       0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? abx::launch_linear<float>(p, s)
                     : abx::launch_linear<abx::bf16>(p, s);

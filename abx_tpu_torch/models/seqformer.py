@@ -7,8 +7,9 @@ pair bias, the seq attention, the triangle-multiplication blocks around
 the contraction, both triangle attentions and the pair transition run
 through the hand-written kernels in `abx_tpu_torch/ops`; the opt-in flags
 route as in the JAX package (the triangle contraction kernel under
-`ABX_PALLAS_TRIANGLE`, the gate-fold triangle multiplication under
-`ABX_TRIMULT_GATEFOLD`, the triangle-attention epilogue kernel under
+`ABX_PALLAS_TRIANGLE`, the channel-major triangle multiplication under
+`ABX_TRIMULT_C_MAJOR` without it, the gate-fold triangle multiplication
+under `ABX_TRIMULT_GATEFOLD`, the triangle-attention epilogue kernel under
 `ABX_GATE_PROJ_KERNEL` without the LN-fold).  Elsewhere the modules take
 the same plain path as the JAX package off the TPU.
 With `esm.enabled`, `EmbeddingAndSeqformer` adds the projected, learned
@@ -37,7 +38,8 @@ from abx_tpu_torch.ops.transition import fused_transition
 from abx_tpu_torch.ops.tri_attention import triangle_attention_packed
 from abx_tpu_torch.ops.tri_mult import (tri_mult_post,
                                         tri_mult_post_gatefold, tri_mult_pre)
-from abx_tpu_torch.ops.triangle import triangle_multiply
+from abx_tpu_torch.ops.triangle import (triangle_multiply,
+                                        triangle_multiply_c_major)
 
 BIG_NEG = -1e9
 
@@ -246,9 +248,11 @@ class OuterProductMean(nn.Module):
 
 class TriangleMultiplication(nn.Module):
     """Triangle multiplication; on the card (residual, gated) the blocks
-    around the contraction run as the tri_mult pre/post kernels, or as
-    pre without the final gate and the gate-fold post under
-    `ABX_TRIMULT_GATEFOLD`."""
+    around the contraction run as the tri_mult pre/post kernels: in the
+    channel-major layout around a batched matrix product under
+    `ABX_TRIMULT_C_MAJOR` (without `ABX_PALLAS_TRIANGLE`), as pre without
+    the final gate and the gate-fold post under `ABX_TRIMULT_GATEFOLD`,
+    and in the natural layout otherwise."""
 
     def __init__(self, config, num_in: int, dtype=torch.float32):
         super().__init__()
@@ -272,15 +276,13 @@ class TriangleMultiplication(nn.Module):
         use_pallas = registry.use_pallas_triangle()
         if (residual and self.gating and act.dim() == 4
                 and registry.on_device(act) and registry.use_fused_trimult()):
-            if registry.use_trimult_c_major() and not use_pallas:
-                raise NotImplementedError(
-                    'ABX_TRIMULT_C_MAJOR: the channel-major triangle-'
-                    'multiplication route is not ported yet (ROADMAP '
-                    'Queue 2)')
             branches = [self.left_proj, self.right_proj, self.left_gate,
                         self.right_gate]
             fscale, fbias = self.final_norm.scale, self.final_norm.bias
-            if registry.use_trimult_gatefold():
+            # Channel-major is checked first, as in the JAX package: no
+            # layout copies around the contraction's matrix product.
+            c_major = registry.use_trimult_c_major() and not use_pallas
+            if registry.use_trimult_gatefold() and not c_major:
                 left, right = tri_mult_pre(
                     act, self.norm.scale, self.norm.bias,
                     torch.cat([m.weight for m in branches]),
@@ -296,11 +298,16 @@ class TriangleMultiplication(nn.Module):
             left, right, fg = tri_mult_pre(
                 act, self.norm.scale, self.norm.bias,
                 torch.cat([m.weight for m in branches]),
-                torch.cat([m.bias for m in branches]), mask)
-            out = triangle_multiply(left, right, per_row=self.per_row,
-                                    use_pallas=use_pallas)
+                torch.cat([m.bias for m in branches]), mask, c_major=c_major)
+            if c_major:
+                out = triangle_multiply_c_major(left, right,
+                                                per_row=self.per_row)
+            else:
+                out = triangle_multiply(left, right, per_row=self.per_row,
+                                        use_pallas=use_pallas)
             return tri_mult_post(out, fscale, fbias, self.proj_out.weight,
-                                 self.proj_out.bias, fg, act)
+                                 self.proj_out.bias, fg, act,
+                                 y_c_major=c_major)
         pair_mask = (mask[:, :, None, None] * mask[:, None, :, None]).to(dt)
         x = self.norm(act)
         branches = [self.left_proj, self.right_proj]

@@ -30,12 +30,15 @@ _SIGNATURES = {
     'abx_row_linear': [_I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                        _I, _I, _I, _P],
     'abx_tri_mult_pre': [_I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I,
-                         _P, _P, _P],
+                         _I, _P, _P, _P],
+    'abx_tri_mult_post_c_major': [_I, _P, _I, _I] + [_P] * 7 + [_I] * 3
+                                 + [_P],
     'abx_recycle_embed': [_I] + [_P] * 8 + [_I] * 5 + [_P],
     'abx_fused_transition': [_I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                              _P],
     'abx_tri_attention_core': [_I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I,
-                               _P, _P],
+                               _I, _I, _P, _P],
+    'abx_triangle_attention_fused': [_I] + [_P] * 6 + [_I] * 5 + [_P],
     'abx_ipa_attention': [_I] + [_P] * 14 + [_I] * 7 + [_P],
     'abx_esm_attention': [_I] + [_P] * 6 + [_I] * 4 + [_P],
     'abx_gate_proj': [_I, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P],

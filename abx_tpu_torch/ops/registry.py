@@ -4,10 +4,8 @@ The same `ABX_*` environment flags and defaults as `abx_tpu/ops/registry.py`
 for every kernel route of the model (one exception, `ABX_FUSED_ESM_ATTN`,
 says why).  Where the JAX package asks `jax.default_backend() == 'tpu'`,
 the port asks `on_device(tensor)`: a kernel route is taken only for
-tensors that live on a CUDA device.  A route the port has not ported
-raises on the card instead of being ignored (`ABX_TRIMULT_C_MAJOR`).  The
-defaults were chosen by TPU measurements; which suit the H100 waits for
-the port's benchmark.
+tensors that live on a CUDA device.  The defaults were chosen by TPU
+measurements; which suit the H100 waits for the port's benchmark.
 """
 
 from __future__ import annotations
@@ -44,6 +42,13 @@ def use_packed_seq_attn() -> bool:
     element (LN + per-head q/k/v/gate projection + biased softmax + gate +
     out-proj + residual)."""
     return os.environ.get('ABX_PACKED_SEQ_ATTN', '1') == '1'
+
+
+def use_tri_attn_bf16_exp() -> bool:
+    """bf16 inputs of the packed triangle / seq attention (and of its
+    column variant) take the softmax exponent the TPU kernel's way:
+    exp(bf16(s - m)) rounded to bf16, summed and normalised in f32."""
+    return os.environ.get('ABX_TRI_ATTN_BF16_EXP', '1') == '1'
 
 
 def use_fused_pair_bias() -> bool:
@@ -128,7 +133,9 @@ def use_trimult_gatefold() -> bool:
 
 
 def use_trimult_c_major() -> bool:
-    """Channel-major triangle-multiplication data path.  Not ported yet
-    (ROADMAP Queue 2): on the card, the route the JAX package would take
-    under this flag raises NotImplementedError.  Default off."""
+    """Channel-major triangle-multiplication data path: pre emits left and
+    right as (B, nc, L, L), the contraction is a batched matrix product on
+    that layout and post reads its input channel-major.  Taken before
+    `ABX_TRIMULT_GATEFOLD`, and not with `ABX_PALLAS_TRIANGLE`, as in the
+    JAX package.  Default off."""
     return os.environ.get('ABX_TRIMULT_C_MAJOR', '0') == '1'

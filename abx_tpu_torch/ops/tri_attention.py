@@ -1,13 +1,23 @@
-"""Packed triangle / seq attention: projection + attention in one call.
+"""Triangle / seq attention kernels.
 
-Counterpart of abx_tpu/ops/tri_attention.py::triangle_attention_packed (the
-Pallas TPU kernel): per (batch, row), optional LayerNorm of the raw input,
-per-head q/k/v (+ gate) projections, logits + bias + key-mask bias with an
-f32 softmax, the attend, x sigmoid(gate), and optionally the out-proj +
-bias + residual.  On the card the wrapper runs three launches of this
-repository's kernels (`csrc/row_linear.cu`, `csrc/tri_attention.cu`,
-`csrc/row_linear.cu`); the source notes there say what bounds each and
-how.  The (B, R, H, L, L) logits never reach device memory.
+Counterparts of three Pallas TPU kernels of abx_tpu/ops/tri_attention.py:
+- `triangle_attention_packed`: per (batch, row), optional LayerNorm of the
+  raw input, per-head q/k/v (+ gate) projections, logits + bias + key-mask
+  bias with an f32 softmax, the attend, x sigmoid(gate), and optionally
+  the out-proj + bias + residual.  On the card three launches of this
+  repository's kernels (`csrc/row_linear.cu`, `csrc/tri_attention.cu`,
+  `csrc/row_linear.cu`).
+- `triangle_attention_packed_cols`: the same over the columns of the raw
+  natural pair tensor (the ending-node attention: LN, projections, gate;
+  no out-proj), in and out in the natural layout.  On the card the
+  projection of the natural rows, then the attention core over columns.
+- `triangle_attention_fused`: head-major q, k, v (B, R, H, L, D) with an
+  f32 bias, all of it in one launch of `csrc/tri_attention.cu`.
+The source notes there say what bounds each and how.  The (B, R, H, L, L)
+logits never reach device memory.  With bf16 inputs the packed kernels
+take the softmax exponent as the TPU kernels do under
+`ABX_TRI_ATTN_BF16_EXP` (default on): exp of the shifted logits rounded
+to bf16, its result rounded to bf16, summed in f32.
 """
 
 from __future__ import annotations
@@ -21,11 +31,28 @@ from abx_tpu_torch.ops import _lib, registry
 BIG_NEG = -1e9
 
 
+def softmax_bf16_exp(logits):
+    """Softmax over the last axis with the exponent taken as the TPU kernel
+    takes it under ABX_TRI_ATTN_BF16_EXP: exp(bf16(s - max)) rounded to
+    bf16, then summed and normalised in f32."""
+    shifted = logits - logits.amax(-1, keepdim=True)
+    e = torch.exp(shifted.to(torch.bfloat16).float()).to(
+        torch.bfloat16).float()
+    return e / e.sum(-1, keepdim=True)
+
+
+def _bf16_exp(x) -> bool:
+    """Whether the kernels take the bf16 exponent for this input."""
+    return x.dtype == torch.bfloat16 and registry.use_tri_attn_bf16_exp()
+
+
 def triangle_attention_packed_plain(x, wq, wk, wv, bias, mask, ln=None,
-                                    gate=None, out_proj=None, residual=None):
+                                    gate=None, out_proj=None, residual=None,
+                                    bf16_exp: bool = False):
     """Plain PyTorch version, computed in f32 (as the JAX
     `triangle_attention_packed_reference`, plus the LN / gate / out-proj /
-    residual options of the kernel); returns x.dtype."""
+    residual options of the kernel, and with `bf16_exp` the kernel's bf16
+    softmax exponent, `softmax_bf16_exp`); returns x.dtype."""
     b, r, l, c = x.shape
     h = bias.shape[1]
     d = wq.shape[0] // h
@@ -40,7 +67,8 @@ def triangle_attention_packed_plain(x, wq, wk, wv, bias, mask, ln=None,
     logits = logits + bias[:, None].float()
     maskbias = (1.0 - mask.float()) * BIG_NEG
     logits = logits + maskbias[:, None, None, None, :]
-    probs = torch.softmax(logits, dim=-1)
+    probs = (softmax_bf16_exp(logits) if bf16_exp
+             else torch.softmax(logits, dim=-1))
     out = torch.einsum('brhqk,brkhd->brqhd', probs, v).reshape(b, r, l, h * d)
     if gate is not None:
         out = out * torch.sigmoid(F.linear(xf, gate[0].float(),
@@ -49,6 +77,65 @@ def triangle_attention_packed_plain(x, wq, wk, wv, bias, mask, ln=None,
         out = (F.linear(out, out_proj[0].float(), out_proj[1].float())
                + residual.float())
     return out.to(x.dtype)
+
+
+def _project_and_attend(name, x, wq, wk, wv, bias, mask, ln, gate,
+                        bf16_exp: bool, columns: bool):
+    """The kernels shared by the packed rows and columns: LN + the fused
+    [q*D^-1/2 | k | v | gate] projection of the natural rows of x
+    (`csrc/row_linear.cu`), then the attention core over rows or columns
+    (`csrc/tri_attention.cu`).  Returns the gated attention output,
+    (B*R*L, H*D) in the order of x's rows."""
+    b, r, l, c = x.shape
+    h = bias.shape[1]
+    hd = wq.shape[0]
+    d = hd // h
+    dt = x.dtype
+    dev = x.device
+    # The query scale is folded into wq here.  Only the gate columns carry
+    # a bias.
+    w_all = [wq.float() * (d ** -0.5), wk.float(), wv.float()]
+    b_all = [torch.zeros(3 * hd, device=dev)]
+    if gate is not None:
+        w_all.append(gate[0].float())
+        b_all.append(gate[1].float())
+    w_all = torch.cat(w_all, dim=0).to(dt).contiguous()
+    b_all = torch.cat(b_all).contiguous()
+    n_proj = w_all.shape[0]
+    ln_s = ln_b = None
+    if ln is not None:
+        ln_s, ln_b = ln[0].float().contiguous(), ln[1].float().contiguous()
+    bias_t = bias.to(dt).contiguous()
+    maskbias = ((1.0 - mask.float()) * BIG_NEG).contiguous()
+    _lib.check_cuda_inputs(name, dt, x=x, w_all=w_all, bias=bias_t,
+                           f32=dict(b_all=b_all, maskbias=maskbias,
+                                    ln_s=ln_s, ln_b=ln_b))
+    _lib.require(wk.shape == (hd, c) and wv.shape == (hd, c)
+                 and wq.shape == (hd, c) and hd == h * d,
+                 f'{name}: wq/wk/wv must be (H*D, C)')
+    _lib.require(bias.shape == (b, h, l, l) and mask.shape == (b, l)
+                 and (r == l or not columns),
+                 f'{name}: bias (B,H,L,L), mask (B,L)')
+    _lib.require(ln is None or ln_s.shape == ln_b.shape == (c,),
+                 f'{name}: LN params must be (C,)')
+    _lib.require(n_proj == 3 * hd and b_all.shape == (3 * hd,)
+                 or n_proj == 4 * hd and b_all.shape == (4 * hd,),
+                 f'{name}: gate must be ((H*D, C), (H*D,))')
+    lib = _lib.lib()
+    s = _lib.stream(x)
+    code = _lib.DTYPE_CODE[dt]
+    m = b * r * l
+    y = torch.empty((m, n_proj), dtype=dt, device=dev)
+    _lib.check(lib.abx_row_linear(
+        code, x.data_ptr(), m, c, c, _lib.ptr(ln_s), _lib.ptr(ln_b),
+        w_all.data_ptr(), b_all.data_ptr(), None, None, y.data_ptr(), n_proj,
+        0, 1, 1, s), f'{name} (projection)')
+    att = torch.empty((m, hd), dtype=dt, device=dev)
+    _lib.check(lib.abx_tri_attention_core(
+        code, y.data_ptr(), n_proj, b, r, l, h, d, bias_t.data_ptr(),
+        maskbias.data_ptr(), int(gate is not None), int(bf16_exp),
+        int(columns), att.data_ptr(), s), f'{name} (attention)')
+    return att
 
 
 def triangle_attention_packed(x, wq, wk, wv, bias, mask, ln=None, gate=None,
@@ -67,80 +154,131 @@ def triangle_attention_packed(x, wq, wk, wv, bias, mask, ln=None, gate=None,
             `residual` (B, R, L, C_out), which is added in the epilogue.
     Returns: (B, R, L, H*D), or (B, R, L, C_out) with `out_proj`.
     """
+    bf16_exp = _bf16_exp(x)
     if not registry.on_device(x):
         return triangle_attention_packed_plain(x, wq, wk, wv, bias, mask, ln,
-                                               gate, out_proj, residual)
-    if out_proj is not None and residual is None:
-        raise ValueError('triangle_attention_packed: out_proj needs the '
-                         'residual')
+                                               gate, out_proj, residual,
+                                               bf16_exp)
     b, r, l, c = x.shape
-    h = bias.shape[1]
     hd = wq.shape[0]
-    d = hd // h
     dt = x.dtype
-    dev = x.device
-    # Fused [q*D^-1/2 | k | v | gate] projection; the query scale is folded
-    # into wq here.  Only the gate columns carry a bias.
-    w_all = [wq.float() * (d ** -0.5), wk.float(), wv.float()]
-    b_all = [torch.zeros(3 * hd, device=dev)]
-    if gate is not None:
-        w_all.append(gate[0].float())
-        b_all.append(gate[1].float())
-    w_all = torch.cat(w_all, dim=0).to(dt).contiguous()
-    b_all = torch.cat(b_all).contiguous()
-    n_proj = w_all.shape[0]
-    ln_s = ln_b = None
-    if ln is not None:
-        ln_s, ln_b = ln[0].float().contiguous(), ln[1].float().contiguous()
-    bias_t = bias.to(dt).contiguous()
-    maskbias = ((1.0 - mask.float()) * BIG_NEG).contiguous()
-    _lib.check_cuda_inputs('triangle_attention_packed', dt, x=x, w_all=w_all,
-                           bias=bias_t, residual=residual,
-                           f32=dict(b_all=b_all, maskbias=maskbias,
-                                    ln_s=ln_s, ln_b=ln_b))
-    _lib.require(wk.shape == (hd, c) and wv.shape == (hd, c)
-                 and wq.shape == (hd, c) and hd == h * d,
-                 'triangle_attention_packed: wq/wk/wv must be (H*D, C)')
-    _lib.require(bias.shape == (b, h, l, l) and mask.shape == (b, l),
-                 'triangle_attention_packed: bias (B,H,L,L), mask (B,L)')
-    _lib.require(ln is None or ln_s.shape == ln_b.shape == (c,),
-                 'triangle_attention_packed: LN params must be (C,)')
-    _lib.require(n_proj == 3 * hd and b_all.shape == (3 * hd,)
-                 or n_proj == 4 * hd and b_all.shape == (4 * hd,),
-                 'triangle_attention_packed: gate must be ((H*D, C), (H*D,))')
-    lib = _lib.lib()
-    s = _lib.stream(x)
-    code = _lib.DTYPE_CODE[dt]
-    m = b * r * l
-    y = torch.empty((m, n_proj), dtype=dt, device=dev)
-    _lib.check(lib.abx_row_linear(
-        code, x.data_ptr(), m, c, c, _lib.ptr(ln_s), _lib.ptr(ln_b),
-        w_all.data_ptr(), b_all.data_ptr(), None, None, y.data_ptr(), n_proj,
-        0, 1, 1, s), 'triangle_attention_packed (projection)')
-    att = torch.empty((m, hd), dtype=dt, device=dev)
-    _lib.check(lib.abx_tri_attention_core(
-        code, y.data_ptr(), n_proj, b, r, l, h, d, bias_t.data_ptr(),
-        maskbias.data_ptr(), int(gate is not None), att.data_ptr(), s),
-        'triangle_attention_packed (attention)')
+    if out_proj is not None:
+        _lib.require(residual is not None,
+                     'triangle_attention_packed: out_proj needs the residual')
+        wo = out_proj[0].to(dt).contiguous()
+        bo = out_proj[1].float().contiguous()
+        c_out = wo.shape[0]
+        _lib.check_cuda_inputs('triangle_attention_packed', dt, wo=wo,
+                               residual=residual, f32=dict(bo=bo))
+        _lib.require(wo.shape == (c_out, hd)
+                     and residual.shape == (b, r, l, c_out),
+                     'triangle_attention_packed: wo (C_out, H*D), residual '
+                     '(B, R, L, C_out)')
+    att = _project_and_attend('triangle_attention_packed', x, wq, wk, wv,
+                              bias, mask, ln, gate, bf16_exp, False)
     if out_proj is None:
         triangle_attention_packed.launches += 1
         return att.reshape(b, r, l, hd)
-    wo = out_proj[0].to(dt).contiguous()
-    bo = out_proj[1].float().contiguous()
-    c_out = wo.shape[0]
-    _lib.require(wo.shape == (c_out, hd)
-                 and residual.shape == (b, r, l, c_out),
-                 'triangle_attention_packed: wo (C_out, H*D), residual '
-                 '(B, R, L, C_out)')
-    _lib.check_cuda_inputs('triangle_attention_packed', dt, wo=wo,
-                           f32=dict(bo=bo))
-    out = torch.empty((b, r, l, c_out), dtype=dt, device=dev)
-    _lib.check(lib.abx_row_linear(
-        code, att.data_ptr(), m, hd, hd, None, None, wo.data_ptr(),
-        bo.data_ptr(), residual.data_ptr(), None, out.data_ptr(), c_out, 0,
-        1, 1, s), 'triangle_attention_packed (out-proj)')
+    out = torch.empty((b, r, l, c_out), dtype=dt, device=x.device)
+    _lib.check(_lib.lib().abx_row_linear(
+        _lib.DTYPE_CODE[dt], att.data_ptr(), b * r * l, hd, hd, None, None,
+        wo.data_ptr(), bo.data_ptr(), residual.data_ptr(), None,
+        out.data_ptr(), c_out, 0, 1, 1, _lib.stream(x)),
+        'triangle_attention_packed (out-proj)')
     triangle_attention_packed.launches += 1
     return out
 
 
 triangle_attention_packed.launches = 0
+
+
+def triangle_attention_packed_cols_plain(x, ln_scale, ln_bias, wq, wk, wv,
+                                         wg, bg, bias, mask,
+                                         bf16_exp: bool = False):
+    """Plain PyTorch version (as the JAX
+    `triangle_attention_packed_cols_reference`): the packed plain version
+    on the transposed pair, transposed back; returns x.dtype."""
+    out = triangle_attention_packed_plain(
+        x.transpose(1, 2), wq, wk, wv, bias, mask, ln=(ln_scale, ln_bias),
+        gate=(wg, bg), bf16_exp=bf16_exp)
+    return out.transpose(1, 2).contiguous()
+
+
+def triangle_attention_packed_cols(x, ln_scale, ln_bias, wq, wk, wv, wg, bg,
+                                   bias, mask):
+    """Ending-node (per-column) attention on the RAW natural pair tensor:
+    LN + [q|k|v|gate] projections + attention along the row axis + gate,
+    natural layout in and out.
+
+    Args:
+        x: (B, L, L, C) raw pair activations.
+        ln_scale, ln_bias: (C,) input LayerNorm params.
+        wq, wk, wv, wg: (H*D, C) projections (nn.Linear layout); bg: (H*D,)
+            gate bias.
+        bias: (B, H, L, L) bias of the transposed node, bias[b, h, q, k].
+        mask: (B, L) key mask over the row axis (1 = valid).
+    Returns: (B, L, L, H*D) in x.dtype; out[b, l, i] is the attention
+        output of query l in column i.
+    """
+    bf16_exp = _bf16_exp(x)
+    if not registry.on_device(x):
+        return triangle_attention_packed_cols_plain(
+            x, ln_scale, ln_bias, wq, wk, wv, wg, bg, bias, mask, bf16_exp)
+    b, l, _, c = x.shape
+    att = _project_and_attend('triangle_attention_packed_cols', x, wq, wk,
+                              wv, bias, mask, (ln_scale, ln_bias), (wg, bg),
+                              bf16_exp, True)
+    triangle_attention_packed_cols.launches += 1
+    return att.reshape(b, l, l, wq.shape[0])
+
+
+triangle_attention_packed_cols.launches = 0
+
+
+def triangle_attention_fused_plain(q, k, v, bias, mask):
+    """Plain PyTorch version (as the JAX `triangle_attention_reference` and
+    its Pallas kernel): the f32-upcast q scaled by D^-1/2, logits + bias +
+    key-mask bias and the softmax in f32, the attend in f32; returns
+    q.dtype."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum('brhqd,brhkd->brhqk', q.float() * scale,
+                          k.float())
+    maskbias = (1.0 - mask.float()) * BIG_NEG
+    logits = (logits + bias[:, None].float()
+              + maskbias[:, None, None, None, :])
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum('brhqk,brhkd->brhqd', probs, v.float()).to(q.dtype)
+
+
+def triangle_attention_fused(q, k, v, bias, mask):
+    """Row-batched attention on head-major operands.
+
+    Args:
+        q, k, v: (B, R, H, L, D), contiguous: rows R attend over length L
+            per head.
+        bias: (B, H, L, L), shared by the rows; read in f32.
+        mask: (B, L) key mask (1 = valid).
+    Returns: (B, R, H, L, D) in q.dtype.
+    """
+    if not registry.on_device(q):
+        return triangle_attention_fused_plain(q, k, v, bias, mask)
+    b, r, h, l, d = q.shape
+    dt = q.dtype
+    bias_f = bias.float().contiguous()
+    maskbias = ((1.0 - mask.float()) * BIG_NEG).contiguous()
+    _lib.check_cuda_inputs('triangle_attention_fused', dt, q=q, k=k, v=v,
+                           f32=dict(bias=bias_f, maskbias=maskbias))
+    _lib.require(k.shape == v.shape == q.shape
+                 and bias.shape == (b, h, l, l) and mask.shape == (b, l),
+                 'triangle_attention_fused: q, k, v (B, R, H, L, D), bias '
+                 '(B, H, L, L), mask (B, L)')
+    out = torch.empty_like(q)
+    _lib.check(_lib.lib().abx_triangle_attention_fused(
+        _lib.DTYPE_CODE[dt], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        bias_f.data_ptr(), maskbias.data_ptr(), out.data_ptr(), b, r, h, l, d,
+        _lib.stream(q)), 'triangle_attention_fused')
+    triangle_attention_fused.launches += 1
+    return out
+
+
+triangle_attention_fused.launches = 0

@@ -1,17 +1,19 @@
 """Fused triangle-multiplication pre and post blocks.
 
 Counterparts of abx_tpu/ops/tri_mult.py::tri_mult_pre, ::tri_mult_post and
-::tri_mult_post_gatefold (Pallas TPU kernels), in the natural layout: pre
-with or without the final gate (`emit_fgate`), post with the emitted final
-gate, and the gate-fold post that recomputes the final gate from the
-residual.  The contraction between them is `ops/triangle.py`.  On the
-card all run `csrc/row_linear.cu`: pre as its gated-pairs mode (entry
+::tri_mult_post_gatefold (Pallas TPU kernels): pre with or without the
+final gate (`emit_fgate`), its left and right in the natural (B, L, L, nc)
+or the channel-major (B, nc, L, L) layout (`c_major`); post with the
+emitted final gate, reading its input in either layout (`y_c_major`); and
+the gate-fold post that recomputes the final gate from the residual.  The
+contraction between them is `ops/triangle.py`.  On the card all run
+`csrc/row_linear.cu`: pre as its gated-pairs mode (entry
 `abx_tri_mult_pre`), post as the plain row linear with a sigmoid gate and
-the residual in its epilogue, the gate-fold post as two LN-staged products
-per output tile (entry `abx_tri_mult_post_gatefold`).  The LayerNorm is
+the residual in its epilogue (entry `abx_tri_mult_post_c_major` for the
+channel-major input), the gate-fold post as two LN-staged products per
+output tile (entry `abx_tri_mult_post_gatefold`).  The LayerNorm is
 applied while a tile is staged, so the normalised tensor never reaches
-device memory; see the source note there for what bounds them.  The
-channel-major variants (`ABX_TRIMULT_C_MAJOR`) are not ported yet.
+device memory; see the source note there for what bounds them.
 """
 
 from __future__ import annotations
@@ -30,9 +32,11 @@ def _nc(w, c: int, emit_fgate: bool) -> int:
 
 
 def tri_mult_pre_plain(x, scale, bias, w, wb, mask, eps: float = 1e-5,
-                       emit_fgate: bool = True):
-    """Plain PyTorch version (mirrors tri_mult_pre_reference): LN in f32,
-    the product in the input dtype, bias / gating / mask in f32."""
+                       emit_fgate: bool = True, c_major: bool = False):
+    """Plain PyTorch version (mirrors tri_mult_pre_reference, and with
+    `c_major` moves the channels of left and right in front of the
+    positions): LN in f32, the product in the input dtype, bias / gating /
+    mask in f32."""
     nc = _nc(w, x.shape[-1], emit_fgate)
     dt = x.dtype
     ln = layer_norm(x, scale, bias, eps, dtype=dt)
@@ -40,6 +44,9 @@ def tri_mult_pre_plain(x, scale, bias, w, wb, mask, eps: float = 1e-5,
     pm = (mask[:, :, None] * mask[:, None, :]).float()[..., None]
     left = y[..., :nc] * torch.sigmoid(y[..., 2 * nc:3 * nc]) * pm
     right = y[..., nc:2 * nc] * torch.sigmoid(y[..., 3 * nc:4 * nc]) * pm
+    if c_major:
+        left, right = (a.permute(0, 3, 1, 2).contiguous()
+                       for a in (left, right))
     if not emit_fgate:
         return left.to(dt), right.to(dt)
     return left.to(dt), right.to(dt), y[..., 4 * nc:].to(dt)
@@ -58,7 +65,8 @@ def _pack(value, gate):
         (-1,) + value.shape[1:])
 
 
-def tri_mult_pre(x, scale, bias, w, wb, mask, emit_fgate: bool = True):
+def tri_mult_pre(x, scale, bias, w, wb, mask, emit_fgate: bool = True,
+                 c_major: bool = False):
     """LN -> fused [left|right|left gate|right gate(|final gate)]
     projection -> left * sigmoid(left gate) * pair mask, likewise right.
 
@@ -70,12 +78,15 @@ def tri_mult_pre(x, scale, bias, w, wb, mask, emit_fgate: bool = True):
             without the final gate when `emit_fgate=False` (the gate-fold
             post recomputes it).
         mask: (B, L) sequence mask; the pair mask is mask_i * mask_j.
-    Returns: left, right (B, L, L, nc) and, with `emit_fgate`, the
-        pre-sigmoid final gate (B, L, L, C), all in x.dtype.
+        c_major: left and right as (B, nc, L, L), the operand layout of
+            `triangle_multiply_c_major`.
+    Returns: left, right (B, L, L, nc) -- (B, nc, L, L) with `c_major` --
+        and, with `emit_fgate`, the pre-sigmoid final gate (B, L, L, C),
+        all in x.dtype.
     """
     if not registry.on_device(x):
         return tri_mult_pre_plain(x, scale, bias, w, wb, mask,
-                                  emit_fgate=emit_fgate)
+                                  emit_fgate=emit_fgate, c_major=c_major)
     b, r, l, c = x.shape
     nc = _nc(w, c, emit_fgate)
     n_fg = c if emit_fgate else 0
@@ -99,29 +110,37 @@ def tri_mult_pre(x, scale, bias, w, wb, mask, emit_fgate: bool = True):
                                     mask=maskf))
     _lib.require(scale.shape == (c,) and bias.shape == (c,),
                  'tri_mult_pre: LN params must be (C,)')
-    lr = torch.empty((2, b, r, l, nc), dtype=dt, device=x.device)
+    lr_shape = (2, b, nc, r, l) if c_major else (2, b, r, l, nc)
+    lr = torch.empty(lr_shape, dtype=dt, device=x.device)
     fg = (torch.empty((b, r, l, c), dtype=dt, device=x.device)
           if emit_fgate else None)
     err = _lib.lib().abx_tri_mult_pre(
         _lib.DTYPE_CODE[dt], x.data_ptr(), b * r * l, c, scale.data_ptr(),
         bias.data_ptr(), w_packed.data_ptr(), b_packed.data_ptr(),
-        w_packed.shape[0], maskf.data_ptr(), r, l, nc, lr.data_ptr(),
-        _lib.ptr(fg), _lib.stream(x))
+        w_packed.shape[0], maskf.data_ptr(), r, l, nc, int(c_major),
+        lr.data_ptr(), _lib.ptr(fg), _lib.stream(x))
     _lib.check(err, 'tri_mult_pre')
     tri_mult_pre.launches += 1
+    tri_mult_pre.launches_c_major += int(c_major)
     if not emit_fgate:
         tri_mult_pre.launches_no_fgate += 1
         return lr[0], lr[1]
     return lr[0], lr[1], fg
 
 
-# All launches, and those of the emit_fgate=False variant among them.
+# All launches, and those of the emit_fgate=False and c_major variants
+# among them.
 tri_mult_pre.launches = 0
 tri_mult_pre.launches_no_fgate = 0
+tri_mult_pre.launches_c_major = 0
 
 
-def tri_mult_post_plain(y, scale, bias, w, wb, fg, res, eps: float = 1e-5):
-    """Plain PyTorch version (mirrors tri_mult_post_reference)."""
+def tri_mult_post_plain(y, scale, bias, w, wb, fg, res, eps: float = 1e-5,
+                        y_c_major: bool = False):
+    """Plain PyTorch version (mirrors tri_mult_post_reference, with a
+    channel-major y moved to the natural layout first)."""
+    if y_c_major:
+        y = y.permute(0, 2, 3, 1)
     dt = y.dtype
     ln = layer_norm(y, scale, bias, eps, dtype=dt)
     o = F.linear(ln, w.to(dt)).float() + wb.float()
@@ -129,19 +148,25 @@ def tri_mult_post_plain(y, scale, bias, w, wb, fg, res, eps: float = 1e-5):
     return (o + res.float()).to(res.dtype)
 
 
-def tri_mult_post(y, scale, bias, w, wb, fg, res):
+def tri_mult_post(y, scale, bias, w, wb, fg, res, y_c_major: bool = False):
     """LN -> Linear(nc, C) -> * sigmoid(fg) -> + res.
 
     Args:
-        y: (B, L, L, nc) triangle contraction output.
+        y: (B, L, L, nc) triangle contraction output -- or (B, nc, L, L)
+            with `y_c_major`, the output layout of
+            `triangle_multiply_c_major`.
         scale, bias: (nc,) LayerNorm params.
         w: (C, nc), wb: (C,) (nn.Linear layout).
         fg: (B, L, L, C) pre-sigmoid final gate; res: (B, L, L, C).
     Returns: (B, L, L, C) in y.dtype.
     """
     if not registry.on_device(y):
-        return tri_mult_post_plain(y, scale, bias, w, wb, fg, res)
-    b, r, l, nc = y.shape
+        return tri_mult_post_plain(y, scale, bias, w, wb, fg, res,
+                                   y_c_major=y_c_major)
+    if y_c_major:
+        b, nc, r, l = y.shape
+    else:
+        b, r, l, nc = y.shape
     c = w.shape[0]
     dt = y.dtype
     y = y.contiguous()
@@ -156,17 +181,27 @@ def tri_mult_post(y, scale, bias, w, wb, fg, res):
                  'tri_mult_post: w (C, nc), wb (C,), LN params (nc,), '
                  'fg and res (B, L, L, C)')
     out = torch.empty_like(res)
-    err = _lib.lib().abx_row_linear(
-        _lib.DTYPE_CODE[dt], y.data_ptr(), b * r * l, nc, nc,
-        scale.data_ptr(), bias.data_ptr(), w.data_ptr(), wb.data_ptr(),
-        res.data_ptr(), fg.data_ptr(), out.data_ptr(), c, 0, 1, 1,
-        _lib.stream(y))
+    if y_c_major:
+        err = _lib.lib().abx_tri_mult_post_c_major(
+            _lib.DTYPE_CODE[dt], y.data_ptr(), b * r * l, nc,
+            scale.data_ptr(), bias.data_ptr(), w.data_ptr(), wb.data_ptr(),
+            fg.data_ptr(), res.data_ptr(), out.data_ptr(), c, r, l,
+            _lib.stream(y))
+    else:
+        err = _lib.lib().abx_row_linear(
+            _lib.DTYPE_CODE[dt], y.data_ptr(), b * r * l, nc, nc,
+            scale.data_ptr(), bias.data_ptr(), w.data_ptr(), wb.data_ptr(),
+            res.data_ptr(), fg.data_ptr(), out.data_ptr(), c, 0, 1, 1,
+            _lib.stream(y))
     _lib.check(err, 'tri_mult_post')
     tri_mult_post.launches += 1
+    tri_mult_post.launches_c_major += int(y_c_major)
     return out
 
 
+# All launches, and those of the y_c_major variant among them.
 tri_mult_post.launches = 0
+tri_mult_post.launches_c_major = 0
 
 
 def tri_mult_post_gatefold_plain(y, scale, bias, w, wb, x_scale, x_bias, wg,

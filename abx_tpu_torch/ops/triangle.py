@@ -8,7 +8,10 @@ Counterpart of `abx_tpu/ops/triangle.py`:
 on the card `csrc/triangle.cu`) when `use_pallas` is set (the callers pass
 `ABX_PALLAS_TRIANGLE`) and the tensors live on the card, and to the einsum
 (`triangle_multiply_einsum`, a batched GEMM) otherwise.
-The channel-major variant (`triangle_multiply_c_major`) is not ported yet.
+`triangle_multiply_c_major` is the contraction on the channel-major layout
+(`abx_tpu/ops/triangle.py::triangle_multiply_c_major`, an einsum that XLA
+computes outside any Pallas kernel): a batched matrix product over B * C,
+cuBLAS on the card, on strided views with no copies.
 """
 
 from __future__ import annotations
@@ -23,6 +26,26 @@ def triangle_multiply_einsum(left, right, per_row: bool = True):
     if per_row:
         return torch.einsum('bikc,bjkc->bijc', left, right)
     return torch.einsum('bkic,bkjc->bijc', left, right)
+
+
+def triangle_multiply_c_major(left, right, per_row: bool = True):
+    """The contraction with the channels in front of the positions:
+        per_row:    out[b,c,i,j] = sum_k left[b,c,i,k] * right[b,c,j,k]
+        per_column: out[b,c,i,j] = sum_k left[b,c,k,i] * right[b,c,k,j]
+
+    Args:
+        left, right: (B, C, L, L), same dtype, contiguous (as
+            `tri_mult_pre(c_major=True)` emits them).
+    Returns: (B, C, L, L), the input layout of
+        `tri_mult_post(y_c_major=True)`.
+    """
+    b, c, l, _ = left.shape
+    lt, rt = left.reshape(b * c, l, l), right.reshape(b * c, l, l)
+    # The transposes are strided views: the matrix product reads them as
+    # transposed operands, so no copy is made.
+    out = (torch.matmul(lt, rt.transpose(-1, -2)) if per_row
+           else torch.matmul(lt.transpose(-1, -2), rt))
+    return out.reshape(b, c, l, l)
 
 
 def triangle_multiply_kernel(left, right, per_row: bool = True):

@@ -9,15 +9,21 @@ fatal on failure:
   2. build the CUDA kernels from abx_tpu_torch/csrc;
   3. each kernel against its plain PyTorch version at the flagship shapes
      (B=4, L=288): f32 to 1e-4 * max|ref|, bf16 against the f32 plain
-     version to 3e-2 * max|ref|; kernel and plain times (median of CUDA
-     event timings after warm-up, bf16), and the time of the one torch
-     call that computes the same function where there is one;
+     version to 3e-2 * max|ref| (the packed triangle attention and its
+     column variant with ABX_TRI_ATTN_BF16_EXP on and off, against the
+     plain version with the same exponent); kernel and plain times (median
+     of CUDA event timings after warm-up, bf16), and the time of the one
+     torch call that computes the same function where there is one; then
+     the channel-major contraction (torch.matmul, checked under the
+     profiler to run no copy kernel) timed beside the natural einsum and
+     the triangle_multiply kernel, both orientations;
   4. one full-width f32 forward_with_recycling with every kernel flag off
      (dense random weights); each of its passes run again on the same
      inputs (the recycled ones included) with the default kernel flags on:
      rot_score, trans_score, logits and rigids agree to 1e-4 * max|ref| on
      valid rows in every pass;
   4c. the same in the opt-in kernel configuration (OPT_IN below);
+  4d. the same with the default flags and ABX_TRIMULT_C_MAJOR=1;
   4b. one full-width f32 ESM2-3B forward of AntibodyESM (dense random
      weights, learned layer weights given) on the tokens of
      testdata/6ct7_H_L_S.pdb with ABX_FUSED_ESM_ATTN on and off: the
@@ -42,16 +48,21 @@ fatal on failure:
      coordinates, every kernel launched the expected number of times (4
      reverse steps + the prime step, 3 trunk passes each, 2 complexes);
      then one trajectory-mode run at the default flags on 6ct7 (num_t 3),
-     which writes one <name>@<t>.pdb per step.
-Each main path (phases 5, 6, 7 and the trajectory run) is driven with the
+     which writes one <name>@<t>.pdb per step;
+  8. phase 5 again under ABX_TRIMULT_C_MAJOR=1: the channel-major
+     tri_mult pre / post on every triangle multiplication, the natural ones
+     never.
+Each main path (phases 5, 6, 7, 8 and the trajectory run) is driven with the
 launch counts set to 0 just before it and read just after.  The lines
 before the last are the nvidia-smi card line and the kernels JSON (each
 kernel's launches on each main path in `launches_by_path`, and in
 `launches` the largest of them, its error, its time, its plain
 version's time, the least time the card could take for the same work and
 the time of the torch call that computes the same function, where there
-is one); the last line is the result JSON.  The kernels are built with one
-nvcc per source, all started together.  No JAX is imported.
+is one); the last line is the result JSON.  triangle_attention_fused and
+triangle_attention_packed_cols are on no main path (the JAX package wires
+neither): phase 3 is what holds them.  The kernels are built with one nvcc
+per source, all started together.  No JAX is imported.
 """
 
 import json
@@ -155,12 +166,15 @@ def kernel_cases(torch, dev):
     mask[1, 100] = 0.0
     cases = []
 
-    def case(name, label, kern, plain, a32, a16, reads, flops, library=None):
+    def case(name, label, kern, plain, a32, a16, reads, flops, library=None,
+             env=None, plain16=None):
+        """env: flags set while the case runs; plain16: the plain version
+        the bf16 kernel is held to, where it differs from `plain`."""
         cases.append(dict(name=name, label=label, kern=kern, plain=plain,
                           a32=a32, a16=a16, reads=reads, flops=flops,
-                          library=library))
+                          library=library, env=env or {}, plain16=plain16))
 
-    def tri(label, r, c, h):
+    def tri(label, r, c, h, exp_flag):
         x = rnd(b, r, l, c)
         w = [rnd(c, c, scale=c ** -0.5) for _ in range(5)]
         kw = dict(ln=(1 + rnd(c, scale=0.1), rnd(c, scale=0.1)),
@@ -171,16 +185,20 @@ def kernel_cases(torch, dev):
         rows = b * r * l
         # q/k/v/gate and out projections; QK^T and PV over H heads of D.
         flops = 10 * rows * c * c + 4 * b * r * l * l * c
-        case('triangle_attention_packed', label,
+        case('triangle_attention_packed', f'{label}, bf16 exp {exp_flag}',
              lambda x, res: ta_op.triangle_attention_packed(
                  x, *args[1:], residual=res, **kw),
              lambda x, res: ta_op.triangle_attention_packed_plain(
                  x, *args[1:], residual=res, **kw),
              (x, x), (x.bfloat16(), x.bfloat16()),
              [*w, bias, mask, *kw['ln'], kw['gate'][1], kw['out_proj'][1]],
-             flops)
-    tri('tri-attention (4,288,288,192) H=4 D=48', l, 192, 4)
-    tri('seq-attention (4,1,288,544) H=32 D=17', 1, 544, 32)
+             flops, env={'ABX_TRI_ATTN_BF16_EXP': exp_flag},
+             plain16=lambda x, res: ta_op.triangle_attention_packed_plain(
+                 x, *args[1:], residual=res, bf16_exp=exp_flag == '1',
+                 **kw))
+    tri('tri-attention (4,288,288,192) H=4 D=48', l, 192, 4, '1')
+    tri('tri-attention (4,288,288,192) H=4 D=48', l, 192, 4, '0')
+    tri('seq-attention (4,1,288,544) H=32 D=17', 1, 544, 32, '1')
 
     for h in (4, 32):
         pair = rnd(b, l, l, 192)
@@ -210,6 +228,11 @@ def kernel_cases(torch, dev):
          lambda x: tm_op.tri_mult_pre(x, *pre),
          lambda x: tm_op.tri_mult_pre_plain(x, *pre),
          (x,), (x.bfloat16(),), list(pre), 2 * m * c * (4 * nc + c))
+    case('tri_mult_pre_c_major', '(4,288,288,192) -> nc=128 x2 as '
+         '(4,128,288,288) + 192',
+         lambda x: tm_op.tri_mult_pre(x, *pre, c_major=True),
+         lambda x: tm_op.tri_mult_pre_plain(x, *pre, c_major=True),
+         (x,), (x.bfloat16(),), list(pre), 2 * m * c * (4 * nc + c))
     y, fg, res = rnd(b, l, l, nc), rnd(b, l, l, c), rnd(b, l, l, c)
     post = (1 + rnd(nc, scale=0.1), rnd(nc, scale=0.1),
             rnd(c, nc, scale=nc ** -0.5), rnd(c, scale=0.1))
@@ -218,6 +241,15 @@ def kernel_cases(torch, dev):
          lambda y, fg, res: tm_op.tri_mult_post_plain(y, *post, fg, res),
          (y, fg, res), (y.bfloat16(), fg.bfloat16(), res.bfloat16()),
          list(post), 2 * m * nc * c)
+    ycm = y.permute(0, 3, 1, 2).contiguous()
+    case('tri_mult_post_c_major', '(4,128,288,288) -> (4,288,288,192)',
+         lambda y, fg, res: tm_op.tri_mult_post(y, *post, fg, res,
+                                                y_c_major=True),
+         lambda y, fg, res: tm_op.tri_mult_post_plain(y, *post, fg, res,
+                                                      y_c_major=True),
+         (ycm, fg, res), (ycm.bfloat16(), fg.bfloat16(), res.bfloat16()),
+         list(post), 2 * m * nc * c)
+    del ycm
     pre4 = (pre[0], pre[1], pre[2][:4 * nc].contiguous(), pre[3][:4 * nc],
             mask)
     case('tri_mult_pre_no_fgate', '(4,288,288,192) -> nc=128 x2',
@@ -285,6 +317,48 @@ def kernel_cases(torch, dev):
          (attn, pair), (attn, pair.bfloat16()), [], 2 * b * h * l * l * c,
          lambda at, pr: torch.einsum('bhij,bijc->bihc', at.to(pr.dtype), pr))
 
+    # Row 13: head-major q / k / v at the tri-attention shape, f32 bias.
+    # Its library call is SDPA on (B*R, H, L, D) views with bias + key-mask
+    # bias as one additive mask in q's dtype (bf16 here), materialised
+    # (B*R, H, L, L) before the timed call: SDPA's mask cannot broadcast
+    # one batch element's bias over its rows.
+    h, d = 4, 48
+    q, k, v = (rnd(b, l, h, l, d) for _ in range(3))
+    tbias = rnd(b, h, l, l)
+    mb = (1.0 - mask) * -1e9
+    sdpa_mask = (tbias + mb[:, None, None, :]).bfloat16()[:, None].expand(
+        b, l, h, l, l).reshape(b * l, h, l, l)
+    case('triangle_attention_fused', '(4,288,4,288,48), bias f32',
+         lambda q, k, v: ta_op.triangle_attention_fused(q, k, v, tbias,
+                                                        mask),
+         lambda q, k, v: ta_op.triangle_attention_fused_plain(q, k, v, tbias,
+                                                              mask),
+         (q, k, v), (q.bfloat16(), k.bfloat16(), v.bfloat16()),
+         [tbias, mask], 4 * b * l * h * l * l * d,
+         lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
+             q.flatten(0, 1), k.flatten(0, 1), v.flatten(0, 1),
+             attn_mask=sdpa_mask))
+    del q, k, v
+    # Row 14: ending-node attention on the raw natural pair, C = H*D = 192.
+    c = h * d
+    x = rnd(b, l, l, c)
+    cw = [rnd(c, c, scale=c ** -0.5) for _ in range(4)]
+    cols = (1 + rnd(c, scale=0.1), rnd(c, scale=0.1), *cw,
+            rnd(c, scale=0.1), tbias)
+    for flag in ('1', '0'):
+        case('triangle_attention_packed_cols',
+             f'(4,288,288,192) H=4 D=48, bf16 exp {flag}',
+             lambda x: ta_op.triangle_attention_packed_cols(x, *cols, mask),
+             lambda x: ta_op.triangle_attention_packed_cols_plain(
+                 x, *cols, mask),
+             (x,), (x.bfloat16(),), [*cols, mask],
+             2 * m * c * 4 * c + 4 * b * l * h * l * l * d,
+             env={'ABX_TRI_ATTN_BF16_EXP': flag},
+             plain16=lambda x, f=flag: (
+                 ta_op.triangle_attention_packed_cols_plain(
+                     x, *cols, mask, bf16_exp=f == '1')))
+    del x
+
     # ESM2-3B attention: head-major views of the (B, L, H, D) projections
     # (strided, as the module hands them in), q pre-scaled; the padded
     # tail of a real complex (29 keys) and one sample padded further.
@@ -335,6 +409,14 @@ KERNEL_META = {
                                'abx_tpu/ops/tri_mult.py:245'),
     'gate_proj_residual': ('abx_tpu_torch/csrc/row_linear.cu',
                            'abx_tpu/ops/gate_proj.py:34'),
+    'tri_mult_pre_c_major': ('abx_tpu_torch/csrc/row_linear.cu',
+                             'abx_tpu/ops/tri_mult.py:72'),
+    'tri_mult_post_c_major': ('abx_tpu_torch/csrc/row_linear.cu',
+                              'abx_tpu/ops/tri_mult.py:168'),
+    'triangle_attention_fused': ('abx_tpu_torch/csrc/tri_attention.cu',
+                                 'abx_tpu/ops/tri_attention.py:66'),
+    'triangle_attention_packed_cols': ('abx_tpu_torch/csrc/tri_attention.cu',
+                                       'abx_tpu/ops/tri_attention.py:422'),
 }
 FLAGS_TOL = 1e-4   # flags on vs off, relative to max|ref|
 
@@ -349,23 +431,26 @@ def phase_kernels(torch, dev):
         name, label, kern, plain = (cs['name'], cs['label'], cs['kern'],
                                     cs['plain'])
         a32, a16 = cs['a32'], cs['a16']
+        saved = {k: os.environ.get(k) for k in cs['env']}
+        os.environ.update(cs['env'])
         ref = as_tuple(plain(*a32))
+        ref16 = as_tuple(cs['plain16'](*a32)) if cs['plain16'] else ref
         got32 = as_tuple(kern(*a32))
         got16 = as_tuple(kern(*a16))
         torch.cuda.synchronize()
         e32 = e16 = abs16 = 0.0
-        for r, g32, g16 in zip(ref, got32, got16):
+        for r, r16, g32, g16 in zip(ref, ref16, got32, got16):
             if g32.shape != r.shape or g16.shape != r.shape:
                 fail(f'{name} {label}: shape {tuple(g32.shape)} vs '
                      f'{tuple(r.shape)}')
             if not (torch.isfinite(g32).all() and torch.isfinite(g16).all()):
                 fail(f'{name} {label}: non-finite output')
             d32, m = rel_err(g32, r)
-            d16, _ = rel_err(g16, r)
-            if d32 > F32_TOL * m or d16 > BF16_TOL * m:
+            d16, m16 = rel_err(g16, r16)
+            if d32 > F32_TOL * m or d16 > BF16_TOL * m16:
                 fail(f'{name} {label}: f32 err {d32:.3g}, bf16 err '
                      f'{d16:.3g}, max|ref| {m:.3g}')
-            e32, e16 = max(e32, d32 / m), max(e16, d16 / m)
+            e32, e16 = max(e32, d32 / m), max(e16, d16 / m16)
             abs16 = max(abs16, d16)
         nbytes = tensor_bytes([*a16, *cs['reads'], *got16])
         bms, by = bound_ms(cs['flops'], nbytes)
@@ -373,6 +458,11 @@ def phase_kernels(torch, dev):
         plain_ms = time_ms(torch, lambda: plain(*a16))
         lib_ms = (time_ms(torch, lambda: cs['library'](*a16))
                   if cs['library'] else None)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
         lib_txt = f', library {lib_ms:.3f} ms' if lib_ms is not None else ''
         print(f'kernel {name} {label}: f32 err/max|ref| {e32:.3g}, bf16 '
               f'err/max|ref| {e16:.3g}; bf16 kernel {ms:.3f} ms, plain '
@@ -385,9 +475,72 @@ def phase_kernels(torch, dev):
             'rel_err_f32': e32, 'ms': ms, 'plain_ms': plain_ms,
             'library_ms': lib_ms, 'bound_ms': bms, 'bound_by': by,
             'flops': cs['flops'], 'bytes': nbytes})
-        del ref, got32, got16
+        del ref, ref16, got32, got16
         torch.cuda.empty_cache()
     return results
+
+
+def device_kernel_names(torch, fn):
+    """Names of the device kernels fn() launches, from torch.profiler (None
+    when the profiler records no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return names or None
+
+
+def phase_contraction(torch, dev):
+    """The triangle contraction at (4,288,288,128) bf16, both orientations:
+    the channel-major batched matrix product of the ABX_TRIMULT_C_MAJOR
+    route (on (4,128,288,288) operands), the natural-layout einsum and the
+    triangle_multiply kernel, timed in one call; the channel-major product
+    must launch no copy kernel."""
+    from abx_tpu_torch.ops import triangle as tg_op
+    g = torch.Generator(device=dev).manual_seed(1)
+    left, right = (torch.randn((4, 288, 288, 128), generator=g, device=dev)
+                   .bfloat16() for _ in range(2))
+    lc, rc = (t.permute(0, 3, 1, 2).contiguous() for t in (left, right))
+    report = {}
+    for per_row in (True, False):
+        orient = 'per_row' if per_row else 'per_column'
+
+        def c_major():
+            return tg_op.triangle_multiply_c_major(lc, rc, per_row)
+        want = tg_op.triangle_multiply_einsum(left.float(), right.float(),
+                                              per_row)
+        d, m = rel_err(c_major().permute(0, 2, 3, 1), want)
+        if d > BF16_TOL * m:
+            fail(f'c-major contraction {orient}: err {d:.3g}, max|ref| '
+                 f'{m:.3g}')
+        names = device_kernel_names(torch, c_major)
+        copies = [n for n in names or []
+                  if 'copy' in n.lower() or 'elementwise' in n.lower()]
+        if copies:
+            fail(f'c-major contraction {orient} launched copy kernels: '
+                 f'{copies}')
+        times = {'c_major_matmul_ms': time_ms(torch, c_major),
+                 'natural_einsum_ms': time_ms(
+                     torch, lambda: tg_op.triangle_multiply_einsum(
+                         left, right, per_row)),
+                 'kernel_ms': time_ms(
+                     torch, lambda: tg_op.triangle_multiply_kernel(
+                         left, right, per_row))}
+        report[orient] = {**times, 'device_kernels': names,
+                          'rel_err_bf16': d / m}
+        print(f'contraction {orient} (4,288,288,128) bf16: c-major matmul '
+              f'{times["c_major_matmul_ms"]:.3f} ms, natural einsum '
+              f'{times["natural_einsum_ms"]:.3f} ms, triangle_multiply '
+              f'kernel {times["kernel_ms"]:.3f} ms; c-major device kernels '
+              f'{names if names else "not recorded by the profiler"}',
+              flush=True)
+    del left, right, lc, rc
+    torch.cuda.empty_cache()
+    return report
 
 
 # The eight default-on kernel flags, and the opt-in kernel configuration:
@@ -400,7 +553,9 @@ DEFAULT_FLAGS = ['ABX_FUSED_TRI_ATTN', 'ABX_TRI_ATTN_LN_FOLD',
 OPT_IN = {'ABX_FUSED_IPA_ATTN': '0', 'ABX_IPA_ATTEND': '1',
           'ABX_PALLAS_TRIANGLE': '1', 'ABX_TRIMULT_GATEFOLD': '1',
           'ABX_TRI_ATTN_LN_FOLD': '0', 'ABX_GATE_PROJ_KERNEL': '1'}
-ALL_FLAGS = DEFAULT_FLAGS + [k for k in OPT_IN if k not in DEFAULT_FLAGS]
+C_MAJOR = {**{k: '1' for k in DEFAULT_FLAGS}, 'ABX_TRIMULT_C_MAJOR': '1'}
+ALL_FLAGS = DEFAULT_FLAGS + [k for k in [*OPT_IN, *C_MAJOR]
+                             if k not in DEFAULT_FLAGS]
 
 
 def set_flags(env):
@@ -411,9 +566,10 @@ def set_flags(env):
 
 
 def phase_flags(torch, dev):
-    """Phases 4 and 4c: one full-width f32 forward_with_recycling with every
-    kernel flag off, each of whose passes is then run again, on the same
-    inputs, with the default flags and in the opt-in configuration.
+    """Phases 4, 4c and 4d: one full-width f32 forward_with_recycling with
+    every kernel flag off, each of whose passes is then run again, on the
+    same inputs, with the default flags, in the opt-in configuration and
+    with the default flags under ABX_TRIMULT_C_MAJOR=1.
 
     The recycled inputs are step functions of the previous pass (the
     distogram bins of its positions, the argmax of its logits): a 1e-6
@@ -488,7 +644,7 @@ def phase_flags(torch, dev):
     # rot_score is a function of, are held everywhere.
     report, errors = {}, []
     for name, env in (('on', {k: '1' for k in DEFAULT_FLAGS}),
-                      ('opt_in', OPT_IN)):
+                      ('opt_in', OPT_IN), ('c_major', C_MAJOR)):
         set_flags(env)
         worst, crossed_n, crossed_d = {}, 0, 0.0
         for p, mb in enumerate(inputs):
@@ -618,6 +774,9 @@ def wrappers():
     from abx_tpu_torch.ops import tri_mult as tm_op
     from abx_tpu_torch.ops import triangle as tg_op
     return {'triangle_attention_packed': ta_op.triangle_attention_packed,
+            'triangle_attention_fused': ta_op.triangle_attention_fused,
+            'triangle_attention_packed_cols':
+                ta_op.triangle_attention_packed_cols,
             'pair_bias_proj': pb_op.pair_bias_proj,
             'fused_transition': tr_op.fused_transition,
             'ipa_attention': ipa_op.ipa_attention,
@@ -635,13 +794,20 @@ def reset_counts(ws):
     for w in ws.values():
         w.launches = 0
     ws['tri_mult_pre'].launches_no_fgate = 0
+    ws['tri_mult_pre'].launches_c_major = 0
+    ws['tri_mult_post'].launches_c_major = 0
 
 
 def read_counts(ws):
-    """Launches per kernel; tri_mult_pre's two variants apart."""
+    """Launches per kernel; the variants of tri_mult_pre (without the final
+    gate, channel-major) and tri_mult_post (channel-major) apart."""
     counts = {k: w.launches for k, w in ws.items()}
     counts['tri_mult_pre_no_fgate'] = ws['tri_mult_pre'].launches_no_fgate
-    counts['tri_mult_pre'] -= counts['tri_mult_pre_no_fgate']
+    counts['tri_mult_pre_c_major'] = ws['tri_mult_pre'].launches_c_major
+    counts['tri_mult_post_c_major'] = ws['tri_mult_post'].launches_c_major
+    counts['tri_mult_pre'] -= (counts['tri_mult_pre_no_fgate']
+                               + counts['tri_mult_pre_c_major'])
+    counts['tri_mult_post'] -= counts['tri_mult_post_c_major']
     return counts
 
 
@@ -660,6 +826,11 @@ OPT_PER_PASS = {'triangle_attention_packed': 3, 'pair_bias_proj': 1,
                 'tri_mult_pre_no_fgate': 2, 'tri_mult_post_gatefold': 2,
                 'triangle_multiply': 2, 'gate_proj_residual': 2,
                 'recycle_embed': 1}
+# ABX_TRIMULT_C_MAJOR=1 at the default flags: both triangle
+# multiplications take the channel-major pre and post.
+C_MAJOR_PER_PASS = {**{k: n for k, n in PER_PASS.items()
+                       if k not in ('tri_mult_pre', 'tri_mult_post')},
+                    'tri_mult_pre_c_major': 2, 'tri_mult_post_c_major': 2}
 OPT_STEP, TRAJ_NUM_T = 4, 3
 
 
@@ -697,24 +868,27 @@ def design_stats(log, wall, card, what):
             'samples_per_hour': sph}
 
 
-def phase_design(torch, card):
-    """The ESM-off design path, through the design CLI."""
+def phase_design(torch, card, env=None, per_pass=PER_PASS, what='design'):
+    """The ESM-off design path, through the design CLI, with the kernel
+    flags `env` (phase 8: ABX_TRIMULT_C_MAJOR=1)."""
     from abx_tpu_torch.cli import design
     ws = wrappers()
-    expected = {k: n * PASSES for k, n in PER_PASS.items()}
+    expected = {k: n * PASSES for k, n in per_pass.items()}
     with tempfile.TemporaryDirectory() as out:
         argv = ['--pdb_file', PDB, '--output_dir', out, '--model_config',
                 MODEL_CONFIG, '--seed', '0', '--bf16', '--device', 'cuda',
                 '--num_samples', str(NUM_SAMPLES), '--batch_samples',
                 str(NUM_SAMPLES), '--num_t', str(NUM_T)]
+        set_flags(env or {})
         reset_counts(ws)
         t0 = time.time()
         log = design.main(argv)
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = read_counts(ws)
-        check_design(out, launches, expected, 'design')
-    return launches, design_stats(log, wall, card, 'design')
+        set_flags({})
+        check_design(out, launches, expected, what)
+    return launches, design_stats(log, wall, card, what)
 
 
 def phase_design_esm(torch, card):
@@ -886,6 +1060,7 @@ def main():
           flush=True)
 
     kernels = phase_kernels(torch, dev)
+    contraction = phase_contraction(torch, dev)
     flags = phase_flags(torch, dev)
     esm_flags = phase_esm_flags(torch, dev)
     paths, stats = {}, {}
@@ -895,6 +1070,8 @@ def main():
     paths['optimize_opt_in'], stats['optimize_opt_in'] = phase_optimize(
         torch, card)
     paths['trajectory'] = phase_trajectory(torch)
+    paths['design_c_major'], stats['design_c_major'] = phase_design(
+        torch, card, C_MAJOR, C_MAJOR_PER_PASS, 'design (ABX_TRIMULT_C_MAJOR)')
 
     rows = []
     for name, (source, replaces) in KERNEL_META.items():
@@ -911,7 +1088,8 @@ def main():
             'library_ms': first['library_ms'], 'cases': cases})
     print(card)
     print(json.dumps({'kernels': rows, 'flags_vs_off': flags,
-                      'esm_flags_on_vs_off': esm_flags, **stats}))
+                      'esm_flags_on_vs_off': esm_flags,
+                      'contraction': contraction, **stats}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -230,6 +230,39 @@ def _esm_case(seed, b, h, l, d, strided):
     return qkv, torch.as_tensor(pad)
 
 
+def _fused_case(seed, b, r, h, l, d):
+    """q, k, v (B, R, H, L, D) head-major, an f32 bias (B, H, L, L) and a
+    key mask (B, L)."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    return (*(rng.standard_normal((b, r, h, l, d)).astype(f)
+              for _ in range(3)),
+            rng.standard_normal((b, h, l, l)).astype(f), _mask(rng, b, l))
+
+
+def _cols_case(seed, b, l, c, h):
+    """x (B, L, L, C) raw, ln scale and bias, wq, wk, wv, wg (C, H*D) flax
+    layout with H*D = C, bg, bias (B, H, L, L), mask with the last 3 keys
+    masked."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    mask = np.ones((b, l), f)
+    mask[:, -3:] = 0.0
+    return (rng.standard_normal((b, l, l, c)).astype(f),
+            (rng.random(c) + 0.5).astype(f),
+            (0.1 * rng.standard_normal(c)).astype(f),
+            *((0.3 * rng.standard_normal((c, c))).astype(f)
+              for _ in range(4)),
+            (0.1 * rng.standard_normal(c)).astype(f),
+            rng.standard_normal((b, h, l, l)).astype(f), mask)
+
+
+def _cols_port(case, fn=None, **kw):
+    fn = fn or tri_op.triangle_attention_packed_cols_plain
+    x, s, lb, wq, wk, wv, wg, bg, bias, mask = (t(a) for a in case)
+    return fn(x, s, lb, wq.T, wk.T, wv.T, wg.T, bg, bias, mask, **kw)
+
+
 def _tri_mult_pre_port(args, fn=None):
     x, s, lb, w, wb, mask = args
     fn = fn or tri_mult_op.tri_mult_pre_plain
@@ -335,6 +368,38 @@ def test_opt_in_wrappers_on_cpu_run_plain_version_without_counting():
     assert [w.launches for w in wrappers] == before
     assert (tri_mult_op.tri_mult_pre.launches,
             tri_mult_op.tri_mult_pre.launches_no_fgate) == before_pre
+
+
+def test_c_major_and_attention_wrappers_on_cpu_run_plain_version():
+    """The channel-major pre / post, the head-major and the column triangle
+    attentions: a CPU tensor takes the plain version, counted nowhere."""
+    counters = ((tri_mult_op.tri_mult_pre, 'launches'),
+                (tri_mult_op.tri_mult_pre, 'launches_c_major'),
+                (tri_mult_op.tri_mult_post, 'launches'),
+                (tri_mult_op.tri_mult_post, 'launches_c_major'),
+                (tri_op.triangle_attention_fused, 'launches'),
+                (tri_op.triangle_attention_packed_cols, 'launches'))
+    before = [getattr(f, a) for f, a in counters]
+    x, s, lb, w, wb, mask = (t(a) for a in _tri_mult_pre_case(5, 1, 7, 8, 4))
+    got = tri_mult_op.tri_mult_pre(x, s, lb, w.T, wb, mask, c_major=True)
+    want = tri_mult_op.tri_mult_pre_plain(x, s, lb, w.T, wb, mask)
+    for g, w_ in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w_.permute(0, 3, 1, 2))
+    torch.testing.assert_close(got[2], want[2])
+    y, s, lb, w, wb, fg, res = (t(a) for a in
+                                _tri_mult_post_case(5, 1, 7, 4, 8))
+    torch.testing.assert_close(
+        tri_mult_op.tri_mult_post(y.permute(0, 3, 1, 2), s, lb, w.T, wb, fg,
+                                  res, y_c_major=True),
+        tri_mult_op.tri_mult_post_plain(y, s, lb, w.T, wb, fg, res))
+    fused = [t(a) for a in _fused_case(5, 1, 3, 2, 9, 8)]
+    torch.testing.assert_close(tri_op.triangle_attention_fused(*fused),
+                               tri_op.triangle_attention_fused_plain(*fused))
+    cols = _cols_case(5, 1, 9, 8, 2)
+    torch.testing.assert_close(
+        _cols_port(cols, tri_op.triangle_attention_packed_cols),
+        _cols_port(cols))
+    assert [getattr(f, a) for f, a in counters] == before
 
 
 # --- on the card: CUDA kernel vs plain version ------------------------------
@@ -557,3 +622,104 @@ def test_triangle_multiply_kernel_matches_plain(cuda, shape, per_row,
                                                right.to(dtype), per_row)
     torch.cuda.synchronize()
     _close_on_card(got, want, dtype)
+
+
+# --- channel-major triangle multiplication, rows 13 and 14, bf16 exponent --
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', TRI_MULT_SHAPES)
+def test_tri_mult_pre_c_major_kernel_matches_plain(cuda, shape, dtype):
+    """Odd L: 64-row tiles straddle two batch elements (2 * 37 * 37)."""
+    x, s, lb, w, wb, mask = _tri_mult_pre_case(30, *shape)
+    f32, low = _on_card((x, s, lb, w.T.copy(), wb, mask), cuda, dtype, {0})
+    want = tri_mult_op.tri_mult_pre_plain(*f32, c_major=True)
+    got = tri_mult_op.tri_mult_pre(*low, c_major=True)
+    torch.cuda.synchronize()
+    for g, w_ in zip(got, want):
+        assert g.shape == w_.shape
+        _close_on_card(g, w_, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', TRI_MULT_SHAPES)
+def test_tri_mult_post_c_major_kernel_matches_plain(cuda, shape, dtype):
+    b, l, c, nc = shape
+    y, s, lb, w, wb, fg, res = _tri_mult_post_case(31, b, l, nc, c)
+    y = np.ascontiguousarray(y.transpose(0, 3, 1, 2))
+    f32, low = _on_card((y, s, lb, w.T.copy(), wb, fg, res), cuda, dtype,
+                        {0, 5, 6})
+    want = tri_mult_op.tri_mult_post_plain(*f32, y_c_major=True)
+    got = tri_mult_op.tri_mult_post(*low, y_c_major=True)
+    torch.cuda.synchronize()
+    _close_on_card(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('per_row', [True, False])
+def test_triangle_multiply_c_major_matches_einsum(cuda, per_row):
+    left, right = (t(a).to(cuda) for a in _triangle_case(32, 2, 37, 24))
+    want = triangle_op.triangle_multiply_einsum(left, right, per_row)
+    got = triangle_op.triangle_multiply_c_major(
+        left.permute(0, 3, 1, 2).contiguous(),
+        right.permute(0, 3, 1, 2).contiguous(), per_row)
+    _close_on_card(got.permute(0, 2, 3, 1), want, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', [(2, 5, 3, 70, 48), (1, 3, 2, 37, 17)])
+def test_triangle_attention_fused_kernel_matches_plain(cuda, shape, dtype):
+    """(b, r, h, l, d): ragged L, D = 48 and D = 17 (padded to 32)."""
+    f32, low = _on_card(_fused_case(33, *shape), cuda, dtype, {0, 1, 2})
+    want = tri_op.triangle_attention_fused_plain(*f32)
+    got = tri_op.triangle_attention_fused(*low)
+    torch.cuda.synchronize()
+    _close_on_card(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('flag', ['1', '0'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', [(2, 37, 48, 4), (1, 70, 32, 2)])
+def test_triangle_attention_packed_cols_kernel_matches_plain(
+        cuda, monkeypatch, shape, dtype, flag):
+    """(b, l, c, h): ragged L, L above one 64-query block; the bf16 kernel
+    against the plain version with the exponent it takes."""
+    monkeypatch.setenv('ABX_TRI_ATTN_BF16_EXP', flag)
+    case = _cols_case(34, *shape)
+    x, s, lb, wq, wk, wv, wg, bg, bias, mask = (t(a).to(cuda) for a in case)
+    w = [a.T.contiguous() for a in (wq, wk, wv, wg)]
+    bf16_exp = dtype == torch.bfloat16 and flag == '1'
+    want = tri_op.triangle_attention_packed_cols_plain(
+        x, s, lb, *w[:3], w[3], bg, bias, mask, bf16_exp=bf16_exp)
+    got = tri_op.triangle_attention_packed_cols(
+        x.to(dtype), s, lb, *w[:3], w[3], bg, bias, mask)
+    torch.cuda.synchronize()
+    _close_on_card(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('flag', ['1', '0'])
+@pytest.mark.parametrize('shape', [(2, 7, 70, 4, 48), (2, 1, 13, 4, 17)])
+def test_tri_attention_bf16_exp_flag_matches_plain(cuda, monkeypatch, shape,
+                                                   flag):
+    """The bf16 packed kernel, tri and seq shapes, under
+    ABX_TRI_ATTN_BF16_EXP on and off, against the plain version with the
+    same exponent."""
+    monkeypatch.setenv('ABX_TRI_ATTN_BF16_EXP', flag)
+    b, r, l, h, d = shape
+    k = _tri_case(35, b, r, l, h, d, h * d, 'per_row')
+    wq, wk, wv, wg = (t(w.T).to(cuda) for w in k['w'])
+    kw = dict(ln=(t(k['scale']).to(cuda), t(k['lnb']).to(cuda)),
+              gate=(wg, t(k['bg']).to(cuda)),
+              out_proj=(t(k['wo'].T).to(cuda), t(k['bo']).to(cuda)))
+    x, bias, mask, res = (t(k[n]).to(cuda) for n in ('x', 'bias', 'mask',
+                                                     'res'))
+    want = tri_op.triangle_attention_packed_plain(
+        x, wq, wk, wv, bias, mask, residual=res, bf16_exp=flag == '1', **kw)
+    got = tri_op.triangle_attention_packed(
+        x.bfloat16(), wq, wk, wv, bias, mask, residual=res.bfloat16(), **kw)
+    torch.cuda.synchronize()
+    _close_on_card(got, want, torch.bfloat16)

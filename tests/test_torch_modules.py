@@ -495,6 +495,21 @@ def test_opt_in_forward_with_recycling_matches_jax(network, monkeypatch):
     _assert_network_matches(network)
 
 
+def test_c_major_forward_with_recycling_matches_jax(network, monkeypatch):
+    """The whole network on the forced kernel routes under
+    ABX_TRIMULT_C_MAJOR=1, with the opt-in flags but the contraction
+    kernel off (so both triangle multiplications take the channel-major
+    route, ahead of the gate-fold), against the JAX network as above.
+    (With the default flags the forced routes differ from the JAX network
+    only at the padded residue, whose outputs carry no meaning, and the
+    comparison here covers every residue.)"""
+    _force_kernel_route(monkeypatch)
+    for k, v in {**OPT_IN, 'ABX_PALLAS_TRIANGLE': '0',
+                 'ABX_TRIMULT_C_MAJOR': '1'}.items():
+        monkeypatch.setenv(k, v)
+    _assert_network_matches(network)
+
+
 def test_trunk_with_recycled_inputs_kernel_route_matches_plain(setup,
                                                                monkeypatch):
     """Embedding + trunk with non-zero recycled inputs (prev_seq, prev_pair,

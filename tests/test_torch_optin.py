@@ -14,11 +14,15 @@ to 1e-4 * max|ref|.
 
 Routes: with `registry.on_device` forced true and every kernel wrapper
 swapped for its plain version (counted), each of the five mirrored flags
-sends the modules down the route the JAX package takes, and
-`ABX_TRIMULT_C_MAJOR=1` raises NotImplementedError on that route.  The
-port's full network forward under the opt-in configuration is held to the
-JAX network in tests/test_torch_modules.py
-(`test_opt_in_forward_with_recycling_matches_jax`).
+sends the modules down the route the JAX package takes:
+`ABX_TRIMULT_C_MAJOR=1` takes the channel-major pre / post before the
+gate-fold, and not with `ABX_PALLAS_TRIANGLE=1`.  The registry mirrors the
+JAX flags and defaults, `ABX_TRI_ATTN_BF16_EXP` included.  The port's full
+network forward under the opt-in configuration and under
+`ABX_TRIMULT_C_MAJOR=1` is held to the JAX network in
+tests/test_torch_modules.py
+(`test_opt_in_forward_with_recycling_matches_jax`,
+`test_c_major_forward_with_recycling_matches_jax`).
 """
 
 import collections
@@ -145,7 +149,8 @@ COUNTED = {
 
 def _count_kernel_routes(monkeypatch):
     """_force_kernel_route, with each counted (plain) wrapper wrapped in a
-    call counter; tri_mult_pre is counted per variant."""
+    call counter; tri_mult_pre and tri_mult_post are counted per
+    variant."""
     _force_kernel_route(monkeypatch)
     calls = collections.Counter()
     for module, names in COUNTED.items():
@@ -156,6 +161,8 @@ def _count_kernel_routes(monkeypatch):
                 key = _name
                 if _name == 'tri_mult_pre' and not kw.get('emit_fgate', True):
                     key = 'tri_mult_pre_no_fgate'
+                if kw.get('c_major') or kw.get('y_c_major'):
+                    key = f'{_name}_c_major'
                 calls[key] += 1
                 return _fn(*a, **kw)
             monkeypatch.setattr(module, name, counted)
@@ -194,6 +201,11 @@ def _set_flags(monkeypatch, flags):
         monkeypatch.setenv(k, v)
 
 
+# The opt-in configuration without the contraction kernel, under which the
+# channel-major route is reachable.
+C_MAJOR_BASE = {**OPT_IN, 'ABX_PALLAS_TRIANGLE': '0'}
+
+
 @pytest.mark.parametrize('flag,on,off', [
     ('ABX_PALLAS_TRIANGLE', {'triangle_multiply_kernel': 2},
      {'triangle_multiply_kernel': 0}),
@@ -205,14 +217,22 @@ def _set_flags(monkeypatch, flags):
       'tri_mult_post_gatefold': 2, 'tri_mult_post': 0},
      {'tri_mult_pre_no_fgate': 0, 'tri_mult_pre': 2,
       'tri_mult_post_gatefold': 0, 'tri_mult_post': 2}),
+    ('ABX_TRIMULT_C_MAJOR',
+     {'tri_mult_pre_c_major': 2, 'tri_mult_post_c_major': 2,
+      'tri_mult_pre': 0, 'tri_mult_post': 0, 'tri_mult_pre_no_fgate': 0,
+      'tri_mult_post_gatefold': 0, 'triangle_multiply_kernel': 0},
+     {'tri_mult_pre_c_major': 0, 'tri_mult_post_c_major': 0,
+      'tri_mult_pre_no_fgate': 2, 'tri_mult_post_gatefold': 2}),
 ])
 def test_forced_kernel_route_follows_each_flag(setup, monkeypatch, flag, on,
                                                off):
     """One trunk pass + structure module (tiny: 1 Seqformer block, 2 IPA
     layers), the other opt-in flags set so that the flag's route is
-    reachable; the counts are per pass."""
+    reachable (for ABX_TRIMULT_C_MAJOR: the contraction kernel off); the
+    counts are per pass."""
     calls = _count_kernel_routes(monkeypatch)
-    _set_flags(monkeypatch, OPT_IN)
+    _set_flags(monkeypatch, C_MAJOR_BASE if flag == 'ABX_TRIMULT_C_MAJOR'
+               else OPT_IN)
     for value, want in (('1', on), ('0', off)):
         monkeypatch.setenv(flag, value)
         calls.clear()
@@ -221,18 +241,29 @@ def test_forced_kernel_route_follows_each_flag(setup, monkeypatch, flag, on,
         assert got == want, (flag, value, dict(calls))
 
 
+def _jax_tri_attn_bf16_exp():
+    """The JAX package reads ABX_TRI_ATTN_BF16_EXP inline, not through its
+    registry (abx_tpu/ops/tri_attention.py, triangle_attention_packed and
+    triangle_attention_packed_cols)."""
+    import os
+    return os.environ.get('ABX_TRI_ATTN_BF16_EXP', '1') == '1'
+
+
 def test_registry_mirrors_the_jax_flags(monkeypatch):
     from abx_tpu.ops import registry as jax_registry
     for name in ('use_pallas_triangle', 'use_ipa_attend_kernel',
                  'use_gate_proj_kernel', 'use_trimult_gatefold',
-                 'use_trimult_c_major'):
-        flag_fn, jax_fn = getattr(registry, name), getattr(jax_registry, name)
+                 'use_trimult_c_major', 'use_tri_attn_bf16_exp'):
+        flag_fn = getattr(registry, name)
+        jax_fn = (_jax_tri_attn_bf16_exp if name == 'use_tri_attn_bf16_exp'
+                  else getattr(jax_registry, name))
         assert flag_fn() == jax_fn(), name          # same default
         for value in ('0', '1'):
             env = {'ABX_PALLAS_TRIANGLE': value, 'ABX_IPA_ATTEND': value,
                    'ABX_GATE_PROJ_KERNEL': value,
                    'ABX_TRIMULT_GATEFOLD': value,
-                   'ABX_TRIMULT_C_MAJOR': value}
+                   'ABX_TRIMULT_C_MAJOR': value,
+                   'ABX_TRI_ATTN_BF16_EXP': value}
             _set_flags(monkeypatch, env)
             assert flag_fn() == jax_fn() == (value == '1'), name
         for k in env:
@@ -240,15 +271,29 @@ def test_registry_mirrors_the_jax_flags(monkeypatch):
 
 
 def test_c_major_on_the_kernel_route_raises(setup, monkeypatch):
-    """The JAX package takes its channel-major route under
-    ABX_TRIMULT_C_MAJOR=1 (without ABX_PALLAS_TRIANGLE); the port has not
-    ported it and refuses instead of silently taking another route."""
-    _count_kernel_routes(monkeypatch)
+    """Under ABX_TRIMULT_C_MAJOR=1 the kernel route raises nothing and goes
+    where the JAX package goes: the channel-major pre / post win over
+    ABX_TRIMULT_GATEFOLD, and with ABX_PALLAS_TRIANGLE=1 the natural
+    route with the contraction kernel is taken (the gate-fold one when
+    ABX_TRIMULT_GATEFOLD=1 too).  Counts per pass."""
+    calls = _count_kernel_routes(monkeypatch)
     monkeypatch.setenv('ABX_TRIMULT_C_MAJOR', '1')
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 2'):
+    for pallas, gatefold, want in (
+            ('0', '1', {'tri_mult_pre_c_major': 2, 'tri_mult_post_c_major': 2,
+                        'tri_mult_pre_no_fgate': 0,
+                        'tri_mult_post_gatefold': 0,
+                        'triangle_multiply_kernel': 0}),
+            ('1', '0', {'tri_mult_pre': 2, 'tri_mult_post': 2,
+                        'triangle_multiply_kernel': 2,
+                        'tri_mult_pre_c_major': 0,
+                        'tri_mult_post_c_major': 0}),
+            ('1', '1', {'tri_mult_pre_no_fgate': 2,
+                        'tri_mult_post_gatefold': 2,
+                        'triangle_multiply_kernel': 2,
+                        'tri_mult_pre_c_major': 0})):
+        monkeypatch.setenv('ABX_PALLAS_TRIANGLE', pallas)
+        monkeypatch.setenv('ABX_TRIMULT_GATEFOLD', gatefold)
+        calls.clear()
         _one_pass(setup)
-    # With the contraction kernel on, the JAX package's route is the
-    # natural-layout one, which the port has.
-    monkeypatch.setenv('ABX_PALLAS_TRIANGLE', '1')
-    _one_pass(setup)
-
+        got = {k: calls[k] for k in want}
+        assert got == want, (pallas, gatefold, dict(calls))
