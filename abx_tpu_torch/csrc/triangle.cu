@@ -2,192 +2,401 @@
 //   per_row:    out[b, i, j, c] = sum_k left[b, i, k, c] * right[b, j, k, c]
 //   per_column: out[b, i, j, c] = sum_k left[b, k, i, c] * right[b, k, j, c]
 //
-// Replaces the Pallas TPU kernel abx_tpu/ops/triangle.py::
+// Replaces the Pallas TPU kernel abx_tpu/ops/triangle.py:81
 // triangle_multiply_pallas (ABX_PALLAS_TRIANGLE=1).
 // Bound on the H100: device-memory bytes at the flagship shape (left, right
-// and out, 3 x 85 MB in bf16 at B=4, L=288, C=128, against 24.5 GFLOP).
-// Design: one 256-thread block per (32 x 32 tile of (i, j), 16-channel
-// block, batch).  K is streamed in 32-wide chunks: each chunk's (32 rows x
-// 32 k x 16 channels) slices of left and right are gathered with 16-byte
-// loads (16 channels are contiguous in memory) and re-laid channel-major in
-// shared memory, so that every channel is a pair of wmma operands; the
-// per_column orientation only changes the gather's addresses, so neither
-// operand is transposed in device memory.  Warp w owns channels 2w and
-// 2w+1, four 16 x 16 f32 accumulator tiles each.  The channel block is
-// chosen so those accumulators (64 registers a thread) and the staging
-// planes (80 KB in bf16, 160 KB with the f32 bf16x3 split) fit.  Ragged L
-// and C are zero-padded while staging.  The result goes through shared
-// memory (aliasing the staging planes) so that it is written with c
-// innermost, 16 bytes a thread.
+// and out, 3 x 85 MB in bf16 at B=4, L=288, C=128, against 24.5 GFLOP: 96
+// FLOP a byte, under the card's ~295).  What limits a kernel that keeps
+// the natural layout is the flow from L2 into the SMs: every cell is a
+// channel vector, so a block holding a 32 x 32 x 32-channel tile of f32
+// accumulators (all the registers allow) re-reads each operand row L / 32
+// times, in pieces of 64 contiguous bytes, and the SMs take in such pieces
+// at ~3.8 TB/s, 32-byte ones at ~2.4 (tools/l2_pieces.py on an H100 SXM at
+// 700 W): the channels a block holds are chosen for the piece size.
+//
+// Design, with no transpose in device or shared memory:
+// - One block per (32 i x 32 j tile, 32 channels (16 for f32), batch):
+//   eight consumer warps (four for f32; warp w owns rows 16(w % 2) .. +15,
+//   all 32 columns and channels 8(w / 2) .. +7: 4 n8 tiles x 8 channels x
+//   4 f32 accumulators) and one producer warpgroup, whose registers go to
+//   the consumers (setmaxnreg).
+// - One producer thread streams K in 16-wide steps with TMA through a
+//   3-stage ring guarded by mbarriers (full: bytes landed; empty: every
+//   consumer warp is done with the slot).  A box is the tile's 64 bytes of
+//   channels x 16 k x 32 rows, [row][k][64 bytes] in shared memory;
+//   per_column only changes the tensor map's strides.
+// - The A fragment of mma.m16n8k16 wants, in a lane (g, t), the elements
+//   (g, 2t), (g, 2t+1), (g+8, 2t), ... of one channel's matrix; the
+//   16-byte vectors at those cells hold them for 8 channels at once, so 8
+//   vector reads and a byte permute (prmt) per register give the A
+//   fragments of 8 channel matrices, and 4 reads the B fragments of one n8
+//   tile.  The boxes land with the TMA's 64-byte swizzle (16-byte quarter
+//   q of cell (r, k) at quarter q ^ (k >> 1 & 3)), and lanes of odd g read
+//   the odd k of each pair first: the reads of a quarter-warp then hit 8
+//   distinct bank groups.
+// - The C fragment puts cells (g, 2t) and (g, 2t+1) in one lane for every
+//   channel, so a lane holds all 8 channels of a cell and writes them as
+//   one 16-byte store (two for f32), with no shared-memory round trip.
+// Ragged L and C are zero-filled by TMA and masked on the way out; C need
+// only be a multiple of the 16-byte vector (the wrapper pads the input
+// channels otherwise) and the output keeps the true C.  The f32 instance
+// splits every operand into bf16 hi + lo and sums hi*hi + hi*lo + lo*hi.
+#include <cuda.h>
+#include <cudaTypedefs.h>
+
 #include "common.cuh"
+#include "mma_sync.cuh"
 
 namespace abx {
 namespace {
 
-constexpr int kT = 32;                 // i and j tile
-constexpr int kTK = 32;                // k chunk
-constexpr int kCB = 16;                // channels per block
-constexpr int kLDK = kTK + 8;          // bf16 elements
-constexpr int kPlane = kT * kLDK;      // one channel's (32 x 32) operand
-constexpr int kLDO = kT + 4;           // floats
-constexpr int kVec = kCB / 8;          // 16-byte vectors per (row, k)
-constexpr int kChPerWarp = kCB / kWarps;
+constexpr int kTI = 32;               // i rows of a block
+constexpr int kTJ = 32;               // j columns of a block
+constexpr int kTK = 16;               // k per pipeline stage
+constexpr int kStagesT = 3;
+constexpr int kNT = kTJ / 8;          // n8 tiles of a consumer warp
+constexpr int kCellB = 64;            // bytes of a block's channels a cell
+constexpr int kRowB = kTK * kCellB;   // bytes of a tile row
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 
 template <typename T>
-size_t triangle_smem_bytes() {
-  constexpr int parts = IsF32<T>::value ? 2 : 1;
-  const size_t stage =
-      2 * parts * carve_bytes(sizeof(bf16) * kCB * kPlane);
-  const size_t outb = carve_bytes(sizeof(float) * kCB * kT * kLDO);
-  return stage > outb ? stage : outb;
+struct Tri {
+  static constexpr bool SPLIT = IsF32<T>::value;
+  static constexpr int kVec = 16 / sizeof(T);           // channels in 16 B
+  static constexpr int kChannels = kCellB / sizeof(T);  // of a block
+  static constexpr int kGroups = kChannels / 8;         // 8-channel groups
+  static constexpr int kConsumers = (kTI / 16) * kGroups;  // warps
+  static constexpr int kThreads = 32 * kConsumers + 128;
+  static constexpr int kTileA = kTI * kRowB;
+  static constexpr int kStage = (kTI + kTJ) * kRowB;
+  static constexpr size_t kSmem =
+      static_cast<size_t>(kStagesT) * kStage + 2 * kStagesT * sizeof(uint64_t);
+};
+
+// --- mbarriers and TMA ------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
 
-// Gather the (32 rows x 32 k x 16 channels) slice of one operand into
-// channel-major planes: plane c holds [row][k].  Element (r, k, c) is at
-// base[((r0 + r) * L + k0 + k) * C + c0 + c] for per_row and at
-// base[((k0 + k) * L + r0 + r) * C + c0 + c] for per_column; the index
-// that is contiguous in memory runs fastest across threads.
-template <typename T, bool SPLIT>
-__device__ __forceinline__ void stage_operand(const T* __restrict__ base,
-                                              int L, int C, bool per_row,
-                                              int r0, int k0, int c0,
-                                              bf16* hi, bf16* lo) {
-  for (int v = threadIdx.x; v < kT * kTK * kVec; v += kThreads) {
-    const int q = v % kVec, rk = v / kVec;
-    const int r = per_row ? rk / kTK : rk % kT;
-    const int k = per_row ? rk % kTK : rk / kT;
-    const int gr = r0 + r, gk = k0 + k, c = c0 + q * 8;
-    const size_t cell = per_row ? (size_t)gr * L + gk : (size_t)gk * L + gr;
-    float x[8];
-    load8(base + cell * C + c, gr < L && gk < L, c, C, x);
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// 4-d TMA box load into shared memory at dst, completing on bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// --- the consumers' k16 step ------------------------------------------------
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ uint4 lds128(const unsigned char* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// bf16: a and b point at the 16-byte quarter of the lane's channel group
+// in its A row (16(w % 2) + g) and B row (g); the lane's first-read cell
+// of a k pair is at byte k0, the other at k1, and sel_lo / sel_hi permute
+// two such words into the (even k, odd k) pairs of their low and high
+// channels.  k0, k1 and the swizzle of the quarter stay fixed for the
+// lane: the offsets below move k by 8 and rows by 8, which keeps
+// k >> 1 & 3.
+__device__ __forceinline__ void step_bf16(float (&acc)[kNT][8][4],
+                                          const unsigned char* a,
+                                          const unsigned char* b, int k0,
+                                          int k1, uint32_t sel_lo,
+                                          uint32_t sel_hi) {
+  uint32_t fa[8][4];
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+    const unsigned char* p = a + 8 * kRowB * (f & 1) + 8 * kCellB * (f >> 1);
+    const uint4 x = lds128(p + k0), y = lds128(p + k1);
 #pragma unroll
     for (int e = 0; e < 8; ++e)
-      put<SPLIT>(hi, lo, (q * 8 + e) * kPlane + r * kLDK + k, x[e]);
+      fa[e][f] = __byte_perm(word(x, e >> 1), word(y, e >> 1),
+                             (e & 1) ? sel_hi : sel_lo);
+  }
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+    const unsigned char* p = b + 8 * kRowB * n;
+    const uint4 x0 = lds128(p + k0), x1 = lds128(p + k1);
+    const uint4 y0 = lds128(p + 8 * kCellB + k0);
+    const uint4 y1 = lds128(p + 8 * kCellB + k1);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const uint32_t s = (e & 1) ? sel_hi : sel_lo;
+      mma_bf16(acc[n][e], fa[e],
+               __byte_perm(word(x0, e >> 1), word(x1, e >> 1), s),
+               __byte_perm(word(y0, e >> 1), word(y1, e >> 1), s));
+    }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    triangle_kernel(const T* __restrict__ left, const T* __restrict__ right,
-                    T* __restrict__ out, int L, int C, int per_row) {
-  constexpr bool SPLIT = IsF32<T>::value;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  SmemCarver sc(smem_raw);
-  bf16* l_hi = sc.take<bf16>(kCB * kPlane);
-  bf16* l_lo = SPLIT ? sc.take<bf16>(kCB * kPlane) : l_hi;
-  bf16* r_hi = sc.take<bf16>(kCB * kPlane);
-  bf16* r_lo = SPLIT ? sc.take<bf16>(kCB * kPlane) : r_hi;
-  float* o_s = reinterpret_cast<float*>(smem_raw);  // after the k loop
+// f32: the lane's 8 channels of a cell are two 16-byte quarters, at bytes
+// q0 (channels 0-3) and q1 (4-7) after the swizzle; cells k (byte k0) and
+// k + 1 (byte k0 + 64) of each pair; products bf16x3.
+__device__ __forceinline__ void cell8(const unsigned char* p, int q0, int q1,
+                                      float (&v)[8]) {
+  const float4 u = *reinterpret_cast<const float4*>(p + q0);
+  const float4 w = *reinterpret_cast<const float4*>(p + q1);
+  v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+  v[4] = w.x; v[5] = w.y; v[6] = w.z; v[7] = w.w;
+}
 
-  const int tiles = (L + kT - 1) / kT;
-  const int i0 = (blockIdx.x / tiles) * kT, j0 = (blockIdx.x % tiles) * kT;
-  const int c0 = blockIdx.y * kCB;
-  const size_t batch = (size_t)blockIdx.z * L * L * C;
-  const int warp = threadIdx.x >> 5;
-
-  FragC acc[kChPerWarp][4];
+__device__ __forceinline__ void step_f32(float (&acc)[kNT][8][4],
+                                         const unsigned char* a,
+                                         const unsigned char* b, int k0,
+                                         int q0, int q1) {
+  uint32_t fa[8][4], fa_lo[8][4];
 #pragma unroll
-  for (int ch = 0; ch < kChPerWarp; ++ch)
+  for (int f = 0; f < 4; ++f) {
+    const unsigned char* p = a + 8 * kRowB * (f & 1) + 8 * kCellB * (f >> 1);
+    float x[8], y[8];
+    cell8(p + k0, q0, q1, x);
+    cell8(p + k0 + kCellB, q0, q1, y);
 #pragma unroll
-    for (int t = 0; t < 4; ++t) wmma::fill_fragment(acc[ch][t], 0.f);
-
-  for (int k0 = 0; k0 < L; k0 += kTK) {
-    stage_operand<T, SPLIT>(left + batch, L, C, per_row, i0, k0, c0, l_hi,
-                            l_lo);
-    stage_operand<T, SPLIT>(right + batch, L, C, per_row, j0, k0, c0, r_hi,
-                            r_lo);
-    __syncthreads();
-#pragma unroll
-    for (int ch = 0; ch < kChPerWarp; ++ch) {
-      const int pl = (warp * kChPerWarp + ch) * kPlane;
-#pragma unroll
-      for (int kk = 0; kk < kTK; kk += 16) {
-        FragA a[2], a_lo[2];
-        FragBc bm[2], b_lo[2];
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          wmma::load_matrix_sync(a[t], l_hi + pl + t * 16 * kLDK + kk, kLDK);
-          wmma::load_matrix_sync(bm[t], r_hi + pl + t * 16 * kLDK + kk,
-                                 kLDK);
-          if constexpr (SPLIT) {
-            wmma::load_matrix_sync(a_lo[t], l_lo + pl + t * 16 * kLDK + kk,
-                                   kLDK);
-            wmma::load_matrix_sync(b_lo[t], r_lo + pl + t * 16 * kLDK + kk,
-                                   kLDK);
-          }
-        }
-#pragma unroll
-        for (int ti = 0; ti < 2; ++ti)
-#pragma unroll
-          for (int tj = 0; tj < 2; ++tj) {
-            FragC& c = acc[ch][ti * 2 + tj];
-            wmma::mma_sync(c, a[ti], bm[tj], c);
-            if constexpr (SPLIT) {
-              wmma::mma_sync(c, a[ti], b_lo[tj], c);
-              wmma::mma_sync(c, a_lo[ti], bm[tj], c);
-            }
-          }
-      }
-    }
-    __syncthreads();
+    for (int e = 0; e < 8; ++e) split_bf16(x[e], y[e], fa[e][f], fa_lo[e][f]);
   }
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+    const unsigned char* p = b + 8 * kRowB * n;
+    float x0[8], x1[8], y0[8], y1[8];
+    cell8(p + k0, q0, q1, x0);
+    cell8(p + k0 + kCellB, q0, q1, x1);
+    cell8(p + 8 * kCellB + k0, q0, q1, y0);
+    cell8(p + 8 * kCellB + k0 + kCellB, q0, q1, y1);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      uint32_t b0, b0_lo, b1, b1_lo;
+      split_bf16(x0[e], x1[e], b0, b0_lo);
+      split_bf16(y0[e], y1[e], b1, b1_lo);
+      mma_bf16(acc[n][e], fa[e], b0, b1);
+      mma_bf16(acc[n][e], fa[e], b0_lo, b1_lo);
+      mma_bf16(acc[n][e], fa_lo[e], b0, b1);
+    }
+  }
+}
 
-#pragma unroll
-  for (int ch = 0; ch < kChPerWarp; ++ch)
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-      wmma::store_matrix_sync(
-          o_s + (warp * kChPerWarp + ch) * kT * kLDO +
-              (t / 2) * 16 * kLDO + (t % 2) * 16,
-          acc[ch][t], kLDO, wmma::mem_row_major);
+// --- the kernel -------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(Tri<T>::kThreads, 1)
+    triangle_kernel(const __grid_constant__ CUtensorMap map_l,
+                    const __grid_constant__ CUtensorMap map_r,
+                    T* __restrict__ out, int L, int C, int cblocks) {
+  using Lay = Tri<T>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t smem = smem_u32(smem_raw);
+  const uint32_t full = smem + kStagesT * Lay::kStage;  // kStagesT mbarriers
+  const uint32_t empty = full + 8 * kStagesT;           // and kStagesT more
+
+  const int tiles_j = (L + kTJ - 1) / kTJ;
+  const int i0 = (blockIdx.x / tiles_j) * kTI;
+  const int j0 = (blockIdx.x % tiles_j) * kTJ;
+  const int b = blockIdx.y / cblocks;
+  const int c0 = (blockIdx.y % cblocks) * Lay::kChannels;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nk = (L + kTK - 1) / kTK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStagesT; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, Lay::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  const bool vec = C % 8 == 0;
-  for (int v = threadIdx.x; v < kT * kT * kVec; v += kThreads) {
-    const int q = v % kVec, ij = v / kVec;
-    const int i = ij / kT, j = ij % kT;
-    const int c = c0 + q * 8;
-    if (i0 + i >= L || j0 + j >= L || c >= C) continue;
-    float x[8];
+  if (warp >= Lay::kConsumers) {
+    // Producer warpgroup: one thread issues every copy.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp == Lay::kConsumers && lane == 0) {
+      for (int kb = 0; kb < nk; ++kb) {
+        const int s = kb % kStagesT;
+        if (kb >= kStagesT) mbar_wait(empty + 8 * s, (kb / kStagesT + 1) & 1);
+        mbar_expect_tx(full + 8 * s, Lay::kStage);
+        const uint32_t st = smem + s * Lay::kStage;
+        tma_load(st, &map_l, full + 8 * s, c0, kb * kTK, i0, b);
+        tma_load(st + Lay::kTileA, &map_r, full + 8 * s, c0, kb * kTK, j0, b);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int g = lane >> 2, t = lane & 3;
+    const int grp = warp / (kTI / 16), mr = 16 * (warp % (kTI / 16));
+    // The lane's cells k = 2t + (0, 1) (+ 8) have k >> 1 & 3 = t: quarter
+    // q of each sits at quarter q ^ t.
+    const int a_row = (mr + g) * kRowB, b_row = Lay::kTileA + g * kRowB;
+    // Odd-g lanes take the odd k of a pair first (bank groups, see above).
+    const int d = g & 1;
+    const int k0 = kCellB * (2 * t + d), k1 = kCellB * (2 * t + 1 - d);
+    const uint32_t sel_lo = d ? 0x1054 : 0x5410, sel_hi = d ? 0x3276 : 0x7632;
+
+    float acc[kNT][8][4];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) x[e] = o_s[(q * 8 + e) * kT * kLDO + i * kLDO + j];
-    const size_t o = batch + ((size_t)(i0 + i) * L + j0 + j) * C + c;
-    if (vec && c + 8 <= C) {
-      store8(out + o, x);
-    } else {
-      for (int e = 0; e < 8 && c + e < C; ++e) out[o + e] = from_f32<T>(x[e]);
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc[n][e][x] = 0.f;
+
+    for (int kb = 0; kb < nk; ++kb) {
+      const int s = kb % kStagesT;
+      mbar_wait(full + 8 * s, (kb / kStagesT) & 1);
+      const unsigned char* st = smem_raw + s * Lay::kStage;
+      if constexpr (Lay::SPLIT) {
+        step_f32(acc, st + a_row, st + b_row, kCellB * 2 * t,
+                 16 * ((2 * grp) ^ t), 16 * ((2 * grp + 1) ^ t));
+      } else {
+        const int q = 16 * (grp ^ t);
+        step_bf16(acc, st + a_row + q, st + b_row + q, k0, k1, sel_lo,
+                  sel_hi);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+
+    // Lane (g, t) holds cells (g + 8h, 2t + x) of each n8 tile, 8 channels
+    // each: one 16-byte store per cell (two for f32) where C allows.
+    const int cg = c0 + 8 * grp;
+    if (cg < C) {
+      constexpr int VEC = Lay::kVec;
+      const bool vec = C % VEC == 0;
+      const size_t batch = static_cast<size_t>(b) * L * L;
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int i = i0 + mr + g + 8 * (x >> 1);
+          const int j = j0 + 8 * n + 2 * t + (x & 1);
+          if (i >= L || j >= L) continue;
+          T* o = out + (batch + static_cast<size_t>(i) * L + j) * C + cg;
+          float v[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] = acc[n][e][x];
+          if (vec && cg + 8 <= C) {
+            store8(o, v);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              if (cg + e < C) o[e] = from_f32<T>(v[e]);
+          }
+        }
     }
   }
+}
+
+// --- host side --------------------------------------------------------------
+
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// The (B, L, L, Cs) operand as a 4-d tensor (channel, k, row, batch): for
+// per_row row r's k-th cell is [r][k], for per_column [k][r]; boxes of 64
+// bytes of channels x 16 k x 32 rows, swizzled in 64-byte spans.
+template <typename T>
+bool encode_operand(CUtensorMap* map, const void* base, int B, int L, int Cs,
+                    int per_row) {
+  auto encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t cell = static_cast<cuuint64_t>(Cs) * sizeof(T);
+  const cuuint64_t line = cell * L;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(Cs),
+                              static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {per_row ? cell : line, per_row ? line : cell,
+                                 line * L};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(Tri<T>::kChannels),
+                             kTK, kTI, 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  return encode(map,
+                IsF32<T>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                4, const_cast<void*>(base), dims, strides, box, estride,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename T>
 cudaError_t launch_triangle(const void* left, const void* right, void* out,
-                            int B, int L, int C, int per_row,
+                            int B, int L, int C, int Cs, int per_row,
                             cudaStream_t stream) {
-  const size_t smem = triangle_smem_bytes<T>();
-  cudaError_t e = set_smem(triangle_kernel<T>, smem);
+  using Lay = Tri<T>;
+  static_assert(kTI == kTJ, "one box shape for both operands");
+  if (Cs % Lay::kVec != 0 || Cs < C) return cudaErrorInvalidValue;
+  CUtensorMap map_l, map_r;
+  if (!encode_operand<T>(&map_l, left, B, L, Cs, per_row) ||
+      !encode_operand<T>(&map_r, right, B, L, Cs, per_row))
+    return cudaErrorInvalidValue;
+  cudaError_t e = set_smem(triangle_kernel<T>, Lay::kSmem);
   if (e != cudaSuccess) return e;
-  const int tiles = (L + kT - 1) / kT;
-  const dim3 grid(tiles * tiles, (C + kCB - 1) / kCB, B);
-  triangle_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(left), static_cast<const T*>(right),
-      static_cast<T*>(out), L, C, per_row);
+  const int cblocks = (C + Lay::kChannels - 1) / Lay::kChannels;
+  const int tiles = ((L + kTI - 1) / kTI) * ((L + kTJ - 1) / kTJ);
+  triangle_kernel<T><<<dim3(tiles, B * cblocks), Lay::kThreads, Lay::kSmem,
+                       stream>>>(map_l, map_r, static_cast<T*>(out), L, C,
+                                 cblocks);
   return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace abx
 
-// dtype: 0 = float32, 1 = bfloat16.  left, right and out (B, L, L, C);
-// per_row: 1 for the outgoing (per_row) orientation, 0 for per_column.
-// Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16.  left, right (B, L, L, Cs) with Cs a
+// multiple of 16 bytes of channels (zero beyond C), 16-byte aligned; out
+// (B, L, L, C); per_row: 1 for the outgoing (per_row) orientation, 0 for
+// per_column.  Returns the cudaError_t of the launch.
 extern "C" int abx_triangle_multiply(int dtype, const void* left,
                                      const void* right, void* out, int B,
-                                     int L, int C, int per_row,
+                                     int L, int C, int Cs, int per_row,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? abx::launch_triangle<float>(left, right, out, B, L, C,
-                                                  per_row, s)
+                                                  Cs, per_row, s)
                     : abx::launch_triangle<abx::bf16>(left, right, out, B, L,
-                                                      C, per_row, s);
+                                                      C, Cs, per_row, s);
 }

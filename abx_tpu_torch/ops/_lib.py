@@ -44,7 +44,7 @@ _SIGNATURES = {
     'abx_gate_proj': [_I, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
     'abx_tri_mult_post_gatefold': [_I, _P, _P, _I, _I, _I] + [_P] * 10,
     'abx_ipa_pair_attend': [_I, _P, _P, _P, _I, _I, _I, _I, _P],
-    'abx_triangle_multiply': [_I, _P, _P, _P, _I, _I, _I, _I, _P],
+    'abx_triangle_multiply': [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -138,7 +138,10 @@ def ptr(t):
 
 
 def stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current CUDA stream of t's device (without
+    building a torch.cuda.Stream: the wrappers' host time counts on the
+    host-bound ESM pass)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def check(err: int, name: str) -> None:

@@ -5,9 +5,10 @@ Counterpart of `abx_tpu/ops/triangle.py`:
     per_column: out[b,i,j,c] = sum_k left[b,k,i,c] * right[b,k,j,c]
 `triangle_multiply` dispatches as the JAX package's does: to the kernel
 (`triangle_multiply_kernel`, the counterpart of `triangle_multiply_pallas`,
-on the card `csrc/triangle.cu`) when `use_pallas` is set (the callers pass
-`ABX_PALLAS_TRIANGLE`) and the tensors live on the card, and to the einsum
-(`triangle_multiply_einsum`, a batched GEMM) otherwise.
+on the card `csrc/triangle.cu`, which builds its tensor-core fragments
+from the 16-byte channel vectors as they lie) when `use_pallas` is set
+(the callers pass `ABX_PALLAS_TRIANGLE`) and the tensors live on the card,
+and to the einsum (`triangle_multiply_einsum`, a batched GEMM) otherwise.
 `triangle_multiply_c_major` is the contraction on the channel-major layout
 (`abx_tpu/ops/triangle.py::triangle_multiply_c_major`, an einsum that XLA
 computes outside any Pallas kernel): a batched matrix product over B * C,
@@ -64,10 +65,19 @@ def triangle_multiply_kernel(left, right, per_row: bool = True):
     _lib.check_cuda_inputs('triangle_multiply', dt, left=left, right=right)
     _lib.require(l == l2 and right.shape == left.shape,
                  'triangle_multiply: left and right (B, L, L, C)')
-    out = torch.empty_like(left)
+    _lib.require(left.data_ptr() % 16 == 0 and right.data_ptr() % 16 == 0,
+                 'triangle_multiply: left and right must be 16-byte aligned')
+    # The kernel copies 16-byte channel vectors: pad C up to a whole vector
+    # (zeros) where it is not one; the output keeps C.
+    vec = 16 // left.element_size()
+    cs = -(-c // vec) * vec
+    if cs != c:
+        left, right = (torch.nn.functional.pad(x, (0, cs - c))
+                       for x in (left, right))
+    out = torch.empty((b, l, l, c), dtype=dt, device=left.device)
     err = _lib.lib().abx_triangle_multiply(
         _lib.DTYPE_CODE[dt], left.data_ptr(), right.data_ptr(),
-        out.data_ptr(), b, l, c, int(per_row), _lib.stream(left))
+        out.data_ptr(), b, l, c, cs, int(per_row), _lib.stream(left))
     _lib.check(err, 'triangle_multiply')
     triangle_multiply_kernel.launches += 1
     return out

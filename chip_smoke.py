@@ -13,7 +13,9 @@ fatal on failure:
      column variant with ABX_TRI_ATTN_BF16_EXP on and off, against the
      plain version with the same exponent); kernel and plain times (median
      of CUDA event timings after warm-up, bf16), and the time of the one
-     torch call that computes the same function where there is one; then
+     torch call that computes the same function where there is one (and
+     esm_attention's one call launches one device kernel, under the
+     profiler: the key-pad mask is read by the kernel); then
      the channel-major contraction (torch.matmul, checked under the
      profiler to run no copy kernel) timed beside the natural einsum and
      the triangle_multiply kernel, both orientations;
@@ -167,12 +169,15 @@ def kernel_cases(torch, dev):
     cases = []
 
     def case(name, label, kern, plain, a32, a16, reads, flops, library=None,
-             env=None, plain16=None):
+             env=None, plain16=None, one_launch=False):
         """env: flags set while the case runs; plain16: the plain version
-        the bf16 kernel is held to, where it differs from `plain`."""
+        the bf16 kernel is held to, where it differs from `plain`;
+        one_launch: the wrapper must launch its kernel and no other device
+        kernel (checked under the profiler)."""
         cases.append(dict(name=name, label=label, kern=kern, plain=plain,
                           a32=a32, a16=a16, reads=reads, flops=flops,
-                          library=library, env=env or {}, plain16=plain16))
+                          library=library, env=env or {}, plain16=plain16,
+                          one_launch=one_launch))
 
     def tri(label, r, c, h, exp_flag):
         x = rnd(b, r, l, c)
@@ -377,7 +382,8 @@ def kernel_cases(torch, dev):
          (q, k, v), (low(q), low(k), low(v)), [pad],
          4 * b * h * le * le * d,
          lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
-             q, k, v, attn_mask=~pad[:, None, None, :], scale=1.0))
+             q, k, v, attn_mask=~pad[:, None, None, :], scale=1.0),
+         one_launch=True)
     return cases
 
 
@@ -458,6 +464,12 @@ def phase_kernels(torch, dev):
         plain_ms = time_ms(torch, lambda: plain(*a16))
         lib_ms = (time_ms(torch, lambda: cs['library'](*a16))
                   if cs['library'] else None)
+        launched = None
+        if cs['one_launch']:
+            launched = device_kernel_names(torch, lambda: kern(*a16))
+            if launched is not None and len(launched) != 1:
+                fail(f'{name} {label}: one call launched {launched}, not '
+                     'one kernel')
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -475,6 +487,11 @@ def phase_kernels(torch, dev):
             'rel_err_f32': e32, 'ms': ms, 'plain_ms': plain_ms,
             'library_ms': lib_ms, 'bound_ms': bms, 'bound_by': by,
             'flops': cs['flops'], 'bytes': nbytes})
+        if cs['one_launch']:
+            entry['cases'][-1]['device_kernels_per_call'] = launched
+            seen = launched or 'not recorded by the profiler'
+            print(f'kernel {name} {label}: device kernels of one call '
+                  f'{seen}', flush=True)
         del ref, ref16, got32, got16
         torch.cuda.empty_cache()
     return results

@@ -124,14 +124,13 @@ def test_build_and_extract_match_jax():
 
 # --- attention ---------------------------------------------------------------
 
-def test_esm_attention_plain_matches_jax_reference_and_interpret():
-    rng = np.random.default_rng(2)
-    b, h, l, d = 2, 3, 37, 16
+def _esm_attention_vs_jax(seed, b, h, l, d, pad, q_scale=1.0):
+    """The plain version against `esm_attention_reference` and the Pallas
+    kernel in interpret mode, f32; returns the plain output."""
+    rng = np.random.default_rng(seed)
     q, k, v = (rng.standard_normal((b, h, l, d)).astype(np.float32)
                for _ in range(3))
-    pad = np.zeros((b, l), bool)
-    pad[:, -5:] = True
-    pad[1, 7] = True
+    q *= np.float32(q_scale)
     jargs = [jnp.asarray(a) for a in (q, k, v, pad)]
     want = np.asarray(jax_esm_attention.esm_attention_reference(*jargs))
     interp = np.asarray(jax_esm_attention.esm_attention(*jargs,
@@ -139,11 +138,36 @@ def test_esm_attention_plain_matches_jax_reference_and_interpret():
     got = esm_op.esm_attention_plain(t(q), t(k), t(v), torch.tensor(pad))
     np.testing.assert_allclose(n(got), want, rtol=0, atol=REL)
     np.testing.assert_allclose(n(got), interp, rtol=0, atol=REL)
+    return (q, k, v), got
+
+
+def test_esm_attention_plain_matches_jax_reference_and_interpret():
+    b, l = 2, 37
+    pad = np.zeros((b, l), bool)
+    pad[:, -5:] = True
+    pad[1, 7] = True
+    (q, k, v), got = _esm_attention_vs_jax(2, b, 3, l, 16, pad)
     # On CPU tensors the wrapper is the plain version and counts nothing.
     before = esm_op.esm_attention.launches
     torch.testing.assert_close(
         esm_op.esm_attention(t(q), t(k), t(v), torch.tensor(pad)), got)
     assert esm_op.esm_attention.launches == before
+
+
+@pytest.mark.parametrize('shape', [(2, 3, 37, 16, 1), (2, 2, 306, 24, None),
+                                   (1, 2, 306, 128, None)])
+def test_esm_attention_plain_matches_jax_at_edge_cases(shape):
+    """(b, h, l, d, all_pad_row): a batch row whose every key is padded
+    (uniform softmax over its L keys on both sides), the ESM2-3B length
+    L = 306 at D = 24 (ESM2-35M's head dim, padded to 32 in the kernel) and
+    D = 128 (ESM2-15B's, the kernel's largest)."""
+    b, h, l, d, all_pad_row = shape
+    pad = np.zeros((b, l), bool)
+    pad[:, l - 29:] = True
+    pad[0, l // 3] = True
+    if all_pad_row is not None:
+        pad[all_pad_row] = True
+    _esm_attention_vs_jax(40 + d, b, h, l, d, pad, q_scale=d ** -0.5)
 
 
 @pytest.mark.parametrize('route', ['plain', 'kernel'])

@@ -11,10 +11,14 @@ builders here are also used by tests/test_torch_ops.py against the JAX
 package.
 """
 
+import ctypes
+import re
+
 import numpy as np
 import pytest
 import torch
 
+from abx_tpu_torch.ops import _lib
 from abx_tpu_torch.ops import esm_attention as esm_op
 from abx_tpu_torch.ops import gate_proj as gate_proj_op
 from abx_tpu_torch.ops import ipa_attend as ipa_attend_op
@@ -212,10 +216,11 @@ def _recycle_case(seed, b, l, c0, c, n_bins):
             rng.integers(0, n_bins, (b, l, l)))
 
 
-def _esm_case(seed, b, h, l, d, strided):
+def _esm_case(seed, b, h, l, d, strided, all_pad_row=None):
     """q (pre-scaled), k, v as (B, H, L, D): head-major views of (B, L, H,
     D) tensors when `strided`, as the ESM module hands them in; a padding
-    mask (True = PAD) with padded tails of different lengths."""
+    mask (True = PAD) with padded tails of different lengths, and every key
+    of batch row `all_pad_row` padded where one is given."""
     rng = np.random.default_rng(seed)
     qkv = [rng.standard_normal((b, l, h, d)).astype(np.float32)
            for _ in range(3)]
@@ -227,6 +232,8 @@ def _esm_case(seed, b, h, l, d, strided):
     for i in range(b):
         pad[i, l - 3 - 5 * i:] = True
     pad[0, rng.integers(0, l // 2)] = True
+    if all_pad_row is not None:
+        pad[all_pad_row] = True
     return qkv, torch.as_tensor(pad)
 
 
@@ -285,6 +292,38 @@ TRI_SHAPES = [  # (b, r, l, h, d): tri-attention-like and seq-like (D=17)
     (2, 1, 13, 4, 17),
     (1, 5, 11, 3, 17),
 ]
+
+
+# --- the C interface: ctypes signatures vs the sources ----------------------
+
+def _extern_c_declarations():
+    """{name: [parameter declarations]} of every `extern "C"` function in
+    abx_tpu_torch/csrc/*.cu."""
+    decls = {}
+    for src in sorted(_lib.CSRC.glob('*.cu')):
+        text = re.sub(r'//[^\n]*', '', src.read_text())
+        for name, params in re.findall(
+                r'extern\s+"C"\s+\w+\s+(\w+)\s*\(([^)]*)\)', text):
+            assert name not in decls, f'{name} declared twice'
+            decls[name] = [p.strip() for p in params.split(',') if p.strip()]
+    return decls
+
+
+def test_lib_signatures_match_extern_c_declarations():
+    """Every `extern "C"` entry point has a `_SIGNATURES` entry with one
+    ctypes type per parameter: c_void_p for a pointer (a c_int there would
+    cut the pointer to 32 bits), c_int for an int."""
+    decls = _extern_c_declarations()
+    assert set(decls) == set(_lib._SIGNATURES)
+    for name, params in decls.items():
+        want = []
+        for p in params:
+            if '*' in p:
+                want.append(ctypes.c_void_p)
+            else:
+                assert re.fullmatch(r'int\s+\w+', p), (name, p)
+                want.append(ctypes.c_int)
+        assert _lib._SIGNATURES[name] == want, name
 
 
 # --- wrappers: CPU tensors take the plain version; counters -----------------
@@ -534,19 +573,44 @@ def test_recycle_embed_kernel_matches_plain(cuda, shape, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('shape', [(2, 3, 70, 64, True),
-                                   (1, 4, 133, 32, False),
-                                   (2, 2, 17, 24, True)])
+@pytest.mark.parametrize('shape', [(2, 3, 70, 64, True, None),
+                                   (1, 4, 133, 32, False, None),
+                                   (2, 2, 17, 24, True, None),
+                                   (4, 40, 306, 64, True, None),
+                                   (2, 3, 70, 16, True, None),
+                                   (2, 2, 97, 128, True, None),
+                                   (3, 2, 70, 64, True, 1)])
 def test_esm_attention_kernel_matches_plain(cuda, shape, dtype):
-    """Ragged L (not a multiple of 16 or 64), D padded to 16, strided and
-    contiguous operands, padded keys."""
-    *dims, strided = shape
-    qkv, pad = _esm_case(13, *dims, strided)
+    """Ragged L (not a multiple of 16 or 64), D = 16, 24 (padded to 32),
+    32, 64 and 128, strided and contiguous operands, padded keys, the full
+    ESM2-3B head shape, and a batch row whose every key is padded (its
+    softmax is uniform over the L keys, as in the plain version)."""
+    *dims, strided, all_pad_row = shape
+    qkv, pad = _esm_case(13, *dims, strided, all_pad_row)
     qkv, pad = [a.to(cuda) for a in qkv], pad.to(cuda)
     want = esm_op.esm_attention_plain(*qkv, pad)
     got = esm_op.esm_attention(*[a.to(dtype) for a in qkv], pad)
     torch.cuda.synchronize()
     _close_on_card(got, want, dtype)
+
+
+@pytest.mark.gpu
+def test_esm_attention_launches_one_device_kernel(cuda):
+    """With a bool padding mask the wrapper launches its kernel and nothing
+    else: the key-pad bias is read by the kernel, not built per call."""
+    from torch.profiler import ProfilerActivity, profile
+    qkv, pad = _esm_case(14, 2, 3, 70, 64, True)
+    qkv = [a.to(cuda).bfloat16() for a in qkv]
+    pad = pad.to(cuda)
+    esm_op.esm_attention(*qkv, pad)  # builds and loads the library
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        esm_op.esm_attention(*qkv, pad)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and 'flash_kernel' in names[0], names
 
 
 # --- the opt-in kernels: ragged L, both orientations, f32 and bf16 ----------
@@ -611,11 +675,14 @@ def test_ipa_pair_attend_kernel_matches_plain(cuda, shape, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('per_row', [True, False])
-@pytest.mark.parametrize('shape', [(2, 37, 24), (1, 70, 16), (1, 33, 20)])
+@pytest.mark.parametrize('shape', [(2, 37, 24), (1, 70, 16), (1, 33, 20),
+                                   (1, 97, 40), (1, 96, 128)])
 def test_triangle_multiply_kernel_matches_plain(cuda, shape, per_row,
                                                 dtype):
-    """(b, l, c): L not a multiple of the 32-wide tile, C a multiple of the
-    16-channel block, above it, and not a multiple of 8."""
+    """(b, l, c): L below, at and not a multiple of the 48-wide tile (97 =
+    2 * 48 + 1) or of the 16-wide k step, C a multiple of the 16-channel
+    block, above it, not a multiple of 8 (20: the wrapper pads the input
+    vectors) and 128, the flagship's."""
     left, right = (t(a).to(cuda) for a in _triangle_case(20, *shape))
     want = triangle_op.triangle_multiply_einsum(left, right, per_row)
     got = triangle_op.triangle_multiply_kernel(left.to(dtype),

@@ -124,9 +124,13 @@ def test_ipa_pair_attend_plain_matches_jax(shape):
 
 
 @pytest.mark.parametrize('per_row', [True, False])
-@pytest.mark.parametrize('shape', [(2, 19, 8), (1, 13, 16)])
+@pytest.mark.parametrize('shape', [(2, 19, 8), (1, 13, 16), (1, 21, 20),
+                                   (1, 37, 24)])
 def test_triangle_multiply_plain_matches_jax(shape, per_row):
-    """Ragged L: 19 and 13 against a tile of 8 in the Pallas kernel."""
+    """Ragged L: 19, 13, 21 and 37 against a tile of 8 in the Pallas
+    kernel; C = 20, not a multiple of 8 (the kernel wrapper pads the input
+    channels to whole 16-byte vectors), and C = 24 above one 16-channel
+    block at a ragged L."""
     left, right = _triangle_case(25, *shape)
     got = triangle_op.triangle_multiply(t(left), t(right), per_row,
                                         use_pallas=True).numpy()
