@@ -157,30 +157,6 @@ __device__ __forceinline__ void store8(T* p, const float* v) {
 }
 
 // Stage a (rows x cols) tile of T from device memory (row stride ld_src,
-// valid region rows_valid x cols_valid, zero outside) into an f32 shared
-// tile with row stride ld_dst (a multiple of 4), applying f(row, col,
-// value) to the valid elements.  cols is a multiple of 8.
-template <typename T, typename F = Identity>
-__device__ __forceinline__ void stage_tile_f32(const T* __restrict__ src,
-                                               size_t ld_src, int rows_valid,
-                                               int cols_valid, float* dst,
-                                               int ld_dst, int rows, int cols,
-                                               F f = F()) {
-  const int vpr = cols / 8;
-  for (int v = threadIdx.x; v < rows * vpr; v += blockDim.x) {
-    const int r = v / vpr, c = (v % vpr) * 8;
-    alignas(16) float x[8];
-    load8(src + (size_t)r * ld_src + c, r < rows_valid, c, cols_valid, x);
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      if (r < rows_valid && c + k < cols_valid) x[k] = f(r, c + k, x[k]);
-    float4* d = reinterpret_cast<float4*>(dst + r * ld_dst + c);
-    d[0] = reinterpret_cast<const float4*>(x)[0];
-    d[1] = reinterpret_cast<const float4*>(x)[1];
-  }
-}
-
-// Stage a (rows x cols) tile of T from device memory (row stride ld_src,
 // valid region rows_valid x cols_valid, zero outside) into bf16 shared
 // tiles with row stride ld_dst, applying f(row, col, value) on the way.
 // cols and ld_dst are multiples of 8; each thread moves 8 elements with

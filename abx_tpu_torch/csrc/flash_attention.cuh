@@ -1,40 +1,78 @@
 // Register-resident flash attention core (FlashAttention-2 style) on
-// mma.sync.m16n8k16, used by the ESM2 self-attention (esm_attention.cu),
-// which replaces the Pallas TPU kernel abx_tpu/ops/esm_attention.py:47.
-// Bound on the H100: bytes (q, k, v read and the output written once; at
-// the ESM2-3B shape 25 MB against 3.8 GFLOP).  The design keeps the
-// logits, probabilities and output out of shared and device memory, reads
-// each K / V tile once per block with asynchronous 16-byte copies, and
-// runs one barrier per 64-key tile.
+// mma.sync.m16n8k16, shared by the ESM2 self-attention (esm_attention.cu)
+// and the triangle / seq attentions (tri_attention.cu).
 //
-// out[b, l, h, :] = softmax_j(q_l . k_j + keybias[b, j]) . v[j]
-// for batch b, query l < L and head h < H, head dim D <= 128 (a multiple
-// of 8), keybias = BIG_NEG where the bool key-pad mask is set, else 0.
-// Operands are read and written through (batch, position, head) element
-// strides with unit stride along D, so head-major views of a (B, L, H, D)
-// projection need no copy.
+// out[b, r, l, h, :] = softmax_j(qscale * q_l . k_j + bias[b, h, l, j]
+//                                + keybias[b, j]) . v[j]
+//                      (x sigmoid(gate[l, h, :]) when a gate is given)
+// for batch b, row r < R, query l < L and head h < H, head dim D <= 128.
+// The bias (BIAS instances only) is a (B, H, L, L) tensor shared by the R
+// rows, in the input dtype or in f32; keybias comes from a (B, L) bool
+// key-pad row (BIG_NEG where set, ESM) or a (B, L) f32 key mask m (the
+// triangle attentions: (1 - m) * BIG_NEG, the reference's expression, so
+// the wrappers launch nothing to build it); keys past L are -inf.  The
+// logits are summed in the reference's order: (qscale * q.k + bias) +
+// keybias.
+// Operands are read and written through (batch, row, position, head)
+// element strides with unit stride along D, so head-major views, column
+// blocks of a fused projection and the columns of a natural pair tensor
+// need no copy.
 //
-// Design: one block of 4 warps per (64 queries, head, batch); warp w owns
-// query rows 16w .. 16w+15.  Q is staged once and held in registers as
-// A fragments (ldmatrix).  K and V stream through a two-stage cp.async ring
-// of 64-key tiles (16-byte copies straight from the strided views, rows
-// padded by 16 bytes so ldmatrix is conflict-free), one barrier per key
-// tile.  S = Q K^T stays in registers (8 n8 tiles x 4 f32 a thread); the
-// key-pad bias comes from a (B, L) bool row staged once per block as f32
-// (keys past L are -inf); the online softmax's row max and sum take two
-// quad shuffles, with an f32 exponent (exp2 of the scaled difference).  P
-// is rounded to bf16 in registers and reused as the A fragment of P V (the
-// C layout of two n8 tiles is the A layout of one k16 step); V arrives
-// through ldmatrix.trans.  O stays in
-// registers (16 x D a warp) and is divided by the row sum once at the end,
-// staged through the warp's own Q rows and written with 16-byte stores.
-// D is a compile-time 16, 32, 64 or 128 (zero-padded above D).  A float32
-// instance runs the same loop on f32 tiles with every product as bf16x3
-// (hi*hi + hi*lo + lo*hi, as common.cuh describes), P split alike.
+// Design: one block of RB row groups x QW warps per (QB = 16 QW queries,
+// head, batch, RB rows); warp w of a row group owns query rows 16w ..
+// 16w+15 of its row.  Q is staged once and held in registers as A
+// fragments (ldmatrix).  K and V of each row group stream through a
+// two-stage cp.async ring of 64-key tiles (rows padded by 16 bytes so
+// ldmatrix is conflict-free), one barrier per key tile; each row group
+// stages its own row, a fixed number of 16-byte copies a thread.  The QB x
+// 64 bias tile of the (b, h) the row groups share rides in the same ring,
+// staged once for all RB rows, so the bias is read from L2 once per RB
+// rows.  S = Q K^T stays in registers (8 n8 tiles x 4 f32 a thread), bias
+// and key bias are added there; a row's 64 keys lie in the 4 lanes of one
+// quad, so its max and sum take two quad shuffles.  P is rounded to bf16
+// in registers and reused as the A fragment of P V (the C layout of two n8
+// tiles is the A layout of one k16 step); V arrives through
+// ldmatrix.trans.  O stays in registers (16 x D a warp), is divided by the
+// row sum once at the end, multiplied by sigmoid(gate) (the gate tile is
+// staged with Q at the start), staged through the warp's own Q rows and
+// written with 16-byte stores.  QW and RBMAX (the most rows a block) are
+// compile-time: ESM runs 4 warps and one row, the triangle attentions the
+// pick of tri_attention.cu.
+// What bounds it (the triangle attention at its flagship shape, bf16, on
+// the H100): neither the products nor the bytes.  Ablations that took out
+// the P V products, the exponent, Q K^T, the bias or the in-loop loads one
+// at a time each left most of the time in place, and a third ring stage,
+// two row tiles a warp and more rows a block, each of which costs
+// occupancy (registers or shared memory), made it slower.  Each step is a
+// chain of dependent latencies between two barriers with 12-16 warps an SM
+// to hide them, so the instruction count of a step (the staging's address
+// arithmetic included) and the warps an SM holds set the time.
+// Exponent: the online instances (FINAL false) keep a running max and
+// rescale, with an f32 exponent (exp2 of the scaled difference).  The FINAL
+// instances (bf16, the TPU kernels' ABX_TRI_ATTN_BF16_EXP) take
+// p = bf16(exp(bf16(s - m))) against the row's final max m, as the TPU
+// kernel does, in two passes over the key tiles: pass 1 computes S and
+// keeps only the row max (no exponent, no V), pass 2 recomputes S with the
+// same instructions, so s - m is 0 at the max, and takes the exponent, the
+// f32 row sum and P V without rescaling.  The cost is one more Q K^T and
+// one more read of K and the bias tile per key tile (at D = 48 Q K^T is
+// half the products); keeping S resident instead would need 16 x L f32 a
+// warp and cap L near 320.
+// Head dim: a compile-time DP of 16, 32, 48, 64 or 128, zero-padded above
+// D.  Operands whose rows are 16-byte aligned with D a multiple of 16
+// bytes take cp.async and 16-byte stores; others (D = 17 of the seq
+// attention, a 34-byte row) take plain element loads into the zero-padded
+// tiles and element stores.  A float32 instance runs the same loop on f32
+// tiles with every product as bf16x3 (hi*hi + hi*lo + lo*hi, as
+// common.cuh describes), P split alike.
 // Rounding: the bf16 kernel rounds the unnormalised P to bf16 before P V
-// and divides at the end; the TPU kernel (abx_tpu/ops/esm_attention.py)
-// rounds the normalised probabilities.
+// (exact under the FINAL exponent, whose p is bf16 already) and divides
+// by the f32 row sum at the end; the TPU kernels round the normalised
+// probabilities to bf16 instead.
 #pragma once
+
+#include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 #include "mma_sync.cuh"
@@ -44,37 +82,53 @@ namespace {
 
 namespace flash {
 
-constexpr int kQB = 64;           // queries per block
-constexpr int kKB = 64;           // keys per pipeline stage
-constexpr int kWarpsF = kQB / 16;
-constexpr int kThreadsF = kWarpsF * 32;
+constexpr int kKB = 64;     // keys per pipeline stage
 constexpr int kStages = 2;
+constexpr int kLdBias = kKB + 8;  // bias tile row (elements): conflict-free
+constexpr size_t kMaxSmem = 232448;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Element (b, l, h, d) of an operand lies at base + b*s.b + l*s.l + h*s.h + d.
+// Element (b, r, l, h, d) of an operand lies at
+// base + b*s.b + r*s.r + l*s.l + h*s.h + d.
 struct Strides {
-  long long b, l, h;
+  long long b, r, l, h;
 };
 
 struct Args {
   const void* q;
   const void* k;
   const void* v;
-  const unsigned char* key_pad;  // (B, L) bool, nonzero = padded key
+  const void* gate;              // optional, BIAS instances: out *=
+                                 // sigmoid(gate), strides gs
+  const void* bias;              // (B, H, L, L), BIAS instances only
+  int bias_f32;                  // the bias is f32 (else the input dtype)
+  const unsigned char* key_pad;  // (B, L) bool, nonzero = padded key, or
+  const float* mask;             // (B, L) f32 key mask, 1 = valid
   void* out;
-  Strides qs, ks, vs, os;
-  int L, H, D;
+  Strides qs, ks, vs, gs, os;
+  int R, L, H, D;
+  float qscale;  // applied to q . k in f32 (BIAS instances only)
+  // Set by the launcher:
+  int rb;           // rows per block
+  int vec;          // q, k, v, gate, out rows take 16-byte copies
+  int bias_vec;     // bias rows take 16-byte copies
 };
 
-template <typename T, int DP>
+// Byte offsets of the shared-memory regions of one block.
+template <typename T, int DP, int QW>
 struct Layout {
-  static constexpr int kLd = DP + 8;          // padded row (elements)
-  static constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte copy
-  static constexpr int kChunks = DP / kVec;    // 16-byte copies per row
-  static constexpr size_t kTile = sizeof(T) * kQB * kLd;
-  static size_t smem_bytes(int L) {
-    return kTile * (1 + 2 * kStages) +
-           sizeof(float) * static_cast<size_t>(round_up(L, kKB));
+  static constexpr int kQB = 16 * QW;
+  static constexpr int kLd = DP + 8;  // padded operand row (elements)
+  static constexpr size_t kQTile = sizeof(T) * kQB * kLd;  // Q or gate
+  static constexpr size_t kKTile = sizeof(T) * kKB * kLd;  // K or V
+  size_t gate, k, v, bias, kbias, total;
+  __host__ __device__ Layout(int rb, bool has_gate, int bias_es, int L) {
+    gate = rb * kQTile;
+    k = gate + (has_gate ? rb * kQTile : 0);
+    v = k + kStages * rb * kKTile;
+    bias = v + kStages * rb * kKTile;
+    kbias = bias + static_cast<size_t>(kStages) * kQB * kLdBias * bias_es;
+    total = kbias + sizeof(float) * static_cast<size_t>(round_up(L, kKB));
   }
 };
 
@@ -171,59 +225,212 @@ __device__ __forceinline__ void load_b_cols(FragB<IsF32<T>::value> (&f)[2],
   }
 }
 
-// Blocks an SM should hold: four at the ESM2-3B shape (bf16, D = 64), so
-// its 800 blocks take two waves of the 132 SMs (caps registers at 128).
-template <typename T, int DP>
-constexpr int min_blocks() {
-  return (!IsF32<T>::value && DP <= 64) ? 4 : 1;
+// Two neighbouring bias elements as f32.
+__device__ __forceinline__ float2 bias_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 bias_pair(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreadsF, (min_blocks<T, DP>()))
+// Blocks an SM should hold: registers capped at 128 for bf16 with DP <= 64
+// and 4-warp row groups, four groups an SM (the ESM2-3B shape: 800 blocks
+// of 4 warps take two waves of the 132 SMs), else at what one block
+// allows.
+template <typename T, int DP, int QW, int RBMAX>
+constexpr int min_blocks() {
+  return (!IsF32<T>::value && DP <= 64 && QW == 4 && RBMAX <= 4)
+             ? 4 / RBMAX
+             : 1;
+}
+
+// s = qscale * s + bias over a thread's S fragment, the bias read from a
+// QB x 64 tile at this thread's first element (row g, column 2t).
+template <int NS, typename BT>
+__device__ __forceinline__ void add_bias(float (&s)[NS][4], const BT* bt,
+                                         float qscale) {
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float2 bv = bias_pair(bt + 8 * r * kLdBias + n * 8);
+      s[n][2 * r] = s[n][2 * r] * qscale + bv.x;
+      s[n][2 * r + 1] = s[n][2 * r + 1] * qscale + bv.y;
+    }
+}
+
+// Over the 4 lanes of a quad, which hold one row's 64 keys.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// RBMAX: the most rows a block (row groups of QW warps).
+template <typename T, int DP, int QW, int RBMAX, bool BIAS, bool FINAL>
+__global__ void __launch_bounds__(RBMAX * QW * 32,
+                                  (min_blocks<T, DP, QW, RBMAX>()))
     flash_kernel(const Args a) {
-  using Lay = Layout<T, DP>;
   constexpr bool SPLIT = IsF32<T>::value;
-  constexpr int LD = Lay::kLd, VEC = Lay::kVec, CH = Lay::kChunks;
-  constexpr int KT = DP / 16;  // k16 steps of Q K^T
-  constexpr int NT = DP / 8;   // n8 tiles of O
-  constexpr int NS = kKB / 8;  // n8 tiles of S
+  static_assert(!(FINAL && SPLIT), "the bf16 exponent is for bf16 inputs");
+  using Lay = Layout<T, DP, QW>;
+  constexpr int QB = Lay::kQB, LD = Lay::kLd;
+  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte copy
+  constexpr int CH = DP / VEC;         // 16-byte copies per row
+  constexpr int KT = DP / 16;          // k16 steps of Q K^T
+  constexpr int NT = DP / 8;           // n8 tiles of O
+  constexpr int NS = kKB / 8;          // n8 tiles of S
   extern __shared__ __align__(128) unsigned char smem_raw[];
+  // One row a block and no gate are compile-time where the instance says
+  // so (ESM): its layout and indices then fold to constants.
+  const int L = a.L, D = a.D, R = a.R, rb = RBMAX == 1 ? 1 : a.rb;
+  const bool has_gate = BIAS && a.gate != nullptr;
+  const int bias_es = !BIAS ? 0 : (a.bias_f32 ? 4 : sizeof(T));
+  const Lay lay(rb, has_gate, bias_es, L);
   T* q_s = reinterpret_cast<T*>(smem_raw);
-  T* k_s = q_s + kQB * LD;
-  T* v_s = k_s + kStages * kKB * LD;
-  float* kbias = reinterpret_cast<float*>(v_s + kStages * kKB * LD);
+  T* g_s = reinterpret_cast<T*>(smem_raw + lay.gate);
+  T* k_s = reinterpret_cast<T*>(smem_raw + lay.k);
+  T* v_s = reinterpret_cast<T*>(smem_raw + lay.v);
+  unsigned char* b_s = smem_raw + lay.bias;
+  float* kbias = reinterpret_cast<float*>(smem_raw + lay.kbias);
 
-  const int L = a.L, D = a.D;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int t = lane & 3;
-  const int q0 = blockIdx.x * kQB, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // Row group and warp in it.
+  const int grp = RBMAX == 1 ? 0 : warp / QW, wq = warp % QW;
+  const int nrb = (R + rb - 1) / rb;
+  const int q0 = blockIdx.x * QB, h = blockIdx.y;
+  const int b = blockIdx.z / nrb, r0 = (blockIdx.z % nrb) * rb;
+  // A ragged last block's spare row groups recompute row R - 1 and store
+  // nothing.
+  const int row = min(r0 + grp, R - 1);
   const T* qp = static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h;
-  const T* kp = static_cast<const T*>(a.k) + b * a.ks.b + h * a.ks.h;
-  const T* vp = static_cast<const T*>(a.v) + b * a.vs.b + h * a.vs.h;
+  // Position 0 of this row group's row of K and V.
+  const T* k_row = static_cast<const T*>(a.k) + b * a.ks.b + h * a.ks.h +
+                   row * a.ks.r;
+  const T* v_row = static_cast<const T*>(a.v) + b * a.vs.b + h * a.vs.h +
+                   row * a.vs.r;
 
-  // Rows p0 .. p0+63 of an operand into a padded tile; rows past L and
-  // columns past D are zero-filled.
-  auto stage = [&](T* dst, const T* src, long long sl, int p0) {
-    for (int c = tid; c < kKB * CH; c += kThreadsF) {
-      const int r = c / CH, col = (c % CH) * VEC;
-      const bool ok = p0 + r < L && col < D;
-      cp_async16(dst + r * LD + col, ok ? src + (p0 + r) * sl + col : src,
-                 ok);
+  // Positions p0 .. p0+N-1 of this row group's row of an operand (row: its
+  // position 0) into N padded rows at dst; positions past L and columns
+  // past D are zero.  Each row group stages its own row: GT threads, a
+  // fixed number of copies each.
+  constexpr int GT = QW * 32;
+  const int lt = tid - grp * GT;
+  auto stage = [&](auto n_rows, T* dst, const T* src, long long sl, int p0) {
+    constexpr int N = decltype(n_rows)::value, NC = N * CH;
+    if (a.vec) {
+      if constexpr (GT % CH == 0) {  // every copy of a thread in one column
+        constexpr int DR = GT / CH;    // rows between a thread's copies
+        const int r = lt / CH, col = (lt % CH) * VEC;
+        const T* p = src + (p0 + r) * sl + col;
+#pragma unroll
+        for (int i = 0; i < (NC + GT - 1) / GT; ++i) {
+          if (NC % GT == 0 || r + i * DR < N) {
+            const bool ok = p0 + r + i * DR < L && col < D;
+            cp_async16(dst + (r + i * DR) * LD + col,
+                       ok ? p + i * DR * sl : src, ok);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < (NC + GT - 1) / GT; ++i) {
+          const int c = lt + i * GT, r = c / CH, col = (c % CH) * VEC;
+          if (NC % GT == 0 || c < NC) {
+            const bool ok = p0 + r < L && col < D;
+            cp_async16(dst + r * LD + col,
+                       ok ? src + (p0 + r) * sl + col : src, ok);
+          }
+        }
+      }
+    } else {  // element loads, U of a thread's in flight before the stores
+      constexpr int U = 8, NE = N * DP;
+#pragma unroll 1
+      for (int c0 = lt; c0 < NE; c0 += U * GT) {
+        T x[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int c = c0 + u * GT, r = c / DP, col = c % DP;
+          x[u] = c < NE && p0 + r < L && col < D
+                     ? __ldg(src + (p0 + r) * sl + col)
+                     : from_f32<T>(0.f);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int c = c0 + u * GT;
+          if (c < NE) dst[(c / DP) * LD + c % DP] = x[u];
+        }
+      }
     }
   };
-  const int nkb = (L + kKB - 1) / kKB;
-  stage(q_s, qp, a.qs.l, q0);
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nkb) {
-      stage(k_s + s * kKB * LD, kp, a.ks.l, s * kKB);
-      stage(v_s + s * kKB * LD, vp, a.vs.l, s * kKB);
+  using QRows = std::integral_constant<int, QB>;
+  using KRows = std::integral_constant<int, kKB>;
+
+  // The QB x 64 bias tile at (q0, k0) of this block's (b, h).
+  auto stage_bias = [&](auto elem, unsigned char* dst, int k0) {
+    using BT = decltype(elem);
+    constexpr int BV = 16 / sizeof(BT), BCH = kKB / BV;
+    BT* d = reinterpret_cast<BT*>(dst);
+    const BT* src = static_cast<const BT*>(a.bias) +
+                    ((static_cast<size_t>(b) * a.H + h) * L + q0) * L + k0;
+    if (a.bias_vec) {
+      for (int c = tid; c < QB * BCH; c += nthr) {
+        const int r = c / BCH, j = (c % BCH) * BV;
+        const bool ok = q0 + r < L && k0 + j < L;
+        cp_async16(d + r * kLdBias + j, ok ? src + r * L + j : src, ok);
+      }
+    } else {
+      for (int c = tid; c < QB * kKB; c += nthr) {
+        const int r = c / kKB, j = c % kKB;
+        const bool ok = q0 + r < L && k0 + j < L;
+        d[r * kLdBias + j] = ok ? src[r * L + j] : from_f32<BT>(0.f);
+      }
     }
+  };
+
+  const int nkb = (L + kKB - 1) / kKB;
+  const int steps = FINAL ? 2 * nkb : nkb;
+  // Step st loads key tile st % nkb into stage st % kStages: K and the bias
+  // tile, and V unless it is a FINAL kernel's first pass.
+  auto stage_step = [&](int st) {
+    const int kb = st % nkb, buf = st % kStages;
+    const int tile = (buf * rb + grp) * kKB * LD;
+    stage(KRows{}, k_s + tile, k_row, a.ks.l, kb * kKB);
+    if (!FINAL || st >= nkb)
+      stage(KRows{}, v_s + tile, v_row, a.vs.l, kb * kKB);
+    if constexpr (BIAS) {
+      unsigned char* dst = b_s + buf * QB * kLdBias * bias_es;
+      if (SPLIT || a.bias_f32)
+        stage_bias(float(0), dst, kb * kKB);
+      else
+        stage_bias(__float2bfloat16(0.f), dst, kb * kKB);
+    }
+  };
+
+  stage(QRows{}, q_s + grp * QB * LD, qp + row * a.qs.r, a.qs.l, q0);
+  if (has_gate)
+    stage(QRows{}, g_s + grp * QB * LD,
+          static_cast<const T*>(a.gate) + b * a.gs.b + h * a.gs.h +
+              row * a.gs.r,
+          a.gs.l, q0);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < steps) stage_step(i);
     cp_async_commit();
   }
-  const unsigned char* pad = a.key_pad + static_cast<size_t>(b) * L;
-  for (int j = tid; j < nkb * kKB; j += kThreadsF)
-    kbias[j] = j < L ? (pad[j] ? kBigNeg : 0.f) : -INFINITY;
+  for (int j = tid; j < nkb * kKB; j += nthr) {
+    float kv = -INFINITY;
+    if (j < L)
+      kv = a.key_pad ? (a.key_pad[static_cast<size_t>(b) * L + j] ? kBigNeg
+                                                                   : 0.f)
+                     : (1.f - a.mask[static_cast<size_t>(b) * L + j]) *
+                           kBigNeg;
+    kbias[j] = kv;
+  }
 
   FragA<SPLIT> qf[KT];
   float o[NT][4];
@@ -233,25 +440,21 @@ __global__ void __launch_bounds__(kThreadsF, (min_blocks<T, DP>()))
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 
-  for (int kb = 0; kb < nkb; ++kb) {
+  for (int st = 0; st < steps; ++st) {
     cp_async_wait<kStages - 2>();
-    __syncthreads();  // tile kb visible; every warp is done with kb - 1
-    {
-      const int nb = kb + kStages - 1;
-      if (nb < nkb) {
-        stage(k_s + (nb % kStages) * kKB * LD, kp, a.ks.l, nb * kKB);
-        stage(v_s + (nb % kStages) * kKB * LD, vp, a.vs.l, nb * kKB);
-      }
-      cp_async_commit();
-    }
-    if (kb == 0) {
+    __syncthreads();  // step st visible; every warp is done with st - 1
+    if (st + kStages - 1 < steps) stage_step(st + kStages - 1);
+    cp_async_commit();
+    if (st == 0) {
 #pragma unroll
       for (int kt = 0; kt < KT; ++kt)
-        load_a<T, LD>(qf[kt], q_s, warp * 16, kt * 16, lane);
+        load_a<T, LD>(qf[kt], q_s + grp * QB * LD, wq * 16, kt * 16, lane);
     }
-    const T* kt_s = k_s + (kb % kStages) * kKB * LD;
-    const T* vt_s = v_s + (kb % kStages) * kKB * LD;
+    const int kb = st % nkb, buf = st % kStages;
+    const T* kt_s = k_s + (buf * rb + grp) * kKB * LD;
+    const T* vt_s = v_s + (buf * rb + grp) * kKB * LD;
 
+    // s = (qscale * q . k + bias) + keybias.
     float s[NS][4];
 #pragma unroll
     for (int n = 0; n < NS; ++n)
@@ -266,44 +469,78 @@ __global__ void __launch_bounds__(kThreadsF, (min_blocks<T, DP>()))
         mma3<SPLIT>(s[2 * np], qf[kt], kf[0]);
         mma3<SPLIT>(s[2 * np + 1], qf[kt], kf[1]);
       }
-
-    // Key bias, then the online softmax of rows g (e = 0, 1) and g + 8
-    // (e = 2, 3); a row's 64 keys lie in the 4 lanes of one quad.
-    float mx[2] = {-INFINITY, -INFINITY};
+    if constexpr (BIAS) {
+      const unsigned char* bt = b_s + buf * QB * kLdBias * bias_es;
+      const int i0 = (wq * 16 + g) * kLdBias + 2 * t;
+      if (SPLIT || a.bias_f32)
+        add_bias(s, reinterpret_cast<const float*>(bt) + i0, a.qscale);
+      else
+        add_bias(s, reinterpret_cast<const bf16*>(bt) + i0, a.qscale);
+    }
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
       const float2 kbv =
           *reinterpret_cast<const float2*>(kbias + kb * kKB + n * 8 + 2 * t);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] += (e & 1) ? kbv.y : kbv.x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
+      for (int e = 0; e < 4; ++e) s[n][e] += (e & 1) ? kbv.y : kbv.x;
     }
-    float alpha[2], sum[2] = {0.f, 0.f};
+
+    // Rows g (r = 0: e = 0, 1) and g + 8 (r = 1: e = 2, 3) of the warp's 16.
+    if constexpr (FINAL) {
+      if (st < nkb) {  // pass 1: the row max only
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      alpha[r] = exp2f((m_run[r] - m_new) * kLog2e);
-      m_run[r] = m_new;
-    }
-    // exp(x) = 2^(x log2 e), the difference taken first: exact where s is
-    // the row max (a fully padded row's logits all round to BIG_NEG).
+        for (int n = 0; n < NS; ++n)
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = exp2f((s[n][e] - m_run[e >> 1]) * kLog2e);
-        sum[e >> 1] += s[n][e];
+          for (int e = 0; e < 4; ++e)
+            m_run[e >> 1] = fmaxf(m_run[e >> 1], s[n][e]);
+        continue;
       }
+      if (st == nkb) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + sum[r];
+        for (int r = 0; r < 2; ++r) m_run[r] = quad_max(m_run[r]);
+      }
+      // p = bf16(exp(bf16(s - m))), m the row's final max (exact in bf16,
+      // so P V sees it unrounded).
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+      for (int n = 0; n < NS; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+        for (int r = 0; r < 2; ++r) {
+          const float2 x = __bfloat1622float2(__floats2bfloat162_rn(
+              s[n][2 * r] - m_run[r], s[n][2 * r + 1] - m_run[r]));
+          const float2 p = __bfloat1622float2(
+              __floats2bfloat162_rn(expf(x.x), expf(x.y)));
+          s[n][2 * r] = p.x;
+          s[n][2 * r + 1] = p.y;
+          l_run[r] += p.x + p.y;
+        }
+    } else {
+      float mx[2] = {-INFINITY, -INFINITY}, alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
+        alpha[r] = exp2f((m_run[r] - m_new) * kLog2e);
+        m_run[r] = m_new;
+      }
+      // exp(x) = 2^(x log2 e), the difference taken first: exact where s is
+      // the row max (a fully padded row's logits all round to BIG_NEG).
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = exp2f((s[n][e] - m_run[e >> 1]) * kLog2e);
+          sum[e >> 1] += s[n][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + sum[r];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+    }
 
     // O += P V, P from the S registers.
 #pragma unroll
@@ -333,57 +570,93 @@ __global__ void __launch_bounds__(kThreadsF, (min_blocks<T, DP>()))
   }
   cp_async_wait<0>();
 
-  // Row sums over the quad, one division, then this warp's 16 rows go
-  // through its own rows of the Q tile to 16-byte stores.
+  // Row sums over the quad, one division, the gate, then this warp's 16
+  // rows go through its own rows of the Q tile to the stores.
+  const int w0 = (grp * QB + wq * 16) * LD;
+  T* o_s = q_s + w0;
+  const T* gt = g_s + w0;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-  }
-  T* o_s = q_s + warp * 16 * LD;
-  const int g = lane >> 2;
+    const float l = quad_sum(l_run[r]);
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      T* p = o_s + (g + 8 * r) * LD + n * 8 + 2 * t;
-      p[0] = from_f32<T>(o[n][2 * r] / l_run[r]);
-      p[1] = from_f32<T>(o[n][2 * r + 1] / l_run[r]);
+    for (int n = 0; n < NT; ++n) {
+      const int i = (g + 8 * r) * LD + n * 8 + 2 * t;
+      float v0 = o[n][2 * r] / l, v1 = o[n][2 * r + 1] / l;
+      if (has_gate) {
+        v0 *= 1.f / (1.f + expf(-to_f32(gt[i])));
+        v1 *= 1.f / (1.f + expf(-to_f32(gt[i + 1])));
+      }
+      o_s[i] = from_f32<T>(v0);
+      o_s[i + 1] = from_f32<T>(v1);
     }
+  }
   __syncwarp();
-  T* op = static_cast<T*>(a.out) + b * a.os.b + h * a.os.h;
-  for (int c = lane; c < 16 * CH; c += 32) {
-    const int r = c / CH, col = (c % CH) * VEC, l = q0 + warp * 16 + r;
-    if (l < L && col < D)
-      *reinterpret_cast<uint4*>(op + l * a.os.l + col) =
-          *reinterpret_cast<const uint4*>(o_s + r * LD + col);
+  if (r0 + grp >= R) return;
+  T* op = static_cast<T*>(a.out) + b * a.os.b + (r0 + grp) * a.os.r +
+          h * a.os.h;
+  const int l0 = q0 + wq * 16;
+  if (a.vec) {
+    for (int c = lane; c < 16 * CH; c += 32) {
+      const int r = c / CH, col = (c % CH) * VEC;
+      if (l0 + r < L && col < D)
+        *reinterpret_cast<uint4*>(op + (l0 + r) * a.os.l + col) =
+            *reinterpret_cast<const uint4*>(o_s + r * LD + col);
+    }
+  } else {
+    for (int c = lane; c < 16 * DP; c += 32) {
+      const int r = c / DP, col = c % DP;
+      if (l0 + r < L && col < D) op[(l0 + r) * a.os.l + col] =
+          o_s[r * LD + col];
+    }
   }
 }
 
-template <typename T, int DP>
-cudaError_t launch_t(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = Layout<T, DP>::smem_bytes(a.L);
-  cudaError_t e = set_smem(flash_kernel<T, DP>, smem);
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+inline bool strides16(const Strides& s, size_t es) {
+  return (s.b * es) % 16 == 0 && (s.r * es) % 16 == 0 &&
+         (s.l * es) % 16 == 0 && (s.h * es) % 16 == 0;
+}
+
+// rb: at most RBMAX rows a block, fewer where shared memory runs out.
+template <typename T, int DP, int QW, int RBMAX, bool BIAS, bool FINAL>
+cudaError_t launch_t(Args a, int B, cudaStream_t stream) {
+  using Lay = Layout<T, DP, QW>;
+  const size_t es = sizeof(T);
+  const int bias_es = !BIAS ? 0 : (a.bias_f32 ? 4 : static_cast<int>(es));
+  const bool has_gate = BIAS && a.gate != nullptr;
+  a.vec = a.D % (16 / es) == 0 && aligned16(a.q) && aligned16(a.k) &&
+          aligned16(a.v) && aligned16(a.out) &&
+          (!has_gate || (aligned16(a.gate) && strides16(a.gs, es))) &&
+          strides16(a.qs, es) && strides16(a.ks, es) &&
+          strides16(a.vs, es) && strides16(a.os, es);
+  a.bias_vec = BIAS && aligned16(a.bias) && (a.L * bias_es) % 16 == 0;
+  a.rb = std::min(RBMAX, a.R);
+  while (a.rb > 1 &&
+         Lay(a.rb, has_gate, bias_es, a.L).total > kMaxSmem)
+    --a.rb;
+  const size_t smem = Lay(a.rb, has_gate, bias_es, a.L).total;
+  if (smem > kMaxSmem) return cudaErrorInvalidConfiguration;
+  cudaError_t e = set_smem(flash_kernel<T, DP, QW, RBMAX, BIAS, FINAL>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.L + kQB - 1) / kQB, a.H, B);
-  flash_kernel<T, DP><<<grid, kThreadsF, smem, stream>>>(a);
+  const dim3 grid((a.L + Lay::kQB - 1) / Lay::kQB, a.H,
+                  B * ((a.R + a.rb - 1) / a.rb));
+  flash_kernel<T, DP, QW, RBMAX, BIAS, FINAL>
+      <<<grid, a.rb * QW * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(const Args& a, int B, cudaStream_t stream) {
-  if (a.D % 8 != 0 || a.D < 8) return cudaErrorInvalidValue;
-  if (a.D <= 16) return launch_t<T, 16>(a, B, stream);
-  if (a.D <= 32) return launch_t<T, 32>(a, B, stream);
-  if (a.D <= 64) return launch_t<T, 64>(a, B, stream);
-  if (a.D <= 128) return launch_t<T, 128>(a, B, stream);
+template <typename T, int QW, int RBMAX, bool BIAS, bool FINAL>
+cudaError_t launch_d(const Args& a, int B, cudaStream_t s) {
+  if (a.D < 1 || a.L < 1 || a.R < 1) return cudaErrorInvalidValue;
+  if (a.D <= 16) return launch_t<T, 16, QW, RBMAX, BIAS, FINAL>(a, B, s);
+  if (a.D <= 32) return launch_t<T, 32, QW, RBMAX, BIAS, FINAL>(a, B, s);
+  if (a.D <= 48) return launch_t<T, 48, QW, RBMAX, BIAS, FINAL>(a, B, s);
+  if (a.D <= 64) return launch_t<T, 64, QW, RBMAX, BIAS, FINAL>(a, B, s);
+  if (a.D <= 128) return launch_t<T, 128, QW, RBMAX, BIAS, FINAL>(a, B, s);
   return cudaErrorInvalidValue;
-}
-
-// dtype 0 = float32, 1 = bfloat16.
-inline cudaError_t launch(int dtype, const Args& a, int B, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch_d<float>(a, B, s) : launch_d<bf16>(a, B, s);
 }
 
 }  // namespace flash

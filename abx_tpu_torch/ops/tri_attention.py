@@ -13,11 +13,13 @@ Counterparts of three Pallas TPU kernels of abx_tpu/ops/tri_attention.py:
   projection of the natural rows, then the attention core over columns.
 - `triangle_attention_fused`: head-major q, k, v (B, R, H, L, D) with an
   f32 bias, all of it in one launch of `csrc/tri_attention.cu`.
-The source notes there say what bounds each and how.  The (B, R, H, L, L)
+The attention of all three runs on the register-resident flash core of
+`csrc/flash_attention.cuh`; the source notes there and in
+`csrc/tri_attention.cu` say what bounds it and how.  The (B, R, H, L, L)
 logits never reach device memory.  With bf16 inputs the packed kernels
 take the softmax exponent as the TPU kernels do under
-`ABX_TRI_ATTN_BF16_EXP` (default on): exp of the shifted logits rounded
-to bf16, its result rounded to bf16, summed in f32.
+`ABX_TRI_ATTN_BF16_EXP` (default on): exp of the logits minus the row's
+final max rounded to bf16, its result rounded to bf16, summed in f32.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from abx_tpu_torch.models.modules import layer_norm
 from abx_tpu_torch.ops import _lib, registry
 
 BIG_NEG = -1e9
+MAX_HEAD_DIM = 128   # the core's largest compile-time head dim
 
 
 def softmax_bf16_exp(logits):
@@ -79,12 +82,75 @@ def triangle_attention_packed_plain(x, wq, wk, wv, bias, mask, ln=None,
     return out.to(x.dtype)
 
 
+def tri_attention_core_plain(y, shape, bias, mask, gate: bool,
+                             bf16_exp: bool = False, columns: bool = False):
+    """Plain PyTorch version of the attention core of the packed kernels,
+    in f32: y (B*R*L, n) holds the projection rows [q | k | v | gate?] (the
+    query scale folded into q) in the natural order of a (B, R, L) tensor
+    (R == L for columns, whose column i, position l is row (b*L + l)*L +
+    i); bias (B, H, L, L); mask (B, L), 1 = valid key.  Returns the gated
+    attention output, (B*R*L, H*D) in the order of y's rows, in y.dtype."""
+    b, r, l, h, d = shape
+    hd = h * d
+    yf = y.float().reshape(b, r, l, -1)
+    if columns:
+        yf = yf.transpose(1, 2)
+    q, k, v = (yf[..., i * hd:(i + 1) * hd].reshape(b, r, l, h, d)
+               for i in range(3))
+    logits = torch.einsum('brqhd,brkhd->brhqk', q, k)
+    maskbias = (1.0 - mask.float()) * BIG_NEG
+    logits = (logits + bias[:, None].float()
+              + maskbias[:, None, None, None, :])
+    probs = (softmax_bf16_exp(logits) if bf16_exp
+             else torch.softmax(logits, dim=-1))
+    out = torch.einsum('brhqk,brkhd->brqhd', probs, v).reshape(b, r, l, hd)
+    if gate:
+        out = out * torch.sigmoid(yf[..., 3 * hd:4 * hd])
+    if columns:
+        out = out.transpose(1, 2)
+    return out.reshape(b * r * l, hd).to(y.dtype)
+
+
+def tri_attention_core(y, shape, bias, mask, gate: bool,
+                       bf16_exp: bool = False, columns: bool = False):
+    """The attention core of `triangle_attention_packed` (rows) and
+    `triangle_attention_packed_cols` (columns) on ready projection rows:
+    one launch of `csrc/tri_attention.cu` on the card (counted by those
+    wrappers, not here), the plain version on the CPU.  Arguments as
+    `tri_attention_core_plain`; bias in y.dtype, mask f32, both
+    contiguous; D <= MAX_HEAD_DIM.  The bf16 exponent applies to bf16
+    inputs only."""
+    bf16_exp = bf16_exp and y.dtype == torch.bfloat16
+    if not registry.on_device(y):
+        return tri_attention_core_plain(y, shape, bias, mask, gate,
+                                        bf16_exp, columns)
+    b, r, l, h, d = shape
+    dt = y.dtype
+    n = y.shape[1]
+    _lib.check_cuda_inputs('tri_attention_core', dt, y=y, bias=bias,
+                           f32=dict(mask=mask))
+    _lib.require(0 < d <= MAX_HEAD_DIM,
+                 f'tri_attention_core: head dim {d}, the kernel takes 1 to '
+                 f'{MAX_HEAD_DIM}')
+    _lib.require(y.shape[0] == b * r * l and n >= (4 if gate else 3) * h * d
+                 and bias.shape == (b, h, l, l) and mask.shape == (b, l)
+                 and (r == l or not columns),
+                 'tri_attention_core: y (B*R*L, >= 3 or 4 H*D), bias '
+                 '(B, H, L, L), mask (B, L)')
+    out = torch.empty((b * r * l, h * d), dtype=dt, device=y.device)
+    _lib.check(_lib.lib().abx_tri_attention_core(
+        _lib.DTYPE_CODE[dt], y.data_ptr(), n, b, r, l, h, d, bias.data_ptr(),
+        mask.data_ptr(), int(gate), int(bf16_exp), int(columns),
+        out.data_ptr(), _lib.stream(y)), 'tri_attention_core')
+    return out
+
+
 def _project_and_attend(name, x, wq, wk, wv, bias, mask, ln, gate,
                         bf16_exp: bool, columns: bool):
     """The kernels shared by the packed rows and columns: LN + the fused
     [q*D^-1/2 | k | v | gate] projection of the natural rows of x
     (`csrc/row_linear.cu`), then the attention core over rows or columns
-    (`csrc/tri_attention.cu`).  Returns the gated attention output,
+    (`tri_attention_core`).  Returns the gated attention output,
     (B*R*L, H*D) in the order of x's rows."""
     b, r, l, c = x.shape
     h = bias.shape[1]
@@ -106,9 +172,9 @@ def _project_and_attend(name, x, wq, wk, wv, bias, mask, ln, gate,
     if ln is not None:
         ln_s, ln_b = ln[0].float().contiguous(), ln[1].float().contiguous()
     bias_t = bias.to(dt).contiguous()
-    maskbias = ((1.0 - mask.float()) * BIG_NEG).contiguous()
+    mask_f = mask.float().contiguous()
     _lib.check_cuda_inputs(name, dt, x=x, w_all=w_all, bias=bias_t,
-                           f32=dict(b_all=b_all, maskbias=maskbias,
+                           f32=dict(b_all=b_all, mask=mask_f,
                                     ln_s=ln_s, ln_b=ln_b))
     _lib.require(wk.shape == (hd, c) and wv.shape == (hd, c)
                  and wq.shape == (hd, c) and hd == h * d,
@@ -121,21 +187,15 @@ def _project_and_attend(name, x, wq, wk, wv, bias, mask, ln, gate,
     _lib.require(n_proj == 3 * hd and b_all.shape == (3 * hd,)
                  or n_proj == 4 * hd and b_all.shape == (4 * hd,),
                  f'{name}: gate must be ((H*D, C), (H*D,))')
-    lib = _lib.lib()
-    s = _lib.stream(x)
-    code = _lib.DTYPE_CODE[dt]
     m = b * r * l
     y = torch.empty((m, n_proj), dtype=dt, device=dev)
-    _lib.check(lib.abx_row_linear(
-        code, x.data_ptr(), m, c, c, _lib.ptr(ln_s), _lib.ptr(ln_b),
-        w_all.data_ptr(), b_all.data_ptr(), None, None, y.data_ptr(), n_proj,
-        0, 1, 1, s), f'{name} (projection)')
-    att = torch.empty((m, hd), dtype=dt, device=dev)
-    _lib.check(lib.abx_tri_attention_core(
-        code, y.data_ptr(), n_proj, b, r, l, h, d, bias_t.data_ptr(),
-        maskbias.data_ptr(), int(gate is not None), int(bf16_exp),
-        int(columns), att.data_ptr(), s), f'{name} (attention)')
-    return att
+    _lib.check(_lib.lib().abx_row_linear(
+        _lib.DTYPE_CODE[dt], x.data_ptr(), m, c, c, _lib.ptr(ln_s),
+        _lib.ptr(ln_b), w_all.data_ptr(), b_all.data_ptr(), None, None,
+        y.data_ptr(), n_proj, 0, 1, 1, _lib.stream(x)),
+        f'{name} (projection)')
+    return tri_attention_core(y, (b, r, l, h, d), bias_t, mask_f,
+                              gate is not None, bf16_exp, columns)
 
 
 def triangle_attention_packed(x, wq, wk, wv, bias, mask, ln=None, gate=None,
@@ -265,17 +325,18 @@ def triangle_attention_fused(q, k, v, bias, mask):
     b, r, h, l, d = q.shape
     dt = q.dtype
     bias_f = bias.float().contiguous()
-    maskbias = ((1.0 - mask.float()) * BIG_NEG).contiguous()
+    mask_f = mask.float().contiguous()
     _lib.check_cuda_inputs('triangle_attention_fused', dt, q=q, k=k, v=v,
-                           f32=dict(bias=bias_f, maskbias=maskbias))
+                           f32=dict(bias=bias_f, mask=mask_f))
     _lib.require(k.shape == v.shape == q.shape
-                 and bias.shape == (b, h, l, l) and mask.shape == (b, l),
+                 and bias.shape == (b, h, l, l) and mask.shape == (b, l)
+                 and 0 < d <= MAX_HEAD_DIM,
                  'triangle_attention_fused: q, k, v (B, R, H, L, D), bias '
-                 '(B, H, L, L), mask (B, L)')
+                 f'(B, H, L, L), mask (B, L), D <= {MAX_HEAD_DIM}')
     out = torch.empty_like(q)
     _lib.check(_lib.lib().abx_triangle_attention_fused(
         _lib.DTYPE_CODE[dt], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        bias_f.data_ptr(), maskbias.data_ptr(), out.data_ptr(), b, r, h, l, d,
+        bias_f.data_ptr(), mask_f.data_ptr(), out.data_ptr(), b, r, h, l, d,
         _lib.stream(q)), 'triangle_attention_fused')
     triangle_attention_fused.launches += 1
     return out

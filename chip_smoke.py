@@ -15,7 +15,11 @@ fatal on failure:
      of CUDA event timings after warm-up, bf16), and the time of the one
      torch call that computes the same function where there is one (and
      esm_attention's one call launches one device kernel, under the
-     profiler: the key-pad mask is read by the kernel); then
+     profiler: the key-pad mask is read by the kernel), and row 1's
+     attention core alone on ready projection rows beside SDPA; the bf16
+     core against the plain core with the TPU kernel's exponent (against
+     the row's final max) on rows whose logits are exact in f32, to
+     EXP_TOL relative; then
      the channel-major contraction (torch.matmul, checked under the
      profiler to run no copy kernel) timed beside the natural einsum and
      the triangle_multiply kernel, both orientations;
@@ -204,6 +208,43 @@ def kernel_cases(torch, dev):
     tri('tri-attention (4,288,288,192) H=4 D=48', l, 192, 4, '1')
     tri('tri-attention (4,288,288,192) H=4 D=48', l, 192, 4, '0')
     tri('seq-attention (4,1,288,544) H=32 D=17', 1, 544, 32, '1')
+
+    # Row 1's attention core alone, on ready projection rows y [q | k | v |
+    # gate] of the tri shape, as the wrapper launches it (so the table can
+    # split row 1 into core and projections).  Its library call is SDPA on
+    # views of y with bias + key-mask bias as one additive bf16 mask,
+    # materialised (B*R, H, L, L) before the timed call, and without the
+    # gate's multiply.
+    h, d = 4, 48
+    hd = h * d
+    shape = (b, l, l, h, d)
+    y = torch.cat([rnd(b * l * l, hd, scale=d ** -0.5),
+                   rnd(b * l * l, 3 * hd)], 1)
+    cbias = rnd(b, h, l, l)
+    cbias16 = cbias.bfloat16()
+    sdpa_bias = cbias16.float() + ((1.0 - mask) * -1e9)[:, None, None, :]
+    core_mask = sdpa_bias.bfloat16()[:, None].expand(b, l, h, l, l).reshape(
+        b * l, h, l, l)
+    del sdpa_bias
+
+    def core_sdpa(y, b=b, l=l, h=h, d=d):
+        q, k, v = (y[:, i * h * d:(i + 1) * h * d].view(b * l, l, h, d)
+                   .transpose(1, 2) for i in range(3))
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=core_mask, scale=1.0)
+    case('triangle_attention_packed',
+         'core alone on a ready y (4*288*288, 768), H=4 D=48, gated, bf16 '
+         'exp 1; library SDPA without the gate',
+         lambda y, shape=shape: ta_op.tri_attention_core(
+             y, shape, cbias16 if y.dtype == torch.bfloat16 else cbias,
+             mask, True, bf16_exp=True),
+         lambda y, shape=shape: ta_op.tri_attention_core_plain(
+             y, shape, cbias, mask, True),
+         (y,), (y.bfloat16(),), [cbias16, mask], 4 * b * l * l * l * hd,
+         core_sdpa,
+         plain16=lambda y, shape=shape: ta_op.tri_attention_core_plain(
+             y, shape, cbias, mask, True, bf16_exp=True))
+    del y
 
     for h in (4, 32):
         pair = rnd(b, l, l, 192)
@@ -495,6 +536,59 @@ def phase_kernels(torch, dev):
         del ref, ref16, got32, got16
         torch.cuda.empty_cache()
     return results
+
+
+EXP_TOL = 1e-2   # the core's bf16 exponent vs the final-max plain core
+
+
+def phase_exponent(torch, dev):
+    """The bf16 attention core with the TPU kernel's exponent, exp(bf16(s -
+    m)) with m the row's final max, at the tri shape over 16 rows (B=1,
+    R=16, L=288, H=4, D=48), rows and columns (R = L = 288, B=1): q (1/4
+    steps in [-2, 2]), k (1/8 steps in [-1, 1]) and the bias (1/64 steps
+    in [-2, 4], 2 higher on keys >= 64, so each row's max lies past the
+    first key tile) make the logits exact in f32 in any order; v is one-hot
+    (v[j, e] = [j mod D == e]), so each output is a sum of probabilities.
+    Every output must lie within EXP_TOL (relative) of the plain core's on
+    the same values; a running max (the core before it took the final
+    max) misses that by 4-13x on such rows (tests/test_torch_kernels.py)."""
+    from abx_tpu_torch.ops import tri_attention as ta_op
+    g = torch.Generator(device=dev).manual_seed(2)
+    report = {}
+    for columns, (b, r, l, h, d) in ((False, (1, 16, 288, 4, 48)),
+                                     (True, (1, 288, 288, 4, 48))):
+        n = b * r * l
+        idx = torch.arange(n, device=dev)
+        pos = (idx // l) % l if columns else idx % l
+        q = torch.randint(-8, 9, (n, h * d), generator=g, device=dev) / 4
+        k = torch.randint(-8, 9, (n, h * d), generator=g, device=dev) / 8
+        v = (pos[:, None] % d == torch.arange(d, device=dev)).float()
+        y = torch.cat([q, k, v.repeat(1, h)], 1)
+        bias = torch.randint(-128, 129, (b, h, l, l), generator=g,
+                             device=dev) / 64
+        bias[..., 64:] += 2.0
+        kmask = torch.ones(b, l, device=dev)
+        kmask[:, 5] = 0.0
+        shape = (b, r, l, h, d)
+        want = ta_op.tri_attention_core_plain(y, shape, bias, kmask,
+                                              False, bf16_exp=True,
+                                              columns=columns)
+        got = ta_op.tri_attention_core(y.bfloat16(), shape, bias.bfloat16(),
+                                       kmask, False, bf16_exp=True,
+                                       columns=columns)
+        torch.cuda.synchronize()
+        if not (want > 0).all():
+            fail('exponent check: a plain output is not positive')
+        err = ((got.float() - want).abs() / want).max().item()
+        what = 'columns' if columns else 'rows'
+        print(f'bf16 exponent against the final max, {what} (B={b}, R={r}, '
+              f'L={l}, H={h}, D={d}): max rel err {err:.3g} (tolerance '
+              f'{EXP_TOL})', flush=True)
+        if not err <= EXP_TOL:
+            fail(f'the bf16 core missed the final-max exponent ({what}): '
+                 f'rel err {err:.3g} > {EXP_TOL}')
+        report[what] = err
+    return report
 
 
 def device_kernel_names(torch, fn):
@@ -1077,6 +1171,7 @@ def main():
           flush=True)
 
     kernels = phase_kernels(torch, dev)
+    exponent = phase_exponent(torch, dev)
     contraction = phase_contraction(torch, dev)
     flags = phase_flags(torch, dev)
     esm_flags = phase_esm_flags(torch, dev)
@@ -1104,7 +1199,8 @@ def main():
             'bound_ms': first['bound_ms'], 'bound_by': first['bound_by'],
             'library_ms': first['library_ms'], 'cases': cases})
     print(card)
-    print(json.dumps({'kernels': rows, 'flags_vs_off': flags,
+    print(json.dumps({'kernels': rows, 'bf16_exp_final_max': exponent,
+                      'flags_vs_off': flags,
                       'esm_flags_on_vs_off': esm_flags,
                       'contraction': contraction, **stats}))
     print(json.dumps({'ok': True, 'device': {

@@ -465,7 +465,8 @@ def _close_on_card(got, want, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('shape', TRI_SHAPES + [(1, 3, 70, 4, 48)])
+@pytest.mark.parametrize('shape', TRI_SHAPES + [(1, 3, 70, 4, 48),
+                                   (1, 3, 288, 4, 48), (1, 2, 100, 4, 17)])
 def test_tri_attention_kernel_matches_plain(cuda, shape, dtype):
     b, r, l, h, d = shape
     k = _tri_case(6, b, r, l, h, d, h * d, 'per_row')
@@ -736,9 +737,12 @@ def test_triangle_multiply_c_major_matches_einsum(cuda, per_row):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('shape', [(2, 5, 3, 70, 48), (1, 3, 2, 37, 17)])
+@pytest.mark.parametrize('shape', [(2, 5, 3, 70, 48), (1, 3, 2, 37, 17),
+                                   (1, 3, 4, 288, 48), (1, 2, 2, 100, 17)])
 def test_triangle_attention_fused_kernel_matches_plain(cuda, shape, dtype):
-    """(b, r, h, l, d): ragged L, D = 48 and D = 17 (padded to 32)."""
+    """(b, r, h, l, d): ragged L, D = 48 and D = 17 (padded to 32, its
+    34-byte rows staged element by element), and L = 288 with R = 3 rows
+    (a block's second row group spare in the last block)."""
     f32, low = _on_card(_fused_case(33, *shape), cuda, dtype, {0, 1, 2})
     want = tri_op.triangle_attention_fused_plain(*f32)
     got = tri_op.triangle_attention_fused(*low)
@@ -749,10 +753,12 @@ def test_triangle_attention_fused_kernel_matches_plain(cuda, shape, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize('flag', ['1', '0'])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('shape', [(2, 37, 48, 4), (1, 70, 32, 2)])
+@pytest.mark.parametrize('shape', [(2, 37, 48, 4), (1, 70, 32, 2),
+                                   (1, 130, 32, 2)])
 def test_triangle_attention_packed_cols_kernel_matches_plain(
         cuda, monkeypatch, shape, dtype, flag):
-    """(b, l, c, h): ragged L, L above one 64-query block; the bf16 kernel
+    """(b, l, c, h): ragged L, L above one 64-query block, and L = 130
+    above one query tile of either height (64 or 96); the bf16 kernel
     against the plain version with the exponent it takes."""
     monkeypatch.setenv('ABX_TRI_ATTN_BF16_EXP', flag)
     case = _cols_case(34, *shape)
@@ -790,3 +796,212 @@ def test_tri_attention_bf16_exp_flag_matches_plain(cuda, monkeypatch, shape,
         x.bfloat16(), wq, wk, wv, bias, mask, residual=res.bfloat16(), **kw)
     torch.cuda.synchronize()
     _close_on_card(got, want, torch.bfloat16)
+
+
+# --- the core's bf16 exponent: taken against the row's final max -----------
+
+EXP_TOL = 1e-2   # max |got - want| / want over the outputs of _exp_case
+
+
+def _exp_case(seed, b, r, l, h, d, columns=False):
+    """Projection rows y (B*R*L, 3*H*D) [q | k | v], bias (B, H, L, L) and
+    key mask (B, L), all exact in bf16, for the attention core with the
+    bf16 exponent.  q (multiples of 1/4 in [-2, 2]), k (of 1/8 in [-1, 1])
+    and the bias (of 1/64 in [-2, 4]) make q . k + bias exact in f32 in
+    any order of summation, so the kernel and the plain core see the same
+    logits and the same bf16(s - m).  The bias is 2 higher on keys >= 64,
+    so each row's max lies past the first 64-key tile, where a running max
+    still differs from the final one.  v is one-hot, v[j, e] = [j mod D ==
+    e] in every head, so each output is a sum of probabilities (none 0:
+    one key is masked), which the bf16 rounding of the output (2^-8
+    relative at most) does not hide.  With `columns` position l of column
+    i is row (b*L + l)*L + i (R == L)."""
+    rng = np.random.default_rng(seed)
+    n = b * r * l
+    pos = (np.arange(n) // l) % l if columns else np.arange(n) % l
+    q = rng.integers(-8, 9, (n, h, d)) / 4
+    k = rng.integers(-8, 9, (n, h, d)) / 8
+    v = np.broadcast_to((pos[:, None] % d == np.arange(d))[:, None],
+                        (n, h, d))
+    y = np.concatenate([a.reshape(n, h * d) for a in (q, k, v)], 1)
+    bias = rng.integers(-128, 129, (b, h, l, l)) / 64
+    bias[..., 64:] += 2.0
+    mask = np.ones((b, l))
+    mask[:, 5] = 0.0
+    out = [a.astype(np.float32) for a in (y, bias, mask)]
+    for a in out[:2]:
+        assert np.array_equal(t(a).bfloat16().float().numpy(), a)
+    return out
+
+
+def _exp_err(got, want):
+    """max |got - want| / want (every want of _exp_case is positive)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    assert (want > 0).all()
+    return ((got - want).abs() / want).max().item()
+
+
+def _final_max_core(y, shape, bias, mask, columns=False):
+    """The attention core without a gate, in f32 on y's device, with the TPU
+    kernel's exponent (`softmax_bf16_exp`: against the row's final max):
+    the yardstick of the exponent test."""
+    b, r, l, h, d = shape
+    hd = h * d
+    yf = y.float().reshape(b, r, l, -1)
+    if columns:
+        yf = yf.transpose(1, 2)
+    q, k, v = (yf[..., i * hd:(i + 1) * hd].reshape(b, r, l, h, d)
+               .transpose(2, 3) for i in range(3))
+    maskbias = (1.0 - mask) * tri_op.BIG_NEG
+    s = (q @ k.transpose(-1, -2) + bias.float()[:, None]
+         + maskbias[:, None, None, None, :])
+    out = (tri_op.softmax_bf16_exp(s) @ v).transpose(2, 3).reshape(
+        b, r, l, hd)
+    if columns:
+        out = out.transpose(1, 2)
+    return out.reshape(b * r * l, hd)
+
+
+def _running_max_core(y, shape, bias, mask, columns=False):
+    """What the port's core computed before it took the final max: per
+    64-key tile, p = bf16(exp(bf16(s - m_run))) with m_run the running max
+    of the row, the sum and P V rescaled by exp(m_old - m_new); the output
+    rounded to bf16.  f32 on the CPU."""
+    b, r, l, h, d = shape
+    hd = h * d
+    yf = y.float().reshape(b, r, l, -1)
+    if columns:
+        yf = yf.transpose(1, 2)
+    q, k, v = (yf[..., i * hd:(i + 1) * hd].reshape(b, r, l, h, d)
+               .transpose(2, 3) for i in range(3))
+    maskbias = (1.0 - mask) * tri_op.BIG_NEG
+    s = (q @ k.transpose(-1, -2) + bias[:, None]
+         + maskbias[:, None, None, None, :])
+    m = torch.full(s.shape[:-1] + (1,), -float('inf'))
+    den = torch.zeros_like(m)
+    o = torch.zeros(q.shape)
+    for k0 in range(0, l, 64):
+        blk = s[..., k0:k0 + 64]
+        m_new = torch.maximum(m, blk.amax(-1, keepdim=True))
+        p = torch.exp((blk - m_new).bfloat16().float()).bfloat16().float()
+        alpha = torch.exp(m - m_new)
+        den = den * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + p @ v[..., k0:k0 + 64, :]
+        m = m_new
+    out = (o / den).transpose(2, 3).reshape(b, r, l, hd)
+    if columns:
+        out = out.transpose(1, 2)
+    return out.reshape(b * r * l, hd).bfloat16()
+
+
+@pytest.mark.parametrize('columns', [False, True])
+def test_exponent_case_resolves_the_running_max(columns):
+    """On the CPU: with the tolerance of the gpu exponent test, the core's
+    old running-max exponent fails the case and the final-max plain core,
+    rounded to bf16 as the kernel's output is, passes it with room."""
+    shape = (1, 72, 72, 2, 16) if columns else (1, 3, 130, 2, 16)
+    y, bias, mask = (t(a) for a in _exp_case(50, *shape, columns=columns))
+    want = _final_max_core(y, shape, bias, mask, columns)
+    torch.testing.assert_close(
+        tri_op.tri_attention_core_plain(y, shape, bias, mask, False,
+                                        bf16_exp=True, columns=columns),
+        want, rtol=1e-6, atol=1e-7)
+    assert _exp_err(want.bfloat16(), want) <= EXP_TOL / 2
+    old = _running_max_core(y, shape, bias, mask, columns)
+    assert _exp_err(old, want) > 2 * EXP_TOL
+
+
+@pytest.mark.parametrize('bf16_exp', [True, False])
+@pytest.mark.parametrize('columns', [False, True])
+def test_tri_attention_core_plain_composes_the_packed_plain(columns,
+                                                            bf16_exp):
+    """On the CPU: LN + the fused [q*D^-1/2 | k | v | gate] projection,
+    then the plain core, is the packed plain version, over rows and over
+    columns; the core's wrapper takes the plain version for a CPU tensor,
+    with the bf16 exponent for bf16 inputs only (these are f32)."""
+    b, l, h, d = 2, 11, 2, 8
+    c = h * d
+    k = _tri_case(51, b, l, l, h, d, c, 'per_row')
+    x, bias, mask = t(k['x']), t(k['bias']), t(k['mask'])
+    wq, wk, wv, wg = (t(w.T) for w in k['w'])
+    ln = (t(k['scale']), t(k['lnb']))
+    xin = x.transpose(1, 2) if columns else x
+    xn = tri_op.layer_norm(xin, *ln)
+    w_all = torch.cat([wq * d ** -0.5, wk, wv, wg])
+    b_all = torch.cat([torch.zeros(3 * c), t(k['bg'])])
+    y = torch.nn.functional.linear(xn, w_all, b_all)
+    if columns:
+        y = y.transpose(1, 2)
+    y, shape = y.reshape(b * l * l, 4 * c), (b, l, l, h, d)
+    got = tri_op.tri_attention_core_plain(y, shape, bias, mask, True,
+                                          bf16_exp, columns)
+    torch.testing.assert_close(
+        tri_op.tri_attention_core(y, shape, bias, mask, True, bf16_exp,
+                                  columns),
+        tri_op.tri_attention_core_plain(y, shape, bias, mask, True, False,
+                                        columns))
+    want = tri_op.triangle_attention_packed_plain(
+        xin, wq, wk, wv, bias, mask, ln=ln, gate=(wg, t(k['bg'])),
+        bf16_exp=bf16_exp)
+    if columns:
+        want = want.transpose(1, 2)
+    torch.testing.assert_close(got.reshape(b, l, l, c), want, rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('columns', [False, True])
+def test_tri_attention_core_takes_the_final_max(cuda, columns):
+    """The bf16 core through its C entry on the rows of _exp_case (L = 160
+    over three 64-key tiles, D = 48, R = 3 rows against blocks of two;
+    columns at L = 136), against the plain core with the TPU kernel's
+    exponent on the same values, to EXP_TOL.  A running-max core fails
+    it (the CPU test above); the core before it took the final max did, on
+    the card."""
+    shape = (1, 136, 136, 2, 16) if columns else (1, 3, 160, 2, 48)
+    b, r, l, h, d = shape
+    y, bias, mask = (t(a).to(cuda) for a in _exp_case(
+        52, *shape, columns=columns))
+    want = _final_max_core(y, shape, bias, mask, columns)
+    y16, bias16 = y.bfloat16(), bias.bfloat16()
+    got = torch.empty((b * r * l, h * d), dtype=torch.bfloat16, device=cuda)
+    _lib.check(_lib.lib().abx_tri_attention_core(
+        1, y16.data_ptr(), 3 * h * d, b, r, l, h, d, bias16.data_ptr(),
+        mask.data_ptr(), 0, 1, int(columns), got.data_ptr(),
+        _lib.stream(y16)), 'abx_tri_attention_core')
+    torch.cuda.synchronize()
+    err = _exp_err(got, want)
+    print(f'final-max exponent, columns={columns}: max rel err {err:.3g}')
+    assert err <= EXP_TOL, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kind', ['rows-exp-1', 'rows-exp-0', 'fused'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_tri_attention_fully_masked_key_row_matches_plain(cuda, monkeypatch,
+                                                          kind, dtype):
+    """A batch element whose every key is masked: its logits all round to
+    BIG_NEG in f32 and its softmax is uniform, in the kernels as in the
+    plain versions."""
+    if kind == 'fused':
+        f32, low = _on_card(_fused_case(53, 2, 3, 2, 70, 48), cuda, dtype,
+                            {0, 1, 2})
+        f32[4][1] = 0.0
+        want = tri_op.triangle_attention_fused_plain(*f32)
+        got = tri_op.triangle_attention_fused(*low[:4], f32[4])
+    else:
+        flag = kind[-1]
+        monkeypatch.setenv('ABX_TRI_ATTN_BF16_EXP', flag)
+        k = _tri_case(53, 2, 3, 70, 4, 48, 192, 'per_row')
+        k['mask'][1] = 0.0
+        wq, wk, wv, wg = (t(w.T).to(cuda) for w in k['w'])
+        kw = dict(ln=(t(k['scale']).to(cuda), t(k['lnb']).to(cuda)),
+                  gate=(wg, t(k['bg']).to(cuda)))
+        x, bias, mask = (t(k[n]).to(cuda) for n in ('x', 'bias', 'mask'))
+        want = tri_op.triangle_attention_packed_plain(
+            x, wq, wk, wv, bias, mask,
+            bf16_exp=dtype == torch.bfloat16 and flag == '1', **kw)
+        got = tri_op.triangle_attention_packed(x.to(dtype), wq, wk, wv,
+                                               bias, mask, **kw)
+    torch.cuda.synchronize()
+    _close_on_card(got, want, dtype)
