@@ -24,7 +24,17 @@
 //     sigmoid(LN_x(res) Wg^T + bg) with the final gate recomputed from the
 //     residual and kept in f32, + res: two LN-staged products per output
 //     tile in one block, entry abx_tri_mult_post_gatefold).
-// Bound on the H100: the C->H bias projection does 2*H flops per byte of
+// Two kernels.  bf16 launches of out_mode 0 and 2 with K <= 192 (K a
+// multiple of 8) run the Hopper core of row_linear_sm90.cuh (persistent
+// blocks, TMA, wgmma; its note says what bounds it): tri_mult_pre in all
+// three variants, tri_mult_post on the natural input, gate_proj_residual,
+// and the triangle attention's fused projection and out-proj.  The tile
+// kernel below keeps the rest: f32 inputs (bf16x3), the narrow
+// pair-bias projection (out_mode 1, N <= 64, bound by the bytes of the
+// pair track), the channel-major input of tri_mult_post, the gate-fold
+// post, and K > 192 (the seq attention's projection and out-proj, K = 544,
+// M = 1,152).
+// Bound on the H100 (tile kernel): the C->H bias projection does 2*H flops per byte of
 // the (B, L, L, C) pair track and is bound by device-memory bytes; the
 // wider projections are bound by the block's non-MMA phases (LayerNorm
 // statistics, staging, the epilogue), not by the tensor cores.
@@ -46,6 +56,7 @@
 // LayerNorm statistics with four threads per row, each over a quarter of
 // the channels) and transposed into the [row][k] staging tile.
 #include "common.cuh"
+#include "row_linear_sm90.cuh"
 
 namespace abx {
 
@@ -478,6 +489,32 @@ cudaError_t launch_linear(const LinearArgs& p, cudaStream_t stream) {
                    : launch_linear_bn<T, 128>(p, stream);
 }
 
+// bf16 launches the Hopper core takes (sm90::instance) run there
+// (row_linear_sm90.cuh); the others on the tile kernel above.
+cudaError_t launch_linear_bf16(const LinearArgs& p, cudaStream_t stream) {
+  const sm90::Args a{p.M,
+                     p.K,
+                     p.N,
+                     p.ln_scale,
+                     p.ln_bias,
+                     static_cast<const bf16*>(p.xgate),
+                     p.bias,
+                     static_cast<const bf16*>(p.residual),
+                     static_cast<const bf16*>(p.gate),
+                     static_cast<bf16*>(p.out),
+                     p.out_mode,
+                     p.R,
+                     p.Lc,
+                     p.seq_mask,
+                     static_cast<bf16*>(p.out2),
+                     p.gated,
+                     p.lr_c_major};
+  const int code = sm90::instance(a, p.ldx, p.x, p.w);
+  if (code >= 0) return sm90::launch(code, a, p.x, p.w, stream);
+  return p.out_mode == 2 ? launch_linear_bn<bf16, 128>(p, stream)
+                         : launch_linear<bf16>(p, stream);
+}
+
 // tri_mult_post_gatefold: per 64 x 128 output tile, o = LN(y) W^T and
 // fg = LN_x(res) Wg^T, each accumulated over its own K (nc, then C) through
 // the same staging tiles; the epilogue forms (o + b) * sigmoid(fg + bg) +
@@ -596,7 +633,7 @@ extern "C" int abx_row_linear(int dtype, const void* x, int M, int K, int ldx,
                     0,        0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? abx::launch_linear<float>(p, s)
-                    : abx::launch_linear<abx::bf16>(p, s);
+                    : abx::launch_linear_bf16(p, s);
 }
 
 // tri_mult_pre: LayerNorm(x) -> packed projection -> gating.  w (N, K) and
@@ -620,7 +657,7 @@ extern "C" int abx_tri_mult_pre(int dtype, const void* x, int M, int K,
                     nc,      c_major};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? abx::launch_linear_bn<float, 128>(p, s)
-                    : abx::launch_linear_bn<abx::bf16, 128>(p, s);
+                    : abx::launch_linear_bf16(p, s);
 }
 
 // tri_mult_post with a channel-major input: out = (LN(y) W^T + bias) *
@@ -654,7 +691,7 @@ extern "C" int abx_gate_proj(int dtype, const void* y, const void* gate,
                     0,       0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? abx::launch_linear<float>(p, s)
-                    : abx::launch_linear<abx::bf16>(p, s);
+                    : abx::launch_linear_bf16(p, s);
 }
 
 // tri_mult_post_gatefold: out = (LN(y) W^T + wb) * sigmoid(LN_x(res) Wg^T +

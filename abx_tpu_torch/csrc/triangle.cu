@@ -41,11 +41,9 @@
 // only be a multiple of the 16-byte vector (the wrapper pads the input
 // channels otherwise) and the output keeps the true C.  The f32 instance
 // splits every operand into bf16 hi + lo and sums hi*hi + hi*lo + lo*hi.
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
 #include "common.cuh"
 #include "mma_sync.cuh"
+#include "tma.cuh"
 
 namespace abx {
 namespace {
@@ -72,50 +70,6 @@ struct Tri {
   static constexpr size_t kSmem =
       static_cast<size_t>(kStagesT) * kStage + 2 * kStagesT * sizeof(uint64_t);
 };
-
-// --- mbarriers and TMA ------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT_%=;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// 4-d TMA box load into shared memory at dst, completing on bar.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
 
 // --- the consumers' k16 step ------------------------------------------------
 
@@ -236,7 +190,7 @@ __global__ void __launch_bounds__(Tri<T>::kThreads, 1)
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, Lay::kConsumers);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -320,19 +274,6 @@ __global__ void __launch_bounds__(Tri<T>::kThreads, 1)
 }
 
 // --- host side --------------------------------------------------------------
-
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
 
 // The (B, L, L, Cs) operand as a 4-d tensor (channel, k, row, batch): for
 // per_row row r's k-th cell is [r][k], for per_column [k][r]; boxes of 64

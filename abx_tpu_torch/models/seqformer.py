@@ -35,9 +35,11 @@ from abx_tpu_torch.ops.gate_proj import gate_proj_residual
 from abx_tpu_torch.ops.pair_bias import pair_bias_proj
 from abx_tpu_torch.ops.recycle_embed import recycle_embed
 from abx_tpu_torch.ops.transition import fused_transition
-from abx_tpu_torch.ops.tri_attention import triangle_attention_packed
-from abx_tpu_torch.ops.tri_mult import (tri_mult_post,
+from abx_tpu_torch.ops.tri_attention import (pack_projection,
+                                             triangle_attention_packed)
+from abx_tpu_torch.ops.tri_mult import (pack_pre, tri_mult_post,
                                         tri_mult_post_gatefold, tri_mult_pre)
+from abx_tpu_torch.ops.weight_cache import WeightCache
 from abx_tpu_torch.ops.triangle import (triangle_multiply,
                                         triangle_multiply_c_major)
 
@@ -85,6 +87,8 @@ class GatedAttention(nn.Module):
         if gating:
             self.gate = Linear(c_in, value_dim, 'gate', dtype=dtype)
         self.proj_out = Linear(value_dim, output_dim, 'final', dtype=dtype)
+        # The kernel route's packed weights: with the LN-fold, and without.
+        self._packs = {True: WeightCache(), False: WeightCache()}
 
     def _qkv_weights(self):
         """(H*D, C) q/k/v weights.  The seq track's proj_in has per-head
@@ -96,6 +100,28 @@ class GatedAttention(nn.Module):
         kd = self.key_dim // h
         w3 = self.proj_in.weight.reshape(h, 3, kd, -1)
         return tuple(w3[:, i].reshape(h * kd, -1) for i in range(3))
+
+    def _packed(self, dtype, ln=None):
+        """The fused projection (and with `ln`, the gate and the out-proj)
+        packed for the kernels, from the cache (rebuilt when a weight
+        changes)."""
+        fold = ln is not None
+        heads = ([self.proj_q, self.proj_k, self.proj_v] if self.split_first
+                 else [self.proj_in])
+        sources = [m.weight for m in heads]
+        if fold:
+            sources += [*ln, self.gate.weight, self.gate.bias,
+                        self.proj_out.weight, self.proj_out.bias]
+
+        def build():
+            kw = {}
+            if fold:
+                kw = dict(ln=ln, gate=(self.gate.weight, self.gate.bias),
+                          out_proj=(self.proj_out.weight, self.proj_out.bias))
+            return pack_projection(*self._qkv_weights(),
+                                   self.key_dim // self.num_head, dtype,
+                                   **kw)
+        return self._packs[fold].get(sources, dtype, build)
 
     def forward(self, q_data, bias, k_mask, kernel: bool = False,
                 residual=None, ln=None):
@@ -111,13 +137,15 @@ class GatedAttention(nn.Module):
         if kernel:
             wq, wk, wv = self._qkv_weights()
             mask = k_mask[:, 0]
+            packed = self._packed(q_data.dtype, ln)
             if ln is not None:
                 return triangle_attention_packed(
                     q_data, wq, wk, wv, bias, mask, ln=ln,
                     gate=(self.gate.weight, self.gate.bias),
                     out_proj=(self.proj_out.weight, self.proj_out.bias),
-                    residual=residual)
-            out = triangle_attention_packed(q_data, wq, wk, wv, bias, mask)
+                    residual=residual, packed=packed)
+            out = triangle_attention_packed(q_data, wq, wk, wv, bias, mask,
+                                            packed=packed)
             if (self.gating and residual is not None
                     and registry.use_gate_proj_kernel()):
                 return gate_proj_residual(out, self.gate(q_data),
@@ -270,35 +298,46 @@ class TriangleMultiplication(nn.Module):
             self.final_gate = Linear(num_in, num_in, 'gate', dtype=dtype)
         self.final_norm = LayerNorm(nc, dtype=dtype)
         self.proj_out = Linear(nc, num_in, 'final', dtype=dtype)
+        # The pre kernel's packed weights: with the final gate, and without.
+        self._packs = {True: WeightCache(), False: WeightCache()}
+
+    def _pre_packed(self, dtype, emit_fgate: bool):
+        """The pre block's projections packed for the kernel, from the cache
+        (rebuilt when a weight changes)."""
+        branches = [self.left_proj, self.right_proj, self.left_gate,
+                    self.right_gate] + ([self.final_gate] if emit_fgate
+                                        else [])
+        weights = [m.weight for m in branches]
+        biases = [m.bias for m in branches]
+        ln = [self.norm.scale, self.norm.bias]
+        return self._packs[emit_fgate].get(
+            weights + biases + ln, dtype,
+            lambda: pack_pre(weights, biases, *ln, dtype))
 
     def forward(self, act, mask, residual: bool = False):
         dt = self.dtype
         use_pallas = registry.use_pallas_triangle()
         if (residual and self.gating and act.dim() == 4
                 and registry.on_device(act) and registry.use_fused_trimult()):
-            branches = [self.left_proj, self.right_proj, self.left_gate,
-                        self.right_gate]
             fscale, fbias = self.final_norm.scale, self.final_norm.bias
             # Channel-major is checked first, as in the JAX package: no
             # layout copies around the contraction's matrix product.
             c_major = registry.use_trimult_c_major() and not use_pallas
             if registry.use_trimult_gatefold() and not c_major:
+                pk = self._pre_packed(act.dtype, False)
                 left, right = tri_mult_pre(
-                    act, self.norm.scale, self.norm.bias,
-                    torch.cat([m.weight for m in branches]),
-                    torch.cat([m.bias for m in branches]), mask,
-                    emit_fgate=False)
+                    act, self.norm.scale, self.norm.bias, pk.w, pk.wb, mask,
+                    emit_fgate=False, packed=pk)
                 out = triangle_multiply(left, right, per_row=self.per_row,
                                         use_pallas=use_pallas)
                 return tri_mult_post_gatefold(
                     out, fscale, fbias, self.proj_out.weight,
                     self.proj_out.bias, self.norm.scale, self.norm.bias,
                     self.final_gate.weight, self.final_gate.bias, act)
-            branches.append(self.final_gate)
+            pk = self._pre_packed(act.dtype, True)
             left, right, fg = tri_mult_pre(
-                act, self.norm.scale, self.norm.bias,
-                torch.cat([m.weight for m in branches]),
-                torch.cat([m.bias for m in branches]), mask, c_major=c_major)
+                act, self.norm.scale, self.norm.bias, pk.w, pk.wb, mask,
+                c_major=c_major, packed=pk)
             if c_major:
                 out = triangle_multiply_c_major(left, right,
                                                 per_row=self.per_row)

@@ -13,6 +13,11 @@ Counterparts of three Pallas TPU kernels of abx_tpu/ops/tri_attention.py:
   projection of the natural rows, then the attention core over columns.
 - `triangle_attention_fused`: head-major q, k, v (B, R, H, L, D) with an
   f32 bias, all of it in one launch of `csrc/tri_attention.cu`.
+The fused projection's weights (the query scale folded in, f32 biases and
+LayerNorm params, the out-proj in the compute dtype) come packed by
+`pack_projection`, which the module caches (`ops/weight_cache.py`); in bf16
+the projection and the out-proj run the Hopper core of
+`csrc/row_linear_sm90.cuh`.
 The attention of all three runs on the register-resident flash core of
 `csrc/flash_attention.cuh`; the source notes there and in
 `csrc/tri_attention.cu` say what bounds it and how.  The (B, R, H, L, L)
@@ -23,6 +28,8 @@ final max rounded to bf16, its result rounded to bf16, summed in f32.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -51,11 +58,12 @@ def _bf16_exp(x) -> bool:
 
 def triangle_attention_packed_plain(x, wq, wk, wv, bias, mask, ln=None,
                                     gate=None, out_proj=None, residual=None,
-                                    bf16_exp: bool = False):
+                                    bf16_exp: bool = False, packed=None):
     """Plain PyTorch version, computed in f32 (as the JAX
     `triangle_attention_packed_reference`, plus the LN / gate / out-proj /
     residual options of the kernel, and with `bf16_exp` the kernel's bf16
-    softmax exponent, `softmax_bf16_exp`); returns x.dtype."""
+    softmax exponent, `softmax_bf16_exp`); returns x.dtype.  `packed` (the
+    kernels' weights) is not used."""
     b, r, l, c = x.shape
     h = bias.shape[1]
     d = wq.shape[0] // h
@@ -145,8 +153,43 @@ def tri_attention_core(y, shape, bias, mask, gate: bool,
     return out
 
 
+class ProjPack(NamedTuple):
+    """The triangle attention's weights as its kernels take them: the fused
+    [q * D^-1/2 | k | v (| gate)] projection (n, C) in the compute dtype and
+    its f32 bias (zero but for the gate columns), the f32 LayerNorm params
+    (None without), and the out-proj weight in the compute dtype with its
+    f32 bias (None without)."""
+    w_all: torch.Tensor
+    b_all: torch.Tensor
+    ln_s: torch.Tensor | None
+    ln_b: torch.Tensor | None
+    wo: torch.Tensor | None
+    bo: torch.Tensor | None
+
+
+def pack_projection(wq, wk, wv, d: int, dtype, ln=None, gate=None,
+                    out_proj=None) -> ProjPack:
+    """ProjPack of (H*D, C) q / k / v weights of head dim `d` (the query
+    scale d^-1/2 folded into wq), the optional LayerNorm params, gate
+    (w, b) and out-proj (w, b), for the compute dtype `dtype`."""
+    hd = wq.shape[0]
+    w_all = [wq.float() * (d ** -0.5), wk.float(), wv.float()]
+    b_all = [torch.zeros(3 * hd, device=wq.device)]
+    if gate is not None:
+        w_all.append(gate[0].float())
+        b_all.append(gate[1].float())
+    ln_s = ln_b = wo = bo = None
+    if ln is not None:
+        ln_s, ln_b = (p.float().contiguous() for p in ln)
+    if out_proj is not None:
+        wo = out_proj[0].to(dtype).contiguous()
+        bo = out_proj[1].float().contiguous()
+    return ProjPack(torch.cat(w_all).to(dtype).contiguous(),
+                    torch.cat(b_all).contiguous(), ln_s, ln_b, wo, bo)
+
+
 def _project_and_attend(name, x, wq, wk, wv, bias, mask, ln, gate,
-                        bf16_exp: bool, columns: bool):
+                        bf16_exp: bool, columns: bool, packed=None):
     """The kernels shared by the packed rows and columns: LN + the fused
     [q*D^-1/2 | k | v | gate] projection of the natural rows of x
     (`csrc/row_linear.cu`), then the attention core over rows or columns
@@ -157,22 +200,14 @@ def _project_and_attend(name, x, wq, wk, wv, bias, mask, ln, gate,
     hd = wq.shape[0]
     d = hd // h
     dt = x.dtype
-    dev = x.device
-    # The query scale is folded into wq here.  Only the gate columns carry
-    # a bias.
-    w_all = [wq.float() * (d ** -0.5), wk.float(), wv.float()]
-    b_all = [torch.zeros(3 * hd, device=dev)]
-    if gate is not None:
-        w_all.append(gate[0].float())
-        b_all.append(gate[1].float())
-    w_all = torch.cat(w_all, dim=0).to(dt).contiguous()
-    b_all = torch.cat(b_all).contiguous()
+    if packed is None:
+        packed = pack_projection(wq, wk, wv, d, dt, ln=ln, gate=gate)
+    w_all, b_all = packed.w_all, packed.b_all
+    ln_s, ln_b = packed.ln_s, packed.ln_b
     n_proj = w_all.shape[0]
-    ln_s = ln_b = None
-    if ln is not None:
-        ln_s, ln_b = ln[0].float().contiguous(), ln[1].float().contiguous()
-    bias_t = bias.to(dt).contiguous()
-    mask_f = mask.float().contiguous()
+    bias_t = bias if bias.dtype == dt and bias.is_contiguous() else (
+        bias.to(dt).contiguous())
+    mask_f = mask if mask.dtype == torch.float32 else mask.float()
     _lib.check_cuda_inputs(name, dt, x=x, w_all=w_all, bias=bias_t,
                            f32=dict(b_all=b_all, mask=mask_f,
                                     ln_s=ln_s, ln_b=ln_b))
@@ -182,13 +217,14 @@ def _project_and_attend(name, x, wq, wk, wv, bias, mask, ln, gate,
     _lib.require(bias.shape == (b, h, l, l) and mask.shape == (b, l)
                  and (r == l or not columns),
                  f'{name}: bias (B,H,L,L), mask (B,L)')
-    _lib.require(ln is None or ln_s.shape == ln_b.shape == (c,),
+    _lib.require((ln is None) == (ln_s is None)
+                 and (ln_s is None or ln_s.shape == ln_b.shape == (c,)),
                  f'{name}: LN params must be (C,)')
-    _lib.require(n_proj == 3 * hd and b_all.shape == (3 * hd,)
-                 or n_proj == 4 * hd and b_all.shape == (4 * hd,),
+    _lib.require(w_all.shape[1] == c and b_all.shape == (n_proj,)
+                 and n_proj == (3 if gate is None else 4) * hd,
                  f'{name}: gate must be ((H*D, C), (H*D,))')
     m = b * r * l
-    y = torch.empty((m, n_proj), dtype=dt, device=dev)
+    y = torch.empty((m, n_proj), dtype=dt, device=x.device)
     _lib.check(_lib.lib().abx_row_linear(
         _lib.DTYPE_CODE[dt], x.data_ptr(), m, c, c, _lib.ptr(ln_s),
         _lib.ptr(ln_b), w_all.data_ptr(), b_all.data_ptr(), None, None,
@@ -199,7 +235,8 @@ def _project_and_attend(name, x, wq, wk, wv, bias, mask, ln, gate,
 
 
 def triangle_attention_packed(x, wq, wk, wv, bias, mask, ln=None, gate=None,
-                              out_proj=None, residual=None):
+                              out_proj=None, residual=None,
+                              packed: ProjPack | None = None):
     """Layout-native fused attention over the rows of x.
 
     Args:
@@ -212,6 +249,8 @@ def triangle_attention_packed(x, wq, wk, wv, bias, mask, ln=None, gate=None,
         gate: optional (wg (H*D, C), bg (H*D,)): out *= sigmoid(x wg^T + bg).
         out_proj: optional (wo (C_out, H*D), bo (C_out,)); requires
             `residual` (B, R, L, C_out), which is added in the epilogue.
+        packed: these weights as `pack_projection` packs them for x.dtype
+            (a module caches it); packed here when None.
     Returns: (B, R, L, H*D), or (B, R, L, C_out) with `out_proj`.
     """
     bf16_exp = _bf16_exp(x)
@@ -222,12 +261,14 @@ def triangle_attention_packed(x, wq, wk, wv, bias, mask, ln=None, gate=None,
     b, r, l, c = x.shape
     hd = wq.shape[0]
     dt = x.dtype
+    if packed is None:
+        packed = pack_projection(wq, wk, wv, hd // bias.shape[1], dt, ln=ln,
+                                 gate=gate, out_proj=out_proj)
     if out_proj is not None:
+        wo, bo = packed.wo, packed.bo
+        c_out = wo.shape[0]
         _lib.require(residual is not None,
                      'triangle_attention_packed: out_proj needs the residual')
-        wo = out_proj[0].to(dt).contiguous()
-        bo = out_proj[1].float().contiguous()
-        c_out = wo.shape[0]
         _lib.check_cuda_inputs('triangle_attention_packed', dt, wo=wo,
                                residual=residual, f32=dict(bo=bo))
         _lib.require(wo.shape == (c_out, hd)
@@ -235,7 +276,7 @@ def triangle_attention_packed(x, wq, wk, wv, bias, mask, ln=None, gate=None,
                      'triangle_attention_packed: wo (C_out, H*D), residual '
                      '(B, R, L, C_out)')
     att = _project_and_attend('triangle_attention_packed', x, wq, wk, wv,
-                              bias, mask, ln, gate, bf16_exp, False)
+                              bias, mask, ln, gate, bf16_exp, False, packed)
     if out_proj is None:
         triangle_attention_packed.launches += 1
         return att.reshape(b, r, l, hd)
@@ -254,10 +295,12 @@ triangle_attention_packed.launches = 0
 
 def triangle_attention_packed_cols_plain(x, ln_scale, ln_bias, wq, wk, wv,
                                          wg, bg, bias, mask,
-                                         bf16_exp: bool = False):
+                                         bf16_exp: bool = False,
+                                         packed=None):
     """Plain PyTorch version (as the JAX
     `triangle_attention_packed_cols_reference`): the packed plain version
-    on the transposed pair, transposed back; returns x.dtype."""
+    on the transposed pair, transposed back; returns x.dtype.  `packed` is
+    not used."""
     out = triangle_attention_packed_plain(
         x.transpose(1, 2), wq, wk, wv, bias, mask, ln=(ln_scale, ln_bias),
         gate=(wg, bg), bf16_exp=bf16_exp)
@@ -265,7 +308,8 @@ def triangle_attention_packed_cols_plain(x, ln_scale, ln_bias, wq, wk, wv,
 
 
 def triangle_attention_packed_cols(x, ln_scale, ln_bias, wq, wk, wv, wg, bg,
-                                   bias, mask):
+                                   bias, mask,
+                                   packed: ProjPack | None = None):
     """Ending-node (per-column) attention on the RAW natural pair tensor:
     LN + [q|k|v|gate] projections + attention along the row axis + gate,
     natural layout in and out.
@@ -277,6 +321,8 @@ def triangle_attention_packed_cols(x, ln_scale, ln_bias, wq, wk, wv, wg, bg,
             gate bias.
         bias: (B, H, L, L) bias of the transposed node, bias[b, h, q, k].
         mask: (B, L) key mask over the row axis (1 = valid).
+        packed: these weights as `pack_projection` packs them for x.dtype;
+            packed here when None.
     Returns: (B, L, L, H*D) in x.dtype; out[b, l, i] is the attention
         output of query l in column i.
     """
@@ -287,7 +333,7 @@ def triangle_attention_packed_cols(x, ln_scale, ln_bias, wq, wk, wv, wg, bg,
     b, l, _, c = x.shape
     att = _project_and_attend('triangle_attention_packed_cols', x, wq, wk,
                               wv, bias, mask, (ln_scale, ln_bias), (wg, bg),
-                              bf16_exp, True)
+                              bf16_exp, True, packed)
     triangle_attention_packed_cols.launches += 1
     return att.reshape(b, l, l, wq.shape[0])
 

@@ -18,6 +18,8 @@ device memory; see the source note there for what bounds them.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -32,11 +34,12 @@ def _nc(w, c: int, emit_fgate: bool) -> int:
 
 
 def tri_mult_pre_plain(x, scale, bias, w, wb, mask, eps: float = 1e-5,
-                       emit_fgate: bool = True, c_major: bool = False):
+                       emit_fgate: bool = True, c_major: bool = False,
+                       packed=None):
     """Plain PyTorch version (mirrors tri_mult_pre_reference, and with
     `c_major` moves the channels of left and right in front of the
     positions): LN in f32, the product in the input dtype, bias / gating /
-    mask in f32."""
+    mask in f32.  `packed` (the kernel's weights) is not used."""
     nc = _nc(w, x.shape[-1], emit_fgate)
     dt = x.dtype
     ln = layer_norm(x, scale, bias, eps, dtype=dt)
@@ -65,8 +68,35 @@ def _pack(value, gate):
         (-1,) + value.shape[1:])
 
 
+class PrePack(NamedTuple):
+    """tri_mult_pre's weights as the kernel takes them: the packed (N, C)
+    weight in the compute dtype, its f32 bias and the f32 LayerNorm
+    params; `w` and `wb` are the five (or four) projections stacked in
+    order, as the wrapper's arguments."""
+    w: torch.Tensor
+    wb: torch.Tensor
+    w_packed: torch.Tensor
+    b_packed: torch.Tensor
+    scale: torch.Tensor
+    bias: torch.Tensor
+
+
+def pack_pre(weights, biases, scale, bias, dtype) -> PrePack:
+    """PrePack of the projections [left, right, left gate, right gate(,
+    final gate)] ((nc, C) or (C, C) weights, nn.Linear layout, and their
+    biases) and the LayerNorm params, for the compute dtype `dtype`."""
+    w, wb = torch.cat(list(weights)), torch.cat(list(biases))
+    wf, bf = [t.float() for t in weights], [t.float() for t in biases]
+    w_packed = torch.cat([_pack(wf[0], wf[2]), _pack(wf[1], wf[3]),
+                          *wf[4:]]).to(dtype).contiguous()
+    b_packed = torch.cat([_pack(bf[0], bf[2]), _pack(bf[1], bf[3]),
+                          *bf[4:]]).contiguous()
+    return PrePack(w, wb, w_packed, b_packed, scale.float().contiguous(),
+                   bias.float().contiguous())
+
+
 def tri_mult_pre(x, scale, bias, w, wb, mask, emit_fgate: bool = True,
-                 c_major: bool = False):
+                 c_major: bool = False, packed: PrePack | None = None):
     """LN -> fused [left|right|left gate|right gate(|final gate)]
     projection -> left * sigmoid(left gate) * pair mask, likewise right.
 
@@ -80,6 +110,9 @@ def tri_mult_pre(x, scale, bias, w, wb, mask, emit_fgate: bool = True,
         mask: (B, L) sequence mask; the pair mask is mask_i * mask_j.
         c_major: left and right as (B, nc, L, L), the operand layout of
             `triangle_multiply_c_major`.
+        packed: the same weights as `pack_pre` packs them for x.dtype (a
+            module caches it, so a call launches the kernel alone); packed
+            here when None.
     Returns: left, right (B, L, L, nc) -- (B, nc, L, L) with `c_major` --
         and, with `emit_fgate`, the pre-sigmoid final gate (B, L, L, C),
         all in x.dtype.
@@ -95,16 +128,15 @@ def tri_mult_pre(x, scale, bias, w, wb, mask, emit_fgate: bool = True,
                  and wb.shape == (4 * nc + n_fg,) and mask.shape == (b, l),
                  'tri_mult_pre: x (B, L, L, C), w (4*nc [+ C], C), wb, '
                  'mask (B, L)')
-    w_parts = torch.split(w.float(), [nc] * 4 + [n_fg])
-    b_parts = torch.split(wb.float(), [nc] * 4 + [n_fg])
-    w_packed = torch.cat([_pack(w_parts[0], w_parts[2]),
-                          _pack(w_parts[1], w_parts[3]),
-                          w_parts[4]]).to(dt).contiguous()
-    b_packed = torch.cat([_pack(b_parts[0], b_parts[2]),
-                          _pack(b_parts[1], b_parts[3]),
-                          b_parts[4]]).contiguous()
-    scale, bias = scale.float().contiguous(), bias.float().contiguous()
-    maskf = mask.float().contiguous()
+    if packed is None:
+        packed = pack_pre(torch.split(w, [nc] * 4 + [n_fg])[:4 + bool(n_fg)],
+                          torch.split(wb, [nc] * 4 + [n_fg])[:4 + bool(n_fg)],
+                          scale, bias, dt)
+    w_packed, b_packed = packed.w_packed, packed.b_packed
+    scale, bias = packed.scale, packed.bias
+    _lib.require(w_packed.shape == (4 * _HALF * -(-nc // _HALF) + n_fg, c),
+                 'tri_mult_pre: packed weights of another shape')
+    maskf = mask if mask.dtype == torch.float32 else mask.float()
     _lib.check_cuda_inputs('tri_mult_pre', dt, x=x, w=w_packed,
                            f32=dict(wb=b_packed, scale=scale, bias=bias,
                                     mask=maskf))

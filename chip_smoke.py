@@ -14,12 +14,17 @@ fatal on failure:
      plain version with the same exponent); kernel and plain times (median
      of CUDA event timings after warm-up, bf16), and the time of the one
      torch call that computes the same function where there is one (and
-     esm_attention's one call launches one device kernel, under the
-     profiler: the key-pad mask is read by the kernel), and row 1's
+     esm_attention's, ipa_attention's and tri_mult_pre's one call each
+     launch one device kernel, under the profiler; tri_mult_pre and the
+     triangle attentions take their weights packed, as the modules cache
+     them; the row-linear cases print beside them the bare bf16
+     torch.matmul of their product as a yardstick), and row 1's
      attention core alone on ready projection rows beside SDPA; the bf16
      core against the plain core with the TPU kernel's exponent (against
      the row's final max) on rows whose logits are exact in f32, to
-     EXP_TOL relative; then
+     EXP_TOL relative; the bf16 IPA scalar attend with p rounded to bf16
+     (the TPU kernel's p.astype(in_dt)) on a case where the rounding of p
+     moves the output by 15-35%, to IPA_CANCEL_TOL relative; then
      the channel-major contraction (torch.matmul, checked under the
      profiler to run no copy kernel) timed beside the natural einsum and
      the triangle_multiply kernel, both orientations;
@@ -173,15 +178,18 @@ def kernel_cases(torch, dev):
     cases = []
 
     def case(name, label, kern, plain, a32, a16, reads, flops, library=None,
-             env=None, plain16=None, one_launch=False):
+             env=None, plain16=None, one_launch=False, gemm=None):
         """env: flags set while the case runs; plain16: the plain version
         the bf16 kernel is held to, where it differs from `plain`;
         one_launch: the wrapper must launch its kernel and no other device
-        kernel (checked under the profiler)."""
+        kernel (checked under the profiler); gemm: (k, n) of the bare bf16
+        torch.matmul (M, k) x (k, n) timed beside the kernel as a yardstick
+        for the row-linear core (not the same function: no LayerNorm, no
+        epilogue)."""
         cases.append(dict(name=name, label=label, kern=kern, plain=plain,
                           a32=a32, a16=a16, reads=reads, flops=flops,
                           library=library, env=env or {}, plain16=plain16,
-                          one_launch=one_launch))
+                          one_launch=one_launch, gemm=gemm))
 
     def tri(label, r, c, h, exp_flag):
         x = rnd(b, r, l, c)
@@ -191,12 +199,16 @@ def kernel_cases(torch, dev):
                   out_proj=(w[4], rnd(c, scale=0.1)))
         bias = rnd(b, h, l, l)
         args = (x, w[0], w[1], w[2], bias, mask)
+        # The packed weights, as the module caches them.
+        packs = {dt: ta_op.pack_projection(w[0], w[1], w[2], c // h, dt,
+                                           **kw)
+                 for dt in (torch.float32, torch.bfloat16)}
         rows = b * r * l
         # q/k/v/gate and out projections; QK^T and PV over H heads of D.
         flops = 10 * rows * c * c + 4 * b * r * l * l * c
         case('triangle_attention_packed', f'{label}, bf16 exp {exp_flag}',
              lambda x, res: ta_op.triangle_attention_packed(
-                 x, *args[1:], residual=res, **kw),
+                 x, *args[1:], residual=res, packed=packs[x.dtype], **kw),
              lambda x, res: ta_op.triangle_attention_packed_plain(
                  x, *args[1:], residual=res, **kw),
              (x, x), (x.bfloat16(), x.bfloat16()),
@@ -204,7 +216,7 @@ def kernel_cases(torch, dev):
              flops, env={'ABX_TRI_ATTN_BF16_EXP': exp_flag},
              plain16=lambda x, res: ta_op.triangle_attention_packed_plain(
                  x, *args[1:], residual=res, bf16_exp=exp_flag == '1',
-                 **kw))
+                 **kw), gemm=(c, 4 * c) if r > 1 else None)
     tri('tri-attention (4,288,288,192) H=4 D=48', l, 192, 4, '1')
     tri('tri-attention (4,288,288,192) H=4 D=48', l, 192, 4, '0')
     tri('seq-attention (4,1,288,544) H=32 D=17', 1, 544, 32, '1')
@@ -270,13 +282,21 @@ def kernel_cases(torch, dev):
     pre = (1 + rnd(c, scale=0.1), rnd(c, scale=0.1),
            rnd(4 * nc + c, c, scale=c ** -0.5), rnd(4 * nc + c, scale=0.5),
            mask)
+    # The packed weights, as the module caches them (then a call is one
+    # launch).
+    pre_parts = (torch.split(pre[2], [nc] * 4 + [c]),
+                 torch.split(pre[3], [nc] * 4 + [c]))
+    pre_pk = {dt: tm_op.pack_pre(*pre_parts, pre[0], pre[1], dt)
+              for dt in (torch.float32, torch.bfloat16)}
     case('tri_mult_pre', '(4,288,288,192) -> nc=128 x2 + 192',
-         lambda x: tm_op.tri_mult_pre(x, *pre),
+         lambda x: tm_op.tri_mult_pre(x, *pre, packed=pre_pk[x.dtype]),
          lambda x: tm_op.tri_mult_pre_plain(x, *pre),
-         (x,), (x.bfloat16(),), list(pre), 2 * m * c * (4 * nc + c))
+         (x,), (x.bfloat16(),), list(pre), 2 * m * c * (4 * nc + c),
+         one_launch=True, gemm=(c, 4 * nc + c))
     case('tri_mult_pre_c_major', '(4,288,288,192) -> nc=128 x2 as '
          '(4,128,288,288) + 192',
-         lambda x: tm_op.tri_mult_pre(x, *pre, c_major=True),
+         lambda x: tm_op.tri_mult_pre(x, *pre, c_major=True,
+                                      packed=pre_pk[x.dtype]),
          lambda x: tm_op.tri_mult_pre_plain(x, *pre, c_major=True),
          (x,), (x.bfloat16(),), list(pre), 2 * m * c * (4 * nc + c))
     y, fg, res = rnd(b, l, l, nc), rnd(b, l, l, c), rnd(b, l, l, c)
@@ -286,7 +306,7 @@ def kernel_cases(torch, dev):
          lambda y, fg, res: tm_op.tri_mult_post(y, *post, fg, res),
          lambda y, fg, res: tm_op.tri_mult_post_plain(y, *post, fg, res),
          (y, fg, res), (y.bfloat16(), fg.bfloat16(), res.bfloat16()),
-         list(post), 2 * m * nc * c)
+         list(post), 2 * m * nc * c, gemm=(nc, c))
     ycm = y.permute(0, 3, 1, 2).contiguous()
     case('tri_mult_post_c_major', '(4,128,288,288) -> (4,288,288,192)',
          lambda y, fg, res: tm_op.tri_mult_post(y, *post, fg, res,
@@ -298,8 +318,12 @@ def kernel_cases(torch, dev):
     del ycm
     pre4 = (pre[0], pre[1], pre[2][:4 * nc].contiguous(), pre[3][:4 * nc],
             mask)
+    pre4_pk = {dt: tm_op.pack_pre(pre_parts[0][:4], pre_parts[1][:4],
+                                  pre[0], pre[1], dt)
+               for dt in (torch.float32, torch.bfloat16)}
     case('tri_mult_pre_no_fgate', '(4,288,288,192) -> nc=128 x2',
-         lambda x: tm_op.tri_mult_pre(x, *pre4, emit_fgate=False),
+         lambda x: tm_op.tri_mult_pre(x, *pre4, emit_fgate=False,
+                                      packed=pre4_pk[x.dtype]),
          lambda x: tm_op.tri_mult_pre_plain(x, *pre4, emit_fgate=False),
          (x,), (x.bfloat16(),), list(pre4), 2 * m * c * 4 * nc)
     fold = (1 + rnd(c, scale=0.1), rnd(c, scale=0.1),
@@ -317,7 +341,7 @@ def kernel_cases(torch, dev):
          lambda y, gt, res: gp_op.gate_proj_residual(y, gt, *gw, res),
          lambda y, gt, res: gp_op.gate_proj_residual_plain(y, gt, *gw, res),
          (gy, gate, res), (gy.bfloat16(), gate.bfloat16(), res.bfloat16()),
-         list(gw), 2 * m * hd * c)
+         list(gw), 2 * m * hd * c, gemm=(hd, c))
     del gy, gate
     left, right = rnd(b, l, l, nc), rnd(b, l, l, nc)
     for per_row, eq in ((True, 'bikc,bjkc->bijc'),
@@ -341,21 +365,28 @@ def kernel_cases(torch, dev):
          lambda sp, pp: re_op.recycle_embed_plain(sp, rec[0], pp, *rec[1:]),
          (static, prev), (static.bfloat16(), prev.bfloat16()), list(rec), 0)
 
+    # As the IPA module hands them in: k / v column blocks of one (B, L, H,
+    # 2 Ds) projection, the bias the permuted (B, L, L, H) pair projection
+    # in the compute dtype (its values exact in bf16, so the f32 call and
+    # the plain version see the same ones).
     h, ds, pq, pv, c = 12, 16, 4, 8, 128
-    qs, ks, vs = (rnd(b, l, h, ds, scale=0.25) for _ in range(3))
+    qs, kv = rnd(b, l, h, ds, scale=0.25), rnd(b, l, h, 2 * ds, scale=0.25)
+    kv16 = kv.bfloat16()
     pts = [rnd(b, l, h, p, 3, scale=3.0) for p in (pq, pq, pv)]
     pw = -0.5 * (0.1 + torch.rand(h, generator=g, device=dev)) * 0.2
-    ibias, pair = rnd(b, h, l, l), rnd(b, l, l, c)
-    case('ipa_attention', 'pair (4,288,288,128) H=12',
+    ibias16 = rnd(b, l, l, h).bfloat16().permute(0, 3, 1, 2)
+    ibias, pair = ibias16.float(), rnd(b, l, l, c)
+    ibias_of = {torch.float32: ibias, torch.bfloat16: ibias16}
+    case('ipa_attention', 'pair (4,288,288,128) H=12, module layouts',
          lambda qs, ks, vs, pair: ipa_op.ipa_attention(
-             qs, ks, vs, *pts, pw, ibias, mask, pair),
+             qs, ks, vs, *pts, pw, ibias_of[qs.dtype], mask, pair),
          lambda qs, ks, vs, pair: ipa_op.ipa_attention_plain(
              qs, ks, vs, *pts, pw, ibias, mask, pair),
-         (qs, ks, vs, pair),
-         (qs.bfloat16(), ks.bfloat16(), vs.bfloat16(), pair.bfloat16()),
-         [*pts, pw, ibias, mask],
-         # logits (scalar + point terms), scalar / point / pair attends.
-         2 * b * h * l * l * (2 * ds + 3 * pq + 3 * pv + c))
+         (qs, kv[..., :ds], kv[..., ds:], pair),
+         (qs.bfloat16(), kv16[..., :ds], kv16[..., ds:], pair.bfloat16()),
+         [*pts, pw, ibias16, mask], one_launch=True, flops=(
+             # logits (scalar + point terms), scalar / point / pair attends.
+             2 * b * h * l * l * (2 * ds + 3 * pq + 3 * pv + c)))
     attn = torch.softmax(rnd(b, h, l, l, scale=2.0), dim=-1)
     case('ipa_pair_attend', 'attn (4,12,288,288) f32, pair (4,288,288,128)',
          lambda at, pr: ia_op.ipa_pair_attend(at, pr),
@@ -391,10 +422,14 @@ def kernel_cases(torch, dev):
     cw = [rnd(c, c, scale=c ** -0.5) for _ in range(4)]
     cols = (1 + rnd(c, scale=0.1), rnd(c, scale=0.1), *cw,
             rnd(c, scale=0.1), tbias)
+    cols_pk = {dt: ta_op.pack_projection(*cw[:3], d, dt, ln=cols[:2],
+                                         gate=(cw[3], cols[6]))
+               for dt in (torch.float32, torch.bfloat16)}
     for flag in ('1', '0'):
         case('triangle_attention_packed_cols',
              f'(4,288,288,192) H=4 D=48, bf16 exp {flag}',
-             lambda x: ta_op.triangle_attention_packed_cols(x, *cols, mask),
+             lambda x: ta_op.triangle_attention_packed_cols(
+                 x, *cols, mask, packed=cols_pk[x.dtype]),
              lambda x: ta_op.triangle_attention_packed_cols_plain(
                  x, *cols, mask),
              (x,), (x.bfloat16(),), [*cols, mask],
@@ -505,6 +540,14 @@ def phase_kernels(torch, dev):
         plain_ms = time_ms(torch, lambda: plain(*a16))
         lib_ms = (time_ms(torch, lambda: cs['library'](*a16))
                   if cs['library'] else None)
+        gemm_ms = None
+        if cs['gemm']:
+            gk, gn = cs['gemm']
+            rows = a16[0].numel() // a16[0].shape[-1]
+            ga = torch.randn(rows, gk, device=dev).bfloat16()
+            gb = torch.randn(gk, gn, device=dev).bfloat16()
+            gemm_ms = time_ms(torch, lambda: torch.matmul(ga, gb))
+            del ga, gb
         launched = None
         if cs['one_launch']:
             launched = device_kernel_names(torch, lambda: kern(*a16))
@@ -517,6 +560,9 @@ def phase_kernels(torch, dev):
             else:
                 os.environ[k] = v
         lib_txt = f', library {lib_ms:.3f} ms' if lib_ms is not None else ''
+        if gemm_ms is not None:
+            lib_txt += (f'; yardstick torch.matmul ({rows}, {gk}) x ({gk}, '
+                        f'{gn}) bf16 {gemm_ms:.3f} ms')
         print(f'kernel {name} {label}: f32 err/max|ref| {e32:.3g}, bf16 '
               f'err/max|ref| {e16:.3g}; bf16 kernel {ms:.3f} ms, plain '
               f'{plain_ms:.3f} ms{lib_txt}; bound {bms:.4f} ms by {by} '
@@ -527,7 +573,7 @@ def phase_kernels(torch, dev):
             'case': label, 'max_abs_err': abs16, 'rel_err_bf16': e16,
             'rel_err_f32': e32, 'ms': ms, 'plain_ms': plain_ms,
             'library_ms': lib_ms, 'bound_ms': bms, 'bound_by': by,
-            'flops': cs['flops'], 'bytes': nbytes})
+            'flops': cs['flops'], 'bytes': nbytes, 'gemm_yardstick_ms': gemm_ms})
         if cs['one_launch']:
             entry['cases'][-1]['device_kernels_per_call'] = launched
             seen = launched or 'not recorded by the profiler'
@@ -589,6 +635,52 @@ def phase_exponent(torch, dev):
                  f'rel err {err:.3g} > {EXP_TOL}')
         report[what] = err
     return report
+
+
+IPA_CANCEL_TOL = 1e-2   # the IPA scalar attend vs the bf16-p plain version
+
+
+def phase_ipa_cancel(torch, dev):
+    """The bf16 IPA scalar attend with p rounded to bf16, as the TPU kernel
+    does (p.astype(in_dt) before the dot): B=4, L=288, H=12, C=128; every
+    query row of head h puts nearly all its weight on keys 0 and 1 (bias 4
+    and 4 - gap_h, the other keys -30, no scalar or point term), whose
+    values are +1 and -1, so each out_s element is p_0 - p_1 and moves by
+    15-35% with the rounding of p (the gaps keep p_0 and p_1 at least 0.2
+    bf16 ulp from a rounding midpoint).  out_s must lie within
+    IPA_CANCEL_TOL (relative) of the bf16-p plain version; an f32-p
+    scalar attend misses it (tests/test_torch_kernels.py)."""
+    from abx_tpu_torch.ops import ipa_attention as ipa_op
+    b, l, h, ds, c = 4, 288, 12, 16, 128
+    gaps = torch.tensor([0.0132816, 0.0179590, 0.0133092] * 4, device=dev)
+    qs = torch.zeros(b, l, h, ds, device=dev).bfloat16()
+    vs = torch.zeros(b, l, h, ds, device=dev)
+    vs[:, 0], vs[:, 1] = 1.0, -1.0
+    pts = [torch.zeros(b, l, h, p, 3, device=dev) for p in (4, 4, 8)]
+    bias = torch.full((b, h, l, l), -30.0, device=dev)
+    bias[..., 0] = 4.0
+    bias[..., 1] = (4.0 - gaps)[None, :, None]
+    pair = torch.randn(b, l, l, c, generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev).bfloat16()
+    args = (qs, qs, vs.bfloat16(), *pts, torch.full((h,), -0.1, device=dev),
+            bias, torch.ones(b, l, device=dev), pair)
+    want = ipa_op.ipa_attention_plain(*args)[0].float()
+    got = ipa_op.ipa_attention(*args)[0].float()
+    probs = torch.softmax(bias, dim=-1)
+    f32_p = torch.einsum('bhij,bjhd->bihd', probs, vs).reshape(
+        b, l, h * ds).bfloat16().float()
+    torch.cuda.synchronize()
+    if not (want.abs() > 0).all():
+        fail('IPA cancellation check: a plain output is 0')
+    err = ((got - want).abs() / want.abs()).max().item()
+    err_f32p = ((f32_p - want).abs() / want.abs()).max().item()
+    print(f'ipa_attention scalar attend, bf16 p (B={b}, L={l}, H={h}): max '
+          f'rel err {err:.3g} against the bf16-p plain version (tolerance '
+          f'{IPA_CANCEL_TOL}); an f32-p attend: {err_f32p:.3g}', flush=True)
+    if not err <= IPA_CANCEL_TOL:
+        fail(f'the IPA scalar attend missed the bf16-p plain version: rel '
+             f'err {err:.3g} > {IPA_CANCEL_TOL}')
+    return {'max_rel_err': err, 'f32_p_emulation_rel_err': err_f32p}
 
 
 def device_kernel_names(torch, fn):
@@ -1172,6 +1264,7 @@ def main():
 
     kernels = phase_kernels(torch, dev)
     exponent = phase_exponent(torch, dev)
+    ipa_cancel = phase_ipa_cancel(torch, dev)
     contraction = phase_contraction(torch, dev)
     flags = phase_flags(torch, dev)
     esm_flags = phase_esm_flags(torch, dev)
@@ -1200,6 +1293,7 @@ def main():
             'library_ms': first['library_ms'], 'cases': cases})
     print(card)
     print(json.dumps({'kernels': rows, 'bf16_exp_final_max': exponent,
+                      'ipa_scalar_attend_bf16_p': ipa_cancel,
                       'flags_vs_off': flags,
                       'esm_flags_on_vs_off': esm_flags,
                       'contraction': contraction, **stats}))

@@ -1005,3 +1005,256 @@ def test_tri_attention_fully_masked_key_row_matches_plain(cuda, monkeypatch,
                                                bias, mask, **kw)
     torch.cuda.synchronize()
     _close_on_card(got, want, dtype)
+
+
+# --- the IPA scalar attend takes p in the input dtype ----------------------
+
+IPA_CANCEL_TOL = 1e-2   # max |got - want| / |want| over out_s
+
+
+def _ipa_cancel_case(b=1, l=37, h=3, c=32):
+    """The ten ipa_attention inputs (numpy f32) of a case whose scalar
+    attend cancels: every query row of head h puts nearly all its weight on
+    keys 0 and 1 (bias 4 and 4 - gap_h, every other key -30; scalar and
+    point terms 0), whose values are +1 and -1 in every dim, so each out_s
+    element is p_0 - p_1 ~ gap_h / 2.  Rounding p to bf16 before the attend
+    moves that difference by 15-35%: the gaps are chosen so that p_0 and
+    p_1 lie at least 0.2 bf16 ulp from a rounding midpoint, which f32 noise
+    in the logits cannot cross.  The pair track is random."""
+    rng = np.random.default_rng(60)
+    f = np.float32
+    gaps = np.array([0.0132816, 0.0179590, 0.0133092], f)[:h]
+    qs = np.zeros((b, l, h, 16), f)
+    vs = np.zeros((b, l, h, 16), f)
+    vs[:, 0], vs[:, 1] = 1.0, -1.0
+    pts = [np.zeros((b, l, h, p, 3), f) for p in (4, 4, 8)]
+    bias = np.full((b, h, l, l), -30.0, f)
+    bias[..., 0] = 4.0
+    bias[..., 1] = (4.0 - gaps)[None, :, None]
+    return [qs, qs.copy(), vs, *pts, np.full(h, -0.1, f), bias,
+            np.ones((b, l), f), rng.standard_normal((b, l, l, c)).astype(f)]
+
+
+def _cancel_err(got, want):
+    """max |got - want| / |want| over out_s (no want is 0 here)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    assert (want.abs() > 0).all()
+    return ((got - want).abs() / want.abs()).max().item()
+
+
+def _ipa_cancel_inputs(case, dtype, dev='cpu'):
+    """The case on `dev`: q / k / v and the pair in dtype, the rest f32."""
+    return [t(a).to(dev).to(dtype) if i in (0, 1, 2, 9) else t(a).to(dev)
+            for i, a in enumerate(case)]
+
+
+def test_ipa_cancel_case_tells_bf16_p_from_f32_p():
+    """On the CPU: the plain version in bf16 (p rounded to bf16 before the
+    scalar attend, as the TPU kernel does) against an emulation that keeps
+    p in f32 (the scalar attend of the kernel's first design): at IPA_CANCEL_TOL the
+    emulation fails the case by far, and the plain output's own bf16
+    rounding stays well inside it."""
+    args = _ipa_cancel_inputs(_ipa_cancel_case(), torch.bfloat16)
+    want = ipa_op.ipa_attention_plain(*args)[0]
+    f32 = [a.float() for a in args]
+    logits = f32[7] + ((1.0 - f32[8]) * ipa_op.BIG_NEG)[:, None, None, :]
+    probs = torch.softmax(logits, dim=-1)
+    b, l, h, ds = args[0].shape
+    exact = torch.einsum('bhij,bjhd->bihd', probs.bfloat16().float(),
+                         f32[2]).reshape(b, l, h * ds)
+    f32_p = torch.einsum('bhij,bjhd->bihd', probs, f32[2]).reshape(
+        b, l, h * ds).bfloat16()
+    assert _cancel_err(want, exact) <= IPA_CANCEL_TOL / 2
+    assert _cancel_err(f32_p, want) > 10 * IPA_CANCEL_TOL
+
+
+@pytest.mark.gpu
+def test_ipa_attention_scalar_attend_rounds_p(cuda):
+    """The bf16 kernel on the cancellation case: out_s within
+    IPA_CANCEL_TOL of the bf16-p plain version (the f32-p scalar attend of
+    an f32-p scalar attend misses it by 15-35%); out_p and out_2d to the usual
+    bar."""
+    case = _ipa_cancel_case()
+    args = _ipa_cancel_inputs(case, torch.bfloat16, cuda)
+    want = ipa_op.ipa_attention_plain(*args)
+    got = ipa_op.ipa_attention(*args)
+    torch.cuda.synchronize()
+    err = _cancel_err(got[0], want[0])
+    print(f'ipa scalar attend, bf16 p: max rel err {err:.3g}')
+    assert err <= IPA_CANCEL_TOL, err
+    f32 = ipa_op.ipa_attention_plain(*_ipa_cancel_inputs(case,
+                                                         torch.float32, cuda))
+    for g, w in zip(got[1:], f32[1:]):
+        _close_on_card(g, w, torch.bfloat16)
+
+
+# (b, l, h, ds, pq, pv, c): L not a multiple of the rows a block or of 16;
+# H below 16 and at 12; Ds 16 and 32; C 32, 48 and 128.
+IPA_SHAPES = [(2, 37, 3, 16, 4, 8, 32), (1, 70, 12, 16, 4, 8, 128),
+              (2, 29, 5, 32, 3, 5, 48)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', IPA_SHAPES)
+def test_ipa_attention_ragged_matches_plain(cuda, shape, dtype):
+    args = [t(a).to(cuda) for a in _ipa_case(61, *shape)]
+    args[8][-1, :] = 0.0
+    args[8][-1, 3] = 1.0    # a batch element with one valid key
+    want = ipa_op.ipa_attention_plain(*args)
+    low = [a.to(dtype) if i in (0, 1, 2, 9) else a
+           for i, a in enumerate(args)]
+    got = ipa_op.ipa_attention(*low)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _close_on_card(g, w, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('l', [45, 46])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_ipa_attention_takes_the_module_layouts(cuda, dtype, l):
+    """k / v as column blocks of one projection, the value points as a
+    slice of the key-value points and the bias as the module's permuted
+    (B, L, L, H) projection in the compute dtype, one launch a call (in
+    bf16 at L = 46 each row's L x H bias is read in 16-byte pieces, at
+    L = 45 element by element)."""
+    b, h, ds, pq, pv, c = 2, 12, 16, 4, 8, 64
+    args = [t(a).to(cuda) for a in _ipa_case(62, b, l, h, ds, pq, pv, c)]
+    kv = torch.cat([args[1], args[2]], -1).to(dtype)
+    kvp = torch.cat([args[4], args[5]], -2)
+    bias = args[7].permute(0, 2, 3, 1).contiguous().to(dtype).permute(
+        0, 3, 1, 2)
+    strided = [args[0].to(dtype), kv[..., :ds], kv[..., ds:], args[3],
+               kvp[..., :pq, :], kvp[..., pq:, :], args[6], bias, args[8],
+               args[9].to(dtype)]
+    want = ipa_op.ipa_attention_plain(*args[:7], bias.float(), *args[8:])
+    before = ipa_op.ipa_attention.launches
+    got = ipa_op.ipa_attention(*strided)
+    torch.cuda.synchronize()
+    assert ipa_op.ipa_attention.launches == before + 1
+    for g, w in zip(got, want):
+        _close_on_card(g, w, dtype)
+
+
+# --- the Hopper row-linear core at ragged shapes ---------------------------
+
+# (b, l, c, nc): K = 192 and 128 (three and two swizzle atoms), M not a
+# multiple of 128 rows.
+SM90_PRE_SHAPES = [(1, 45, 192, 128), (2, 23, 128, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('c_major', [False, True])
+@pytest.mark.parametrize('emit_fgate', [True, False])
+@pytest.mark.parametrize('shape', SM90_PRE_SHAPES)
+def test_tri_mult_pre_wide_matches_plain(cuda, shape, emit_fgate, c_major):
+    if c_major and not emit_fgate:
+        pytest.skip('the gate-fold post takes the natural layout only')
+    pre = _tri_mult_pre_case(63, *shape)
+    if not emit_fgate:
+        pre = _no_fgate(pre)
+    x, s, lb, w, wb, mask = pre
+    f32, low = _on_card((x, s, lb, w.T.copy(), wb, mask), cuda,
+                        torch.bfloat16, {0})
+    kw = dict(emit_fgate=emit_fgate, c_major=c_major)
+    want = tri_mult_op.tri_mult_pre_plain(*f32, **kw)
+    got = tri_mult_op.tri_mult_pre(*low, **kw)
+    torch.cuda.synchronize()
+    for g, w_ in zip(got, want):
+        _close_on_card(g, w_, torch.bfloat16)
+
+
+# --- packed weights: the wrappers' helpers and the modules' cache ----------
+
+def test_pack_pre_matches_pack():
+    """pack_pre lays the projections out as _pack does, the final gate's
+    rows after the gated chunks, in the compute dtype, the bias f32."""
+    x, s, lb, w, wb, mask = _tri_mult_pre_case(64, 1, 5, 8, 72)
+    wt, wbt = t(w.T.copy()), t(wb)
+    nc = 72
+    ws, bs = torch.split(wt, [nc] * 4 + [8]), torch.split(wbt, [nc] * 4 + [8])
+    pk = tri_mult_op.pack_pre(ws, bs, t(s), t(lb), torch.bfloat16)
+    want = torch.cat([tri_mult_op._pack(ws[0], ws[2]),
+                      tri_mult_op._pack(ws[1], ws[3]), ws[4]])
+    assert pk.w_packed.dtype == torch.bfloat16
+    torch.testing.assert_close(pk.w_packed, want.bfloat16())
+    torch.testing.assert_close(pk.b_packed, torch.cat([
+        tri_mult_op._pack(bs[0], bs[2]), tri_mult_op._pack(bs[1], bs[3]),
+        bs[4]]))
+    torch.testing.assert_close(pk.w, wt)
+    torch.testing.assert_close(pk.wb, wbt)
+
+
+def test_pack_projection_folds_the_query_scale():
+    k = _tri_case(65, 1, 2, 5, 2, 8, 16, 'per_row')
+    wq, wk, wv, wg = (t(w.T) for w in k['w'])
+    gate, ln = (wg, t(k['bg'])), (t(k['scale']), t(k['lnb']))
+    wo = (t(k['wo'].T), t(k['bo']))
+    pk = tri_op.pack_projection(wq, wk, wv, 8, torch.bfloat16, ln=ln,
+                                gate=gate, out_proj=wo)
+    torch.testing.assert_close(
+        pk.w_all, torch.cat([wq * 8 ** -0.5, wk, wv, wg]).bfloat16())
+    torch.testing.assert_close(pk.b_all,
+                               torch.cat([torch.zeros(48), t(k['bg'])]))
+    assert pk.wo.dtype == torch.bfloat16 and pk.bo.dtype == torch.float32
+    assert pk.ln_s.dtype == torch.float32
+    bare = tri_op.pack_projection(wq, wk, wv, 8, torch.float32)
+    assert bare.w_all.shape == (48, 16) and bare.wo is None
+
+
+def test_weight_cache_rebuilds_on_change():
+    """The cache keeps its value while the sources stand still and rebuilds
+    it after an in-place write, a replaced tensor or another dtype."""
+    from abx_tpu_torch.ops.weight_cache import WeightCache
+    p = torch.nn.Parameter(torch.ones(3))
+    q = torch.nn.Parameter(torch.zeros(2))
+    cache = WeightCache()
+
+    def get(dtype=torch.float32):
+        return cache.get([p, q], dtype, lambda: torch.cat([p, q]).to(dtype))
+    first = get()
+    assert get() is first and cache.builds == 1
+    with torch.no_grad():
+        p.mul_(2.0)
+    assert get()[0].item() == 2.0 and cache.builds == 2
+    get(torch.bfloat16)
+    assert cache.builds == 3
+    q = torch.nn.Parameter(torch.full((2,), 5.0))
+    assert get(torch.bfloat16)[-1].item() == 5.0 and cache.builds == 4
+
+
+@pytest.mark.gpu
+def test_tri_mult_module_cache_follows_an_in_place_change(cuda):
+    """The triangle multiplication on the card (bf16, kernel route) after
+    one of its weights is changed in place: the packed weights are rebuilt,
+    and the module's output follows its plain route (ABX_FUSED_TRIMULT=0)
+    on the new weights."""
+    from abx_tpu_torch import config as config_lib
+    from abx_tpu_torch.models.seqformer import TriangleMultiplication
+    cfg = config_lib.tiny_model_config()
+    tm_cfg = cfg.model.embeddings_and_seqformer.seqformer\
+        .triangle_multiplication_outgoing
+    torch.manual_seed(0)
+    c = 32
+    mod = TriangleMultiplication(tm_cfg, c, dtype=torch.bfloat16).to(cuda)
+    with torch.no_grad():
+        for p in mod.parameters():
+            p.normal_(0.0, 0.3)
+    act = torch.randn(1, 19, 19, c, device=cuda).bfloat16()
+    mask = torch.ones(1, 19, device=cuda)
+    with torch.no_grad():
+        mod(act, mask, residual=True)
+        builds = mod._packs[True].builds
+        mod.left_gate.weight.mul_(-1.5)
+        got = mod(act, mask, residual=True)
+    assert mod._packs[True].builds == builds + 1
+    import os
+    os.environ['ABX_FUSED_TRIMULT'] = '0'
+    try:
+        with torch.no_grad():
+            want = mod(act, mask, residual=True)
+    finally:
+        os.environ.pop('ABX_FUSED_TRIMULT')
+    torch.cuda.synchronize()
+    _close_on_card(got, want.float(), torch.bfloat16)

@@ -33,7 +33,9 @@ from abx_tpu.ops.tri_mult import tri_mult_pre_reference
 from abx_tpu_torch.ops import ipa_attention as ipa_op
 from abx_tpu_torch.ops import pair_bias as pair_bias_op
 from abx_tpu_torch.ops import transition as transition_op
-from tests.test_torch_kernels import (TRI_SHAPES, _ipa_case, _ln_np, _pair_bias_case,
+from tests.test_torch_kernels import (IPA_CANCEL_TOL, TRI_SHAPES, _cancel_err,
+                                     _ipa_cancel_case, _ipa_cancel_inputs,
+                                     _ipa_case, _ln_np, _pair_bias_case,
                                      _recycle_case, _recycle_port,
                                      _transition_case, _tri_case,
                                      _tri_mult_post_case, _tri_mult_post_port,
@@ -130,6 +132,22 @@ def test_ipa_attention_plain_matches_jax(shape):
                  jax_ipa(*jargs, row_block=8, interpret=True)):
         for g, w in zip(got, want):
             np.testing.assert_allclose(g, np.asarray(w), **TOL)
+
+
+def test_ipa_cancel_case_plain_matches_jax_in_bf16():
+    """The scalar attend's rounding of p: on the cancellation case the
+    port's plain version in bf16 and the JAX reference in bf16 (both take
+    p in the input dtype) agree within the output's bf16 rounding, while
+    the tolerance tells them from an f32-p attend
+    (tests/test_torch_kernels.py)."""
+    import torch
+    case = _ipa_cancel_case()
+    got = ipa_op.ipa_attention_plain(*_ipa_cancel_inputs(case,
+                                                         torch.bfloat16))[0]
+    jargs = [jnp.asarray(a, jnp.bfloat16) if i in (0, 1, 2, 9)
+             else jnp.asarray(a) for i, a in enumerate(case)]
+    want = np.asarray(ipa_attention_reference(*jargs)[0].astype(jnp.float32))
+    assert _cancel_err(got, torch.as_tensor(want)) <= IPA_CANCEL_TOL / 2
 
 
 # --- tri_mult_pre / tri_mult_post ------------------------------------------
