@@ -3,7 +3,8 @@
 //
 // Replaces these Pallas TPU kernels, or their projection halves:
 //   * abx_tpu/ops/pair_bias.py::pair_bias_proj (LN -> C->H, written in the
-//     (B, H, R, L) attention-bias layout: out_mode 1);
+//     (B, H, R, L) attention-bias layout: out_mode 1; its bf16 launches run
+//     pair_bias.cu);
 //   * the in-kernel LN + q/k/v/gate projection and the out-proj + residual
 //     epilogue of abx_tpu/ops/tri_attention.py::triangle_attention_packed
 //     (out_mode 0);
@@ -29,11 +30,11 @@
 // blocks, TMA, wgmma; its note says what bounds it): tri_mult_pre in all
 // three variants, tri_mult_post on the natural input, gate_proj_residual,
 // and the triangle attention's fused projection and out-proj.  The tile
-// kernel below keeps the rest: f32 inputs (bf16x3), the narrow
-// pair-bias projection (out_mode 1, N <= 64, bound by the bytes of the
-// pair track), the channel-major input of tri_mult_post, the gate-fold
-// post, and K > 192 (the seq attention's projection and out-proj, K = 544,
-// M = 1,152).
+// kernel below keeps the rest: f32 inputs (bf16x3), the pair-bias
+// projection (out_mode 1) where pair_bias.cu does not take it (f32, K above
+// 192 or not a multiple of 8, N > 64), the channel-major input of
+// tri_mult_post, the gate-fold post, and K > 192 (the seq attention's
+// projection and out-proj, K = 544, M = 1,152).
 // Bound on the H100 (tile kernel): the C->H bias projection does 2*H flops per byte of
 // the (B, L, L, C) pair track and is bound by device-memory bytes; the
 // wider projections are bound by the block's non-MMA phases (LayerNorm

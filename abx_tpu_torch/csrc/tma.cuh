@@ -1,6 +1,6 @@
 // mbarriers, TMA tile loads and the host-side tensor-map encoder, shared by
 // the kernels fed by the Tensor Memory Accelerator (triangle.cu,
-// row_linear_sm90.cuh).
+// row_linear_sm90.cuh, transition_sm90.cu).
 #pragma once
 
 #include <cuda.h>

@@ -1,6 +1,8 @@
 // Fused pair transition: out = x + ReLU(LN(x) W1^T + b1) W2^T + b2.
 //
-// Replaces abx_tpu/ops/transition.py::fused_transition (Pallas TPU).
+// Replaces abx_tpu/ops/transition.py::fused_transition (Pallas TPU) for f32
+// inputs and for C above 192 or not a multiple of 8; bf16 launches with
+// C <= 192 run the Hopper kernel of transition_sm90.cu.
 // Bound on the H100: tensor-core operations.  At the flagship shape
 // (x: 4*288*288 rows of C=192, hidden N=4C=768) a call is ~196 GFLOP
 // against ~255 MB of bf16 input and output, ~770 flop/byte, above the

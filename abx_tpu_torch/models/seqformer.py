@@ -32,9 +32,9 @@ from abx_tpu_torch.models.modules import (MLP, Embedding, LayerNorm, Linear,
                                           layer_norm)
 from abx_tpu_torch.ops import registry
 from abx_tpu_torch.ops.gate_proj import gate_proj_residual
-from abx_tpu_torch.ops.pair_bias import pair_bias_proj
+from abx_tpu_torch.ops.pair_bias import pack_pair_bias, pair_bias_proj
 from abx_tpu_torch.ops.recycle_embed import recycle_embed
-from abx_tpu_torch.ops.transition import fused_transition
+from abx_tpu_torch.ops.transition import fused_transition, pack_transition
 from abx_tpu_torch.ops.tri_attention import (pack_projection,
                                              triangle_attention_packed)
 from abx_tpu_torch.ops.tri_mult import (pack_pre, tri_mult_post,
@@ -191,6 +191,14 @@ class GatedAttention(nn.Module):
         return out if residual is None else residual + out
 
 
+def _bias_packed(cache, norm, proj, dtype):
+    """pair_bias_proj's weights (LayerNorm `norm`, projection `proj`) for
+    the kernels, from `cache` (rebuilt when one of them changes)."""
+    params = (norm.scale, norm.bias, proj.weight)
+    return cache.get(list(params), dtype,
+                     lambda: pack_pair_bias(*params, dtype))
+
+
 class SeqAttentionWithPairBias(nn.Module):
     def __init__(self, config, seq_c: int, pair_c: int, dtype=torch.float32):
         super().__init__()
@@ -203,14 +211,18 @@ class SeqAttentionWithPairBias(nn.Module):
         self.attn = GatedAttention(seq_c, seq_c, seq_c, seq_c,
                                    config.num_head, split_first=False,
                                    dtype=dtype)
+        self._bias_pack = WeightCache()   # pair_bias_proj's weights
 
     def forward(self, seq_act, pair_act, mask, residual: bool = False):
         """`residual=True` returns seq_act + attention(seq_act)."""
         dt = self.dtype
         res_in = seq_act
         if registry.on_device(pair_act) and registry.use_fused_pair_bias():
-            bias = pair_bias_proj(pair_act, self.pair_norm.scale,
-                                  self.pair_norm.bias, self.proj_pair.weight)
+            bias = pair_bias_proj(
+                pair_act, self.pair_norm.scale, self.pair_norm.bias,
+                self.proj_pair.weight, packed=_bias_packed(
+                    self._bias_pack, self.pair_norm, self.proj_pair,
+                    pair_act.dtype))
         else:
             ln = self.pair_norm(pair_act)
             bias = F.linear(ln, self.proj_pair.weight.to(dt))
@@ -235,15 +247,20 @@ class Transition(nn.Module):
         self.norm = LayerNorm(num_in, dtype=dtype)
         self.in_proj = Linear(num_in, n_mid, 'linear', dtype=dtype)
         self.out_proj = Linear(n_mid, num_in, 'final', dtype=dtype)
+        self._pack = WeightCache()   # the fused kernel's weights
 
     def forward(self, act, residual: bool = False):
         """LN -> C*factor -> relu -> C [+ act when residual]; the 4-D pair
         track goes through the fused kernel on the card."""
         if (residual and act.dim() == 4 and registry.on_device(act)
                 and registry.use_fused_transition()):
-            return fused_transition(act, self.norm.scale, self.norm.bias,
-                                    self.in_proj.weight, self.in_proj.bias,
-                                    self.out_proj.weight, self.out_proj.bias)
+            params = (self.norm.scale, self.norm.bias, self.in_proj.weight,
+                      self.in_proj.bias, self.out_proj.weight,
+                      self.out_proj.bias)
+            packed = self._pack.get(
+                list(params), act.dtype,
+                lambda: pack_transition(*params, act.dtype))
+            return fused_transition(act, *params, packed=packed)
         x = torch.relu(self.in_proj(self.norm(act)))
         out = self.out_proj(x)
         return act + out if residual else out
@@ -380,6 +397,7 @@ class TriangleAttention(nn.Module):
                                 dtype=dtype)
         self.attn = GatedAttention(c_in, c_in, c_in, c_in, config.num_head,
                                    gating=config.gating, dtype=dtype)
+        self._bias_pack = WeightCache()   # pair_bias_proj's weights
 
     def forward(self, pair_act, seq_mask, residual: bool = False):
         """`residual=True` adds the input in this module's epilogue (inside
@@ -394,7 +412,10 @@ class TriangleAttention(nn.Module):
             # LN-fold path: the raw (oriented) tensor goes in; the bias is
             # computed on that same oriented tensor.
             ln = (self.norm.scale, self.norm.bias)
-            bias = pair_bias_proj(x, ln[0], ln[1], self.proj_pair.weight)
+            bias = pair_bias_proj(
+                x, ln[0], ln[1], self.proj_pair.weight,
+                packed=_bias_packed(self._bias_pack, self.norm,
+                                    self.proj_pair, x.dtype))
             out = self.attn(x, bias, seq_mask[:, None], kernel=True,
                             residual=x, ln=ln)
         else:

@@ -36,6 +36,9 @@ _SIGNATURES = {
     'abx_recycle_embed': [_I] + [_P] * 8 + [_I] * 5 + [_P],
     'abx_fused_transition': [_I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                              _P],
+    'abx_fused_transition_sm90': [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                                  _P],
+    'abx_pair_bias_proj': [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P],
     'abx_tri_attention_core': [_I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I,
                                _I, _I, _P, _P],
     'abx_triangle_attention_fused': [_I] + [_P] * 6 + [_I] * 5 + [_P],
@@ -108,13 +111,14 @@ def build() -> Path:
         logs.append(out_dir / f'link.{tag}.log')
         codes += _run_all([[nvcc, *NVCC_FLAGS, '-shared', '-o', str(tmp),
                             *map(str, objs)]], logs[-1:])
-    text = ''.join(log.read_text() for log in logs)
-    (out_dir / 'build.log').write_text(text)
+    texts = [log.read_text() for log in logs]
+    (out_dir / 'build.log').write_text(''.join(texts))
     for path in objs + logs:
         path.unlink(missing_ok=True)
     if any(codes):
+        failed = ''.join(t for t, c in zip(texts, codes) if c)
         raise RuntimeError(f'nvcc failed (exit codes {codes}):\n'
-                           f'{text[-8000:]}')
+                           f'{failed[:8000]}')
     os.replace(tmp, lib)
     return lib
 

@@ -83,7 +83,7 @@ def _profile(sampler, batch, passes: int):
             by_name[e.name][1] += 1
     total = sum(v[0] for v in by_name.values())
     count = sum(v[1] for v in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:40]
     return {'wall_s': wall, 'device_ms': total, 'device_kernels': count,
             'device_ms_per_pass': total / passes,
             'kernels_per_pass': count / passes,

@@ -14,11 +14,13 @@ fatal on failure:
      plain version with the same exponent); kernel and plain times (median
      of CUDA event timings after warm-up, bf16), and the time of the one
      torch call that computes the same function where there is one (and
-     esm_attention's, ipa_attention's and tri_mult_pre's one call each
-     launch one device kernel, under the profiler; tri_mult_pre and the
-     triangle attentions take their weights packed, as the modules cache
-     them; the row-linear cases print beside them the bare bf16
-     torch.matmul of their product as a yardstick), and row 1's
+     esm_attention's, ipa_attention's, tri_mult_pre's, pair_bias_proj's
+     and fused_transition's one call each launch one device kernel, under
+     the profiler, and the last two's is the Hopper kernel by name;
+     tri_mult_pre, the triangle attentions, pair_bias_proj and
+     fused_transition take their weights packed, as the modules cache
+     them; the row-linear cases and fused_transition print beside them the
+     bare bf16 torch.matmul of their products as a yardstick), and row 1's
      attention core alone on ready projection rows beside SDPA; the bf16
      core against the plain core with the TPU kernel's exponent (against
      the row's final max) on rows whose logits are exact in f32, to
@@ -178,18 +180,20 @@ def kernel_cases(torch, dev):
     cases = []
 
     def case(name, label, kern, plain, a32, a16, reads, flops, library=None,
-             env=None, plain16=None, one_launch=False, gemm=None):
+             env=None, plain16=None, one_launch=False, gemm=None,
+             kernel_name=None):
         """env: flags set while the case runs; plain16: the plain version
         the bf16 kernel is held to, where it differs from `plain`;
         one_launch: the wrapper must launch its kernel and no other device
-        kernel (checked under the profiler); gemm: (k, n) of the bare bf16
-        torch.matmul (M, k) x (k, n) timed beside the kernel as a yardstick
-        for the row-linear core (not the same function: no LayerNorm, no
-        epilogue)."""
+        kernel (checked under the profiler), whose name holds kernel_name
+        where given; gemm: [(k, n), ...] of the bare bf16 torch.matmul
+        products (M, k) x (k, n), timed together beside the kernel as a
+        yardstick (not the same function: no LayerNorm, no epilogue)."""
         cases.append(dict(name=name, label=label, kern=kern, plain=plain,
                           a32=a32, a16=a16, reads=reads, flops=flops,
                           library=library, env=env or {}, plain16=plain16,
-                          one_launch=one_launch, gemm=gemm))
+                          one_launch=one_launch, gemm=gemm,
+                          kernel_name=kernel_name))
 
     def tri(label, r, c, h, exp_flag):
         x = rnd(b, r, l, c)
@@ -216,7 +220,7 @@ def kernel_cases(torch, dev):
              flops, env={'ABX_TRI_ATTN_BF16_EXP': exp_flag},
              plain16=lambda x, res: ta_op.triangle_attention_packed_plain(
                  x, *args[1:], residual=res, bf16_exp=exp_flag == '1',
-                 **kw), gemm=(c, 4 * c) if r > 1 else None)
+                 **kw), gemm=[(c, 4 * c)] if r > 1 else None)
     tri('tri-attention (4,288,288,192) H=4 D=48', l, 192, 4, '1')
     tri('tri-attention (4,288,288,192) H=4 D=48', l, 192, 4, '0')
     tri('seq-attention (4,1,288,544) H=32 D=17', 1, 544, 32, '1')
@@ -258,24 +262,35 @@ def kernel_cases(torch, dev):
              y, shape, cbias, mask, True, bf16_exp=True))
     del y
 
+    # pair_bias_proj and fused_transition take their weights packed, as the
+    # modules cache them: then a bf16 call is one launch of the Hopper
+    # kernel (f32 stays on the older generic kernels).
     for h in (4, 32):
         pair = rnd(b, l, l, 192)
         s, bb, w = 1 + rnd(192, scale=0.1), rnd(192, scale=0.1), rnd(
             h, 192, scale=192 ** -0.5)
+        pb_pk = {dt: pb_op.pack_pair_bias(s, bb, w, dt)
+                 for dt in (torch.float32, torch.bfloat16)}
         case('pair_bias_proj', f'(4,288,288,192) -> H={h}',
-             lambda p, s=s, bb=bb, w=w: pb_op.pair_bias_proj(p, s, bb, w),
+             lambda p, s=s, bb=bb, w=w, pk=pb_pk: pb_op.pair_bias_proj(
+                 p, s, bb, w, packed=pk[p.dtype]),
              lambda p, s=s, bb=bb, w=w: pb_op.pair_bias_proj_plain(p, s, bb,
                                                                    w),
-             (pair,), (pair.bfloat16(),), [s, bb, w], 2 * m * 192 * h)
+             (pair,), (pair.bfloat16(),), [s, bb, w], 2 * m * 192 * h,
+             one_launch=True, kernel_name='pair_bias_kernel')
 
     x = rnd(b, l, l, 192)
     targs = (1 + rnd(192, scale=0.1), rnd(192, scale=0.1),
              rnd(768, 192, scale=192 ** -0.5), rnd(768, scale=0.1),
              rnd(192, 768, scale=768 ** -0.5), rnd(192, scale=0.1))
+    tr_pk = {dt: tr_op.pack_transition(*targs, dt)
+             for dt in (torch.float32, torch.bfloat16)}
     case('fused_transition', '(4,288,288,192) N=768',
-         lambda x: tr_op.fused_transition(x, *targs),
+         lambda x: tr_op.fused_transition(x, *targs, packed=tr_pk[x.dtype]),
          lambda x: tr_op.fused_transition_plain(x, *targs),
-         (x,), (x.bfloat16(),), list(targs), 4 * m * 192 * 768)
+         (x,), (x.bfloat16(),), list(targs), 4 * m * 192 * 768,
+         one_launch=True, kernel_name='transition_sm90_kernel',
+         gemm=[(192, 768), (768, 192)])
 
     c, nc = 192, 128
     x = rnd(b, l, l, c)
@@ -292,7 +307,7 @@ def kernel_cases(torch, dev):
          lambda x: tm_op.tri_mult_pre(x, *pre, packed=pre_pk[x.dtype]),
          lambda x: tm_op.tri_mult_pre_plain(x, *pre),
          (x,), (x.bfloat16(),), list(pre), 2 * m * c * (4 * nc + c),
-         one_launch=True, gemm=(c, 4 * nc + c))
+         one_launch=True, gemm=[(c, 4 * nc + c)])
     case('tri_mult_pre_c_major', '(4,288,288,192) -> nc=128 x2 as '
          '(4,128,288,288) + 192',
          lambda x: tm_op.tri_mult_pre(x, *pre, c_major=True,
@@ -306,7 +321,7 @@ def kernel_cases(torch, dev):
          lambda y, fg, res: tm_op.tri_mult_post(y, *post, fg, res),
          lambda y, fg, res: tm_op.tri_mult_post_plain(y, *post, fg, res),
          (y, fg, res), (y.bfloat16(), fg.bfloat16(), res.bfloat16()),
-         list(post), 2 * m * nc * c, gemm=(nc, c))
+         list(post), 2 * m * nc * c, gemm=[(nc, c)])
     ycm = y.permute(0, 3, 1, 2).contiguous()
     case('tri_mult_post_c_major', '(4,128,288,288) -> (4,288,288,192)',
          lambda y, fg, res: tm_op.tri_mult_post(y, *post, fg, res,
@@ -341,7 +356,7 @@ def kernel_cases(torch, dev):
          lambda y, gt, res: gp_op.gate_proj_residual(y, gt, *gw, res),
          lambda y, gt, res: gp_op.gate_proj_residual_plain(y, gt, *gw, res),
          (gy, gate, res), (gy.bfloat16(), gate.bfloat16(), res.bfloat16()),
-         list(gw), 2 * m * hd * c, gemm=(hd, c))
+         list(gw), 2 * m * hd * c, gemm=[(hd, c)])
     del gy, gate
     left, right = rnd(b, l, l, nc), rnd(b, l, l, nc)
     for per_row, eq in ((True, 'bikc,bjkc->bijc'),
@@ -467,9 +482,9 @@ KERNEL_META = {
     'triangle_attention_packed': (
         'abx_tpu_torch/csrc/tri_attention.cu',
         'abx_tpu/ops/tri_attention.py:226'),
-    'pair_bias_proj': ('abx_tpu_torch/csrc/row_linear.cu',
+    'pair_bias_proj': ('abx_tpu_torch/csrc/pair_bias.cu',
                        'abx_tpu/ops/pair_bias.py:44'),
-    'fused_transition': ('abx_tpu_torch/csrc/transition.cu',
+    'fused_transition': ('abx_tpu_torch/csrc/transition_sm90.cu',
                          'abx_tpu/ops/transition.py:47'),
     'ipa_attention': ('abx_tpu_torch/csrc/ipa_attention.cu',
                       'abx_tpu/ops/ipa_attention.py:102'),
@@ -542,18 +557,24 @@ def phase_kernels(torch, dev):
                   if cs['library'] else None)
         gemm_ms = None
         if cs['gemm']:
-            gk, gn = cs['gemm']
             rows = a16[0].numel() // a16[0].shape[-1]
-            ga = torch.randn(rows, gk, device=dev).bfloat16()
-            gb = torch.randn(gk, gn, device=dev).bfloat16()
-            gemm_ms = time_ms(torch, lambda: torch.matmul(ga, gb))
-            del ga, gb
+            mats = [(torch.randn(rows, gk, device=dev).bfloat16(),
+                     torch.randn(gk, gn, device=dev).bfloat16())
+                    for gk, gn in cs['gemm']]
+            gemm_ms = time_ms(torch, lambda: [torch.matmul(ga, gb)
+                                              for ga, gb in mats])
+            del mats
         launched = None
         if cs['one_launch']:
             launched = device_kernel_names(torch, lambda: kern(*a16))
             if launched is not None and len(launched) != 1:
                 fail(f'{name} {label}: one call launched {launched}, not '
                      'one kernel')
+            want_name = cs['kernel_name']
+            if launched is not None and want_name and \
+                    want_name not in launched[0]:
+                fail(f'{name} {label}: one call launched {launched}, not '
+                     f'the kernel {want_name}')
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -561,8 +582,10 @@ def phase_kernels(torch, dev):
                 os.environ[k] = v
         lib_txt = f', library {lib_ms:.3f} ms' if lib_ms is not None else ''
         if gemm_ms is not None:
-            lib_txt += (f'; yardstick torch.matmul ({rows}, {gk}) x ({gk}, '
-                        f'{gn}) bf16 {gemm_ms:.3f} ms')
+            prods = ' + '.join(f'({rows}, {gk}) x ({gk}, {gn})'
+                               for gk, gn in cs['gemm'])
+            lib_txt += (f'; yardstick torch.matmul {prods} bf16 '
+                        f'{gemm_ms:.3f} ms')
         print(f'kernel {name} {label}: f32 err/max|ref| {e32:.3g}, bf16 '
               f'err/max|ref| {e16:.3g}; bf16 kernel {ms:.3f} ms, plain '
               f'{plain_ms:.3f} ms{lib_txt}; bound {bms:.4f} ms by {by} '

@@ -1258,3 +1258,267 @@ def test_tri_mult_module_cache_follows_an_in_place_change(cuda):
         os.environ.pop('ABX_FUSED_TRIMULT')
     torch.cuda.synchronize()
     _close_on_card(got, want.float(), torch.bfloat16)
+
+
+# --- the Hopper transition and pair-bias kernels ----------------------------
+# bf16 launches with C <= 192 (a multiple of 8) take csrc/transition_sm90.cu
+# and csrc/pair_bias.cu; the others stay on transition.cu and row_linear.cu
+# (out_mode 1).  Their plain
+# versions keep the TPU kernels' rounding points, which the bf16 checks
+# below hold: two results at the same rounding points differ only where an
+# f32 sum taken in another order lands on the other side of a bf16 rounding
+# (a small share of the outputs), while one rounding point missed moves a
+# large share of them (test_bf16_check_resolves_a_missed_rounding_point).
+
+BF16_SHARE = 1e-2    # share of the bf16 outputs that may differ
+BF16_STEPS = 2 ** -7  # max |got - want| / max|want|: two bf16 steps
+
+
+def bf16_agree(got, want):
+    """(max |got - want| / max|want|, share of the outputs that differ)."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max().item() / want.abs().max().item(),
+            (got != want).float().mean().item())
+
+
+def transition_missed_rounding(x, s, lb, w1, b1, w2, b2):
+    """fused_transition_plain with the hidden activations left in f32: a
+    rounding point a kernel that keeps them in registers could skip."""
+    import torch.nn.functional as F
+    from abx_tpu_torch.models.modules import layer_norm
+    dt, x32 = x.dtype, x.float()
+    ln = layer_norm(x32, s, lb).to(dt).float()
+    h = torch.relu(F.linear(ln, w1.to(dt).float()) + b1)
+    y = F.linear(h, w2.to(dt).float()) + b2
+    return (y + x32).to(dt)
+
+
+def pair_bias_missed_rounding(pair, s, lb, w):
+    """pair_bias_proj_plain with LN(x) left in f32."""
+    import torch.nn.functional as F
+    from abx_tpu_torch.models.modules import layer_norm
+    dt = pair.dtype
+    y = F.linear(layer_norm(pair, s, lb), w.to(dt).float()).to(dt)
+    return y.permute(0, 3, 1, 2).contiguous()
+
+
+def _transition_port(case, dtype, dev='cpu'):
+    x, s, lb, w1, b1, w2, b2 = (t(a).to(dev) for a in case)
+    return x.to(dtype), s, lb, w1.T.contiguous(), b1, w2.T.contiguous(), b2
+
+
+def _pair_bias_port(case, dtype, dev='cpu'):
+    pair, s, lb, w = (t(a).to(dev) for a in case)
+    return pair.to(dtype), s, lb, w.T.contiguous()
+
+
+@pytest.mark.parametrize('kind', ['transition', 'pair_bias'])
+def test_bf16_check_resolves_a_missed_rounding_point(kind):
+    """The bf16 check holds the plain version to itself and tells it from
+    the same function with one rounding point missed."""
+    if kind == 'transition':
+        args = _transition_port(_transition_case(9, 1, 8, 16, 64),
+                                torch.bfloat16)
+        plain, missed = (transition_op.fused_transition_plain,
+                         transition_missed_rounding)
+    else:
+        args = _pair_bias_port(_pair_bias_case(9, 2, 8, 8, 64, 5),
+                               torch.bfloat16)
+        plain, missed = (pair_bias_op.pair_bias_proj_plain,
+                         pair_bias_missed_rounding)
+    want = plain(*args)
+    assert bf16_agree(plain(*args), want) == (0.0, 0.0)
+    err, share = bf16_agree(missed(*args), want)
+    assert share > 10 * BF16_SHARE, share
+
+
+@pytest.mark.parametrize('dtype,c,h,want', [
+    (torch.bfloat16, 192, 4, True), (torch.bfloat16, 48, 64, True),
+    (torch.float32, 192, 4, False), (torch.bfloat16, 200, 4, False),
+    (torch.bfloat16, 44, 4, False), (torch.bfloat16, 192, 65, False)])
+def test_hopper_routes_are_decided_by_dtype_and_shape(dtype, c, h, want):
+    """bf16 with C <= 192 a multiple of 8 (and H <= 64, N a multiple of 8)
+    take the Hopper kernels; f32 and other shapes the generic ones."""
+    x = torch.zeros(2, 3, c, dtype=dtype)
+    assert pair_bias_op.hopper_route(x, h) == want
+    assert transition_op.hopper_route(x, 4 * c) == (want or h == 65)
+    assert not transition_op.hopper_route(x, 4 * c + 4)
+
+
+def _module_case(kind):
+    """(module, call, its packed-weight cache, the wrapper it calls, a
+    parameter of the packed weights) at a tiny size, f32 on the CPU."""
+    from abx_tpu_torch import config as config_lib
+    from abx_tpu_torch.models import seqformer as sf
+    cfg = config_lib.tiny_model_config().model.embeddings_and_seqformer\
+        .seqformer
+    torch.manual_seed(0)
+    pair = torch.randn(1, 5, 5, 16)
+    mask = torch.ones(1, 5)
+    if kind == 'transition':
+        mod = sf.Transition(cfg.pair_transition, 16)
+        return (mod, lambda: mod(pair, residual=True), mod._pack,
+                'fused_transition', 'in_proj')
+    if kind == 'seq_attention':
+        mod = sf.SeqAttentionWithPairBias(cfg.seq_attention_with_pair_bias,
+                                          8, 16)
+        seq = torch.randn(1, 5, 8)
+        return (mod, lambda: mod(seq, pair, mask), mod._bias_pack,
+                'pair_bias_proj', 'proj_pair')
+    mod = sf.TriangleAttention(cfg.triangle_attention_starting_node, 16)
+    return (mod, lambda: mod(pair, mask, residual=True), mod._bias_pack,
+            'pair_bias_proj', 'proj_pair')
+
+
+@pytest.mark.parametrize('kind', ['transition', 'seq_attention',
+                                  'tri_attention'])
+def test_module_caches_the_packed_weights(monkeypatch, kind):
+    """On the kernel route a module packs the kernel's weights once and
+    hands them to the wrapper on every call; it packs them anew when a
+    parameter is assigned or written in place."""
+    from abx_tpu_torch.models import seqformer as sf
+    from abx_tpu_torch.ops import registry, tri_attention
+    mod, call, cache, wrapper, proj = _module_case(kind)
+    plain = {'fused_transition': transition_op.fused_transition_plain,
+             'pair_bias_proj': pair_bias_op.pair_bias_proj_plain}[wrapper]
+    seen = []
+
+    def spy(*args, packed=None):
+        seen.append(packed)
+        return plain(*args)
+    monkeypatch.setattr(registry, 'on_device', lambda x: True)
+    monkeypatch.setattr(sf, wrapper, spy)
+    monkeypatch.setattr(sf, 'triangle_attention_packed',
+                        tri_attention.triangle_attention_packed_plain)
+    with torch.no_grad():
+        call()
+        call()
+        assert cache.builds == 1 and seen[0] is seen[1]
+        weight = getattr(mod, proj).weight
+        w_new = torch.nn.Parameter(weight.detach() * -2.0)
+        setattr(getattr(mod, proj), 'weight', w_new)
+        call()
+        assert cache.builds == 2
+        packed_w = seen[-1].w1 if kind == 'transition' else seen[-1].w
+        torch.testing.assert_close(packed_w, w_new.detach())
+        w_new.mul_(0.5)
+        call()
+        assert cache.builds == 3
+        packed_w = seen[-1].w1 if kind == 'transition' else seen[-1].w
+        torch.testing.assert_close(packed_w, w_new.detach())
+
+
+TRANSITION_SHAPES = [(2, 5, 70, 48), (1, 7, 37, 192), (1, 3, 45, 40),
+                     (1, 2, 80, 136)]
+PAIR_BIAS_SHAPES = [(2, 9, 70, 48), (2, 9, 70, 192), (2, 8, 24, 192)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', TRANSITION_SHAPES)
+def test_transition_hopper_matches_plain(cuda, shape, dtype):
+    """M not a multiple of 128 rows, C of one, two and three 64-column
+    atoms (40: a hidden size not a multiple of the 64-wide chunk); bf16
+    takes the Hopper kernel, f32 transition.cu's."""
+    case = _transition_case(31, *shape)
+    f32 = _transition_port(case, torch.float32, cuda)
+    low = _transition_port(case, dtype, cuda)
+    assert transition_op.hopper_route(low[0], 4 * shape[-1]) == (
+        dtype == torch.bfloat16)
+    want = transition_op.fused_transition_plain(*f32)
+    got = transition_op.fused_transition(*low)
+    torch.cuda.synchronize()
+    _close_on_card(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('h', [4, 5, 32, 64])
+@pytest.mark.parametrize('shape', PAIR_BIAS_SHAPES)
+def test_pair_bias_hopper_matches_plain(cuda, shape, h, dtype):
+    """L = 70 with R = 9 (R*L not a multiple of 8: the 128-row tiles cross
+    rows r and batch elements b, scalar stores) and R*L = 192 (16-byte
+    stores), C of one and three 64-column atoms, H up to 64."""
+    case = _pair_bias_case(32, *shape, h)
+    f32 = _pair_bias_port(case, torch.float32, cuda)
+    low = _pair_bias_port(case, dtype, cuda)
+    assert pair_bias_op.hopper_route(low[0], h) == (dtype == torch.bfloat16)
+    want = pair_bias_op.pair_bias_proj_plain(*f32)
+    got = pair_bias_op.pair_bias_proj(*low)
+    torch.cuda.synchronize()
+    _close_on_card(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kind', ['transition', 'pair_bias'])
+def test_hopper_kernels_keep_the_rounding_points(cuda, kind):
+    """The bf16 kernels against the bf16 plain versions (the TPU kernels'
+    rounding points), at the bf16 check's bounds, at a shape of several
+    tiles a block; and a second call gives the same bits (a race between
+    the kernel's warps would show here)."""
+    if kind == 'transition':
+        args = _transition_port(_transition_case(33, 2, 96, 288, 192),
+                                torch.bfloat16, cuda)
+        fn = transition_op.fused_transition
+        want = transition_op.fused_transition_plain(*args)
+    else:
+        args = _pair_bias_port(_pair_bias_case(33, 2, 96, 288, 192, 32),
+                               torch.bfloat16, cuda)
+        fn = pair_bias_op.pair_bias_proj
+        want = pair_bias_op.pair_bias_proj_plain(*args)
+    got = fn(*args)
+    again = fn(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    err, share = bf16_agree(got, want)
+    assert err <= BF16_STEPS and share <= BF16_SHARE, (err, share)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kind', ['transition', 'seq_attention',
+                                  'tri_attention'])
+def test_module_launches_the_hopper_kernel_once(cuda, kind):
+    """A bf16 call with a module's cached weights launches the Hopper kernel
+    alone (the module's transition, or the pair bias as the module computes
+    it), and follows an in-place change of a weight."""
+    from torch.profiler import ProfilerActivity, profile
+    from abx_tpu_torch.models.seqformer import _bias_packed
+    mod, _, cache, wrapper, proj = _module_case(kind)
+    mod = mod.to(cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        for p in mod.parameters():
+            p.normal_(0.0, 0.3)
+    pair = torch.randn(2, 9, 70, 16, device=cuda).bfloat16()
+    ln = mod.pair_norm if kind == 'seq_attention' else getattr(mod, 'norm')
+    w = getattr(mod, proj).weight
+
+    def call():
+        if kind == 'transition':
+            return mod(pair, residual=True)
+        return pair_bias_op.pair_bias_proj(
+            pair, ln.scale, ln.bias, w,
+            packed=_bias_packed(cache, ln, getattr(mod, proj), pair.dtype))
+
+    def plain():
+        if kind == 'transition':
+            return transition_op.fused_transition_plain(
+                pair, ln.scale, ln.bias, mod.in_proj.weight,
+                mod.in_proj.bias, mod.out_proj.weight, mod.out_proj.bias)
+        return pair_bias_op.pair_bias_proj_plain(pair, ln.scale, ln.bias, w)
+    with torch.no_grad():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        want = 'transition_sm90' if kind == 'transition' else 'pair_bias'
+        assert len(names) == 1 and want in names[0], names
+        builds = cache.builds
+        getattr(mod, proj).weight.mul_(-1.5)
+        got = call()
+        assert cache.builds == builds + 1
+        torch.cuda.synchronize()
+        err, share = bf16_agree(got, plain())
+    assert err <= BF16_STEPS and share <= BF16_SHARE, (err, share)

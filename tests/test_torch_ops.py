@@ -33,14 +33,16 @@ from abx_tpu.ops.tri_mult import tri_mult_pre_reference
 from abx_tpu_torch.ops import ipa_attention as ipa_op
 from abx_tpu_torch.ops import pair_bias as pair_bias_op
 from abx_tpu_torch.ops import transition as transition_op
-from tests.test_torch_kernels import (IPA_CANCEL_TOL, TRI_SHAPES, _cancel_err,
+from tests.test_torch_kernels import (BF16_SHARE, BF16_STEPS,
+                                     IPA_CANCEL_TOL, TRI_SHAPES, _cancel_err,
                                      _ipa_cancel_case, _ipa_cancel_inputs,
                                      _ipa_case, _ln_np, _pair_bias_case,
-                                     _recycle_case, _recycle_port,
-                                     _transition_case, _tri_case,
+                                     _pair_bias_port, _recycle_case,
+                                     _recycle_port, _transition_case,
+                                     _transition_port, _tri_case,
                                      _tri_mult_post_case, _tri_mult_post_port,
                                      _tri_mult_pre_case, _tri_mult_pre_port,
-                                     _tri_port, t)
+                                     _tri_port, bf16_agree, t)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -117,6 +119,45 @@ def test_transition_plain_matches_jax(shape):
     np.testing.assert_allclose(
         got, np.asarray(jax_transition(*args, row_block=4, interpret=True)),
         **TOL)
+
+
+# --- pair_bias_proj and fused_transition in bf16 ----------------------------
+# The rounding points the Hopper kernels keep: the port's plain versions in
+# bf16 against the Pallas kernels in interpret mode in bf16 (LN(x) and the
+# hidden activations rounded to bf16, products summed in f32, one rounding
+# of the output).  Tolerance: BF16_STEPS and BF16_SHARE
+# (tests/test_torch_kernels.py, where the check is shown to tell a missed
+# rounding point).
+
+@pytest.mark.parametrize('shape', [(2, 9, 9, 16, 4), (1, 13, 13, 24, 32),
+                                   (2, 8, 8, 64, 5)])
+def test_pair_bias_plain_matches_pallas_interpret_in_bf16(shape):
+    import torch
+    case = _pair_bias_case(12, *shape)
+    got = pair_bias_op.pair_bias_proj_plain(*_pair_bias_port(
+        case, torch.bfloat16))
+    pair, scale, bias, w = case
+    want = np.array(jax_pair_bias(
+        jnp.asarray(pair, jnp.bfloat16), jnp.asarray(scale),
+        jnp.asarray(bias), jnp.asarray(w), row_block=8, transpose_out=True,
+        interpret=True).astype(jnp.float32))
+    err, share = bf16_agree(got, torch.as_tensor(want))
+    assert err <= BF16_STEPS and share <= BF16_SHARE, (err, share)
+
+
+@pytest.mark.parametrize('shape', [(2, 7, 9, 16), (1, 11, 11, 24),
+                                   (1, 8, 16, 64)])
+def test_transition_plain_matches_pallas_interpret_in_bf16(shape):
+    import torch
+    case = _transition_case(13, *shape)
+    got = transition_op.fused_transition_plain(*_transition_port(
+        case, torch.bfloat16))
+    args = [jnp.asarray(case[0], jnp.bfloat16)] + [jnp.asarray(a)
+                                                   for a in case[1:]]
+    want = np.array(jax_transition(*args, row_block=4, interpret=True)
+                      .astype(jnp.float32))
+    err, share = bf16_agree(got, torch.as_tensor(want))
+    assert err <= BF16_STEPS and share <= BF16_SHARE, (err, share)
 
 
 # --- ipa_attention ---------------------------------------------------------
