@@ -24,7 +24,8 @@
 //   * abx_tpu/ops/tri_mult.py::tri_mult_post_gatefold (LN(y) W^T + b, times
 //     sigmoid(LN_x(res) Wg^T + bg) with the final gate recomputed from the
 //     residual and kept in f32, + res: two LN-staged products per output
-//     tile in one block, entry abx_tri_mult_post_gatefold).
+//     tile in one block, entry abx_tri_mult_post_gatefold; its bf16
+//     launches with nc <= 128 and C <= 192 run gatefold_sm90.cu).
 // Two kernels.  bf16 launches of out_mode 0 and 2 with K <= 192 (K a
 // multiple of 8) run the Hopper core of row_linear_sm90.cuh (persistent
 // blocks, TMA, wgmma; its note says what bounds it): tri_mult_pre in all
@@ -33,7 +34,8 @@
 // kernel below keeps the rest: f32 inputs (bf16x3), the pair-bias
 // projection (out_mode 1) where pair_bias.cu does not take it (f32, K above
 // 192 or not a multiple of 8, N > 64), the channel-major input of
-// tri_mult_post, the gate-fold post, and K > 192 (the seq attention's
+// tri_mult_post, the gate-fold post in f32 (and shapes gatefold_sm90.cu
+// does not take), and K > 192 (the seq attention's
 // projection and out-proj, K = 544, M = 1,152).
 // Bound on the H100 (tile kernel): the C->H bias projection does 2*H flops per byte of
 // the (B, L, L, C) pair track and is bound by device-memory bytes; the

@@ -1,6 +1,6 @@
 // mbarriers, TMA tile loads and the host-side tensor-map encoder, shared by
 // the kernels fed by the Tensor Memory Accelerator (triangle.cu,
-// row_linear_sm90.cuh, transition_sm90.cu).
+// row_linear_sm90.cuh, transition_sm90.cu, gatefold_sm90.cu).
 #pragma once
 
 #include <cuda.h>
@@ -81,6 +81,24 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
       fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
   }
   return fn;
+}
+
+// A (rows, cols) bf16 row-major operand as a 2-d tensor map of 64-column x
+// box_rows boxes (box_rows <= 256), 128-byte swizzle: the K-major layout
+// wgmma reads.  False if no encoder is available or the map is refused.
+inline bool encode_bf16_sw128(CUtensorMap* map, const void* ptr, int rows,
+                              int cols, int box_rows) {
+  auto enc = tensor_map_encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estride[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+             dims, strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace abx

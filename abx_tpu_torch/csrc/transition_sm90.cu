@@ -61,6 +61,7 @@ using sm90::load8_bf16;
 using sm90::named_sync;
 using sm90::swz;
 using sm90::wgmma_commit;
+using sm90::wgmma_ss64;
 using sm90::wgmma_fence;
 using sm90::wgmma_wait0;
 
@@ -88,25 +89,9 @@ struct Plan {
   static constexpr size_t kSmem = 1024 + kBar + 64;
 };
 
-// The wgmma shapes of the two products, operands as in
-// row_linear_sm90.cuh (K-major, 128-byte swizzle); GEMM2's A from
-// registers, four bf16x2 words a thread in mma.sync's A-fragment order.
-__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da,
-                                           uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
+// GEMM2's wgmma shapes, B as in row_linear_sm90.cuh (K-major, 128-byte
+// swizzle) and A from registers, four bf16x2 words a thread in mma.sync's
+// A-fragment order (GEMM1 is sm90::wgmma_ss64).
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int scale_d) {
@@ -427,31 +412,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// A (rows, cols) bf16 row-major operand as a 2-d tensor map of 64-column x
-// box_rows boxes, 128-byte swizzle.
-inline bool encode(CUtensorMap* map, const void* ptr, int rows, int cols,
-                   int box_rows) {
-  auto enc = tensor_map_encoder();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) *
-                                 sizeof(bf16)};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t estride[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-             dims, strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int KA>
 cudaError_t launch_ka(const Args& p, const void* w1, const void* w2,
                       cudaStream_t stream) {
   CUtensorMap map_x, map_w1, map_w2;
-  if (!encode(&map_x, p.x, p.M, p.C, kBM) ||
-      !encode(&map_w1, w1, p.N, p.C, kNB) ||
-      !encode(&map_w2, w2, p.C, p.N, 64 * KA))
+  if (!encode_bf16_sw128(&map_x, p.x, p.M, p.C, kBM) ||
+      !encode_bf16_sw128(&map_w1, w1, p.N, p.C, kNB) ||
+      !encode_bf16_sw128(&map_w2, w2, p.C, p.N, 64 * KA))
     return cudaErrorInvalidValue;
   const size_t smem = Plan<KA>::kSmem;
   cudaError_t e = set_smem(transition_sm90_kernel<KA>, smem);

@@ -33,11 +33,12 @@ from abx_tpu_torch.models.modules import (MLP, Embedding, LayerNorm, Linear,
 from abx_tpu_torch.ops import registry
 from abx_tpu_torch.ops.gate_proj import gate_proj_residual
 from abx_tpu_torch.ops.pair_bias import pack_pair_bias, pair_bias_proj
-from abx_tpu_torch.ops.recycle_embed import recycle_embed
+from abx_tpu_torch.ops.recycle_embed import pack_recycle, recycle_embed
 from abx_tpu_torch.ops.transition import fused_transition, pack_transition
 from abx_tpu_torch.ops.tri_attention import (pack_projection,
                                              triangle_attention_packed)
-from abx_tpu_torch.ops.tri_mult import (pack_pre, tri_mult_post,
+from abx_tpu_torch.ops.tri_mult import (pack_gatefold, pack_pre,
+                                        tri_mult_post,
                                         tri_mult_post_gatefold, tri_mult_pre)
 from abx_tpu_torch.ops.weight_cache import WeightCache
 from abx_tpu_torch.ops.triangle import (triangle_multiply,
@@ -315,8 +316,10 @@ class TriangleMultiplication(nn.Module):
             self.final_gate = Linear(num_in, num_in, 'gate', dtype=dtype)
         self.final_norm = LayerNorm(nc, dtype=dtype)
         self.proj_out = Linear(nc, num_in, 'final', dtype=dtype)
-        # The pre kernel's packed weights: with the final gate, and without.
+        # The pre kernel's packed weights: with the final gate, and without;
+        # the gate-fold post's.
         self._packs = {True: WeightCache(), False: WeightCache()}
+        self._fold_pack = WeightCache()
 
     def _pre_packed(self, dtype, emit_fgate: bool):
         """The pre block's projections packed for the kernel, from the cache
@@ -330,6 +333,19 @@ class TriangleMultiplication(nn.Module):
         return self._packs[emit_fgate].get(
             weights + biases + ln, dtype,
             lambda: pack_pre(weights, biases, *ln, dtype))
+
+    def _fold_params(self):
+        """The gate-fold post's parameters, in its wrapper's order."""
+        return (self.final_norm.scale, self.final_norm.bias,
+                self.proj_out.weight, self.proj_out.bias, self.norm.scale,
+                self.norm.bias, self.final_gate.weight, self.final_gate.bias)
+
+    def _fold_packed(self, dtype):
+        """The gate-fold post's weights packed for the kernel, from the
+        cache (rebuilt when one of them changes)."""
+        params = self._fold_params()
+        return self._fold_pack.get(list(params), dtype,
+                                   lambda: pack_gatefold(*params, dtype))
 
     def forward(self, act, mask, residual: bool = False):
         dt = self.dtype
@@ -348,9 +364,8 @@ class TriangleMultiplication(nn.Module):
                 out = triangle_multiply(left, right, per_row=self.per_row,
                                         use_pallas=use_pallas)
                 return tri_mult_post_gatefold(
-                    out, fscale, fbias, self.proj_out.weight,
-                    self.proj_out.bias, self.norm.scale, self.norm.bias,
-                    self.final_gate.weight, self.final_gate.bias, act)
+                    out, *self._fold_params(), act,
+                    packed=self._fold_packed(act.dtype))
             pk = self._pre_packed(act.dtype, True)
             left, right, fg = tri_mult_pre(
                 act, self.norm.scale, self.norm.bias, pk.w, pk.wb, mask,
@@ -514,12 +529,24 @@ class EmbeddingAndSeqformer(nn.Module):
         if c.recycle_pos:
             self.proj_prev_pos = Embedding(c.prev_pos.num_bins, pair_full,
                                            dtype=dtype)
+        self._recycle_pack = WeightCache()   # recycle_embed's f32 params
         self.seqformer = Seqformer(c, seq_full, pair_full, dtype)
 
     def _rel_pos_ids(self, pos):
         mrf = self.config.max_relative_feature
         offset = pos[:, None, :] - pos[:, :, None]
         return torch.clamp(offset + mrf, 0, 2 * mrf) + 1
+
+    def _recycled_pair(self, static_pair, t_embed, batch):
+        """The recycled pair input in one pass (concat + LN + bin embed),
+        the time embedding on both index-embed blocks, with the kernel's
+        f32 params from the cache (rebuilt when one of them changes)."""
+        params = (self.prev_pair_norm.scale, self.prev_pair_norm.bias,
+                  self.proj_prev_pos.embedding)
+        packed = self._recycle_pack.get(list(params), torch.float32,
+                                        lambda: pack_recycle(*params))
+        return recycle_embed(static_pair, t_embed, batch['prev_pair'],
+                             *params, batch['prev_pos'], packed=packed)
 
     def esm_layer_weights(self):
         """Softmax of the learned weights over the ESM layer
@@ -580,12 +607,7 @@ class EmbeddingAndSeqformer(nn.Module):
         if (c.recycle_features and c.recycle_pos and 'prev_pair' in batch
                 and 'prev_pos' in batch and registry.on_device(static_pair)
                 and registry.use_fused_recycle_embed()):
-            # The recycled pair input in one pass (concat + LN + bin embed).
-            pair_act = recycle_embed(
-                static_pair, torch.cat([t_embed, t_embed], dim=-1),
-                batch['prev_pair'], self.prev_pair_norm.scale,
-                self.prev_pair_norm.bias, self.proj_prev_pos.embedding,
-                batch['prev_pos'])
+            pair_act = self._recycled_pair(static_pair, t_embed, batch)
             return self.seqformer(seq_act, pair_act, mask)
         pair_t = t_embed[:, None, None, :].expand(b, l, l, -1)
         pair_act = torch.cat([static_pair, pair_t, pair_t], dim=-1)

@@ -33,7 +33,7 @@ _SIGNATURES = {
                          _I, _P, _P, _P],
     'abx_tri_mult_post_c_major': [_I, _P, _I, _I] + [_P] * 7 + [_I] * 3
                                  + [_P],
-    'abx_recycle_embed': [_I] + [_P] * 8 + [_I] * 5 + [_P],
+    'abx_recycle_embed': [_I, _P, _P, _I, _I] + [_P] * 6 + [_I] * 5 + [_P],
     'abx_fused_transition': [_I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                              _P],
     'abx_fused_transition_sm90': [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -47,6 +47,7 @@ _SIGNATURES = {
     'abx_esm_attention': [_I] + [_P] * 6 + [_I] * 4 + [_P],
     'abx_gate_proj': [_I, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
     'abx_tri_mult_post_gatefold': [_I, _P, _P, _I, _I, _I] + [_P] * 10,
+    'abx_tri_mult_post_gatefold_sm90': [_P, _P, _I, _I, _I] + [_P] * 10,
     'abx_ipa_pair_attend': [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     'abx_triangle_multiply': [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }

@@ -19,12 +19,13 @@ from abx_tpu_torch.ops import _lib, registry
 
 
 def gate_proj_residual_plain(y, gate_pre, w, wb, res):
-    """Plain PyTorch version (mirrors gate_proj_residual_reference): the
-    gated product rounded to y's dtype, the projection in that dtype, bias
-    and residual in f32."""
+    """Plain PyTorch version, at the Pallas kernel's rounding points: the
+    gated input z = y * sigmoid(gate) in f32, rounded to y's dtype; the
+    projection of values in that dtype summed in f32; bias and residual in
+    f32, rounded once."""
     dt = y.dtype
     z = (y.float() * torch.sigmoid(gate_pre.float())).to(dt)
-    o = F.linear(z, w.to(dt)).float() + wb.float()
+    o = F.linear(z.float(), w.to(dt).float()) + wb.float()
     return (o + res.float()).to(res.dtype)
 
 

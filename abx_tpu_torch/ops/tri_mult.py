@@ -11,9 +11,11 @@ contraction between them is `ops/triangle.py`.  On the card all run
 `abx_tri_mult_pre`), post as the plain row linear with a sigmoid gate and
 the residual in its epilogue (entry `abx_tri_mult_post_c_major` for the
 channel-major input), the gate-fold post as two LN-staged products per
-output tile (entry `abx_tri_mult_post_gatefold`).  The LayerNorm is
+output tile (entry `abx_tri_mult_post_gatefold`), whose bf16 launches take
+the Hopper kernel of `csrc/gatefold_sm90.cu` instead (both weights
+resident in shared memory, the two products on wgmma).  The LayerNorm is
 applied while a tile is staged, so the normalised tensor never reaches
-device memory; see the source note there for what bounds them.
+device memory; see the source notes there for what bounds them.
 """
 
 from __future__ import annotations
@@ -29,6 +31,12 @@ from abx_tpu_torch.ops import _lib, registry
 _HALF = 64   # value channels per packed N tile (csrc/row_linear.cu kHalf)
 
 
+def _linear_f32(a, w):
+    """a @ w^T of values in the input dtype, summed in f32 (the TPU
+    kernels' preferred_element_type=f32): no rounding of the product."""
+    return F.linear(a.float(), w.float())
+
+
 def _nc(w, c: int, emit_fgate: bool) -> int:
     return (w.shape[0] - c) // 4 if emit_fgate else w.shape[0] // 4
 
@@ -36,14 +44,16 @@ def _nc(w, c: int, emit_fgate: bool) -> int:
 def tri_mult_pre_plain(x, scale, bias, w, wb, mask, eps: float = 1e-5,
                        emit_fgate: bool = True, c_major: bool = False,
                        packed=None):
-    """Plain PyTorch version (mirrors tri_mult_pre_reference, and with
-    `c_major` moves the channels of left and right in front of the
-    positions): LN in f32, the product in the input dtype, bias / gating /
-    mask in f32.  `packed` (the kernel's weights) is not used."""
+    """Plain PyTorch version, at the Pallas kernel's rounding points (and
+    with `c_major` the channels of left and right moved in front of the
+    positions): LN in f32, rounded to the input dtype; the product of
+    values in the input dtype summed in f32 (as preferred_element_type=
+    f32); bias, gating and mask in f32, each output rounded once.
+    `packed` (the kernel's weights) is not used."""
     nc = _nc(w, x.shape[-1], emit_fgate)
     dt = x.dtype
     ln = layer_norm(x, scale, bias, eps, dtype=dt)
-    y = F.linear(ln, w.to(dt)).float() + wb.float()
+    y = _linear_f32(ln, w.to(dt)) + wb.float()
     pm = (mask[:, :, None] * mask[:, None, :]).float()[..., None]
     left = y[..., :nc] * torch.sigmoid(y[..., 2 * nc:3 * nc]) * pm
     right = y[..., nc:2 * nc] * torch.sigmoid(y[..., 3 * nc:4 * nc]) * pm
@@ -169,13 +179,15 @@ tri_mult_pre.launches_c_major = 0
 
 def tri_mult_post_plain(y, scale, bias, w, wb, fg, res, eps: float = 1e-5,
                         y_c_major: bool = False):
-    """Plain PyTorch version (mirrors tri_mult_post_reference, with a
-    channel-major y moved to the natural layout first)."""
+    """Plain PyTorch version, at the Pallas kernel's rounding points (a
+    channel-major y moved to the natural layout first): LN in f32, rounded
+    to the input dtype; the product summed in f32; bias, gate and residual
+    in f32, rounded once."""
     if y_c_major:
         y = y.permute(0, 2, 3, 1)
     dt = y.dtype
     ln = layer_norm(y, scale, bias, eps, dtype=dt)
-    o = F.linear(ln, w.to(dt)).float() + wb.float()
+    o = _linear_f32(ln, w.to(dt)) + wb.float()
     o = o * torch.sigmoid(fg.float())
     return (o + res.float()).to(res.dtype)
 
@@ -237,21 +249,56 @@ tri_mult_post.launches_c_major = 0
 
 
 def tri_mult_post_gatefold_plain(y, scale, bias, w, wb, x_scale, x_bias, wg,
-                                 wgb, res, eps: float = 1e-5):
-    """Plain PyTorch version (mirrors tri_mult_post_gatefold_reference): the
-    final gate recomputed from res with the pre block's LayerNorm, kept in
-    f32."""
+                                 wgb, res, eps: float = 1e-5, packed=None):
+    """Plain PyTorch version, at the Pallas kernel's rounding points: LN(y)
+    and LN_x(res) in f32, each rounded to the input dtype; both products
+    summed in f32; the final gate recomputed from res with the pre block's
+    LayerNorm and kept in f32; bias, gate and residual in f32, rounded
+    once.  `packed` (the kernel's weights) is not used."""
     dt = y.dtype
     ln = layer_norm(y, scale, bias, eps, dtype=dt)
-    o = F.linear(ln, w.to(dt)).float() + wb.float()
+    o = _linear_f32(ln, w.to(dt)) + wb.float()
     lnx = layer_norm(res, x_scale, x_bias, eps, dtype=res.dtype)
-    fg = F.linear(lnx, wg.to(res.dtype)).float() + wgb.float()
+    fg = _linear_f32(lnx, wg.to(res.dtype)) + wgb.float()
     o = o * torch.sigmoid(fg)
     return (o + res.float()).to(res.dtype)
 
 
+class GatefoldPack(NamedTuple):
+    """tri_mult_post_gatefold's weights as the kernels take them: w (C,
+    nc) and wg (C, C) in the compute dtype, the biases and both LayerNorms'
+    params in f32."""
+    scale: torch.Tensor
+    bias: torch.Tensor
+    w: torch.Tensor
+    wb: torch.Tensor
+    x_scale: torch.Tensor
+    x_bias: torch.Tensor
+    wg: torch.Tensor
+    wgb: torch.Tensor
+
+
+def pack_gatefold(scale, bias, w, wb, x_scale, x_bias, wg, wgb,
+                  dtype) -> GatefoldPack:
+    f32 = [p.float().contiguous() for p in (scale, bias, wb, x_scale,
+                                            x_bias, wgb)]
+    return GatefoldPack(f32[0], f32[1], w.to(dtype).contiguous(), f32[2],
+                        f32[3], f32[4], wg.to(dtype).contiguous(), f32[5])
+
+
+def gatefold_hopper_route(y, res) -> bool:
+    """True when a launch takes the Hopper kernel (csrc/gatefold_sm90.cu):
+    bf16, nc <= 128 and C <= 192, both multiples of 8, 16-byte aligned y
+    and res; the tile kernel of csrc/row_linear.cu takes the rest (f32
+    among them).  Decided before the launch."""
+    nc, c = y.shape[-1], res.shape[-1]
+    return (y.dtype == torch.bfloat16 and nc % 8 == 0 and nc <= 128
+            and c % 8 == 0 and c <= 192 and y.data_ptr() % 16 == 0
+            and res.data_ptr() % 16 == 0)
+
+
 def tri_mult_post_gatefold(y, scale, bias, w, wb, x_scale, x_bias, wg, wgb,
-                           res):
+                           res, packed: GatefoldPack | None = None):
     """tri_mult_post with the final gate recomputed from `res`:
     (LN(y) @ w^T + wb) * sigmoid(LN_x(res) @ wg^T + wgb) + res.
 
@@ -262,6 +309,9 @@ def tri_mult_post_gatefold(y, scale, bias, w, wb, x_scale, x_bias, wg, wgb,
         x_scale, x_bias: (C,) the pre block's LayerNorm params.
         wg: (C, C), wgb: (C,): the final-gate projection.
         res: (B, L, L, C), the pre block's input.
+        packed: the same weights as `pack_gatefold` packs them for y.dtype
+            (a module caches it, so a call launches the kernel alone);
+            packed here when None.
     Returns: (B, L, L, C) in res.dtype.
     """
     if not registry.on_device(y):
@@ -271,28 +321,33 @@ def tri_mult_post_gatefold(y, scale, bias, w, wb, x_scale, x_bias, wg, wgb,
     c = w.shape[0]
     dt = y.dtype
     y, res = y.contiguous(), res.contiguous()
-    w, wg = w.to(dt).contiguous(), wg.to(dt).contiguous()
-    f32 = {k: v.float().contiguous() for k, v in dict(
-        wb=wb, scale=scale, bias=bias, x_scale=x_scale, x_bias=x_bias,
-        wgb=wgb).items()}
-    _lib.check_cuda_inputs('tri_mult_post_gatefold', dt, y=y, w=w, wg=wg,
-                           res=res, f32=f32)
-    _lib.require(w.shape == (c, nc) and wg.shape == (c, c)
-                 and f32['wb'].shape == (c,) and f32['wgb'].shape == (c,)
-                 and f32['scale'].shape == (nc,)
-                 and f32['bias'].shape == (nc,)
-                 and f32['x_scale'].shape == (c,)
-                 and f32['x_bias'].shape == (c,)
+    if packed is None:
+        packed = pack_gatefold(scale, bias, w, wb, x_scale, x_bias, wg, wgb,
+                               dt)
+    pk = packed
+    _lib.check_cuda_inputs('tri_mult_post_gatefold', dt, y=y, w=pk.w,
+                           wg=pk.wg, res=res,
+                           f32=dict(wb=pk.wb, scale=pk.scale, bias=pk.bias,
+                                    x_scale=pk.x_scale, x_bias=pk.x_bias,
+                                    wgb=pk.wgb))
+    _lib.require(pk.w.shape == (c, nc) and pk.wg.shape == (c, c)
+                 and pk.wb.shape == (c,) and pk.wgb.shape == (c,)
+                 and pk.scale.shape == (nc,) and pk.bias.shape == (nc,)
+                 and pk.x_scale.shape == (c,) and pk.x_bias.shape == (c,)
                  and res.shape == (b, r, l, c),
                  'tri_mult_post_gatefold: w (C, nc), wg (C, C), wb and wgb '
                  '(C,), LN params (nc,) and (C,), res (B, L, L, C)')
     out = torch.empty_like(res)
-    err = _lib.lib().abx_tri_mult_post_gatefold(
-        _lib.DTYPE_CODE[dt], y.data_ptr(), res.data_ptr(), b * r * l, nc, c,
-        f32['scale'].data_ptr(), f32['bias'].data_ptr(), w.data_ptr(),
-        f32['wb'].data_ptr(), f32['x_scale'].data_ptr(),
-        f32['x_bias'].data_ptr(), wg.data_ptr(), f32['wgb'].data_ptr(),
-        out.data_ptr(), _lib.stream(y))
+    args = (y.data_ptr(), res.data_ptr(), b * r * l, nc, c,
+            pk.scale.data_ptr(), pk.bias.data_ptr(), pk.w.data_ptr(),
+            pk.wb.data_ptr(), pk.x_scale.data_ptr(), pk.x_bias.data_ptr(),
+            pk.wg.data_ptr(), pk.wgb.data_ptr(), out.data_ptr(),
+            _lib.stream(y))
+    if gatefold_hopper_route(y, res):
+        err = _lib.lib().abx_tri_mult_post_gatefold_sm90(*args)
+    else:
+        err = _lib.lib().abx_tri_mult_post_gatefold(_lib.DTYPE_CODE[dt],
+                                                     *args)
     _lib.check(err, 'tri_mult_post_gatefold')
     tri_mult_post_gatefold.launches += 1
     return out

@@ -1,0 +1,193 @@
+"""What sets the pace of the recycle_embed and gate-fold kernels, by cutting
+parts out.
+
+    python -m abx_tpu_torch.tools.ablate_kernels \
+        [--out build/ablate_kernels.json]
+
+As tools/ablate_transition.py does for the transition: builds variants of
+`csrc/recycle_embed.cu` and `csrc/gatefold_sm90.cu`, each with one part of
+the work removed by a source edit, into libraries of their own (one nvcc
+each, all started together; the `-Xptxas -v` report of each is printed),
+and times each at the flagship shape (bf16, B=4, L=288; median of
+CUDA-event timings after warm-up) in turns, twice.  The variants compute
+wrong values on purpose; only `full` is checked against the plain version.
+recycle_embed ((4,288,288,128) + (4,288,288,192) -> 192):
+  full          the kernel as it is;
+  no_prefetch   each row group loaded just before it is used (no loads of
+                the next group in flight while the current one computes);
+  no_ln         no LN moments (no shuffles; mean 0, rstd 1);
+  no_table      no table row added;
+  no_store      nothing written.
+tri_mult_post_gatefold ((4,288,288,128) + res 192 -> 192):
+  full          the kernel as it is;
+  no_gate_gemm  the gate product left out (gate from its bias alone);
+  no_gemm       both products left out;
+  no_ln         neither tile normalised;
+  no_store      the staged output never written out.
+Needs a CUDA device and nvcc; writes the times as JSON to --out.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+from abx_tpu_torch.ops import _lib
+from abx_tpu_torch.ops import recycle_embed as re_op
+from abx_tpu_torch.ops import tri_mult as tm_op
+from abx_tpu_torch.tools.ablate_transition import build, time_ms
+
+_NO_SHUFFLE = (
+    '  for (int o = 1; o < kLanesPerRow; o <<= 1) {',
+    '  for (int o = kLanesPerRow; o < kLanesPerRow; o <<= 1) {')
+RECYCLE = {
+    'full': [],
+    'no_prefetch': [(
+        '    if (next < n_grp) load_row(nxt, p, next * kRowsPerGroup + row, '
+        'j);\n', '    (void)nxt;\n'), (
+        '    cur = nxt;\n',
+        '    if (next < n_grp) load_row(cur, p, next * kRowsPerGroup + row, '
+        'j);\n')],
+    'no_ln': [_NO_SHUFFLE, (
+        '  const float mu = s / p.C;\n'
+        '  const float rstd = rsqrtf(fmaxf(s2 / p.C - mu * mu, 0.f) + '
+        '1e-5f);\n', '  const float mu = 0.f, rstd = 1.f;\n')],
+    'no_table': [(
+        '  const bool bin_ok = in.bin >= 0 && in.bin < p.n_bins;',
+        '  const bool bin_ok = false;')],
+    'no_store': [('      store8(out + c, o);',
+                  '      if (o[0] == 12345.f) store8(out + c, o);')],
+}
+_NO_GATE_GEMM = [
+    ('        float o[32], gt[32];', '        float o[32], gt[32] = {};'),
+    ('            wgmma_ss64(gt, desc_sw128(a_r + a * kAtom + 32 * kk),\n'
+     '                       desc_sw128(wgj + a * P::kWAtom + 32 * kk), a + '
+     'kk > 0);\n', '            ;\n')]
+GATEFOLD = {
+    'full': [],
+    'no_gate_gemm': _NO_GATE_GEMM,
+    'no_gemm': [
+        ('        float o[32], gt[32];',
+         '        float o[32] = {}, gt[32] = {};'),
+        _NO_GATE_GEMM[1],
+        ('            wgmma_ss64(o, desc_sw128(a_y + a * kAtom + 32 * kk),\n'
+         '                       desc_sw128(wj + a * P::kWAtom + 32 * kk), '
+         'a + kk > 0);\n', '            ;\n')],
+    'no_ln': [(
+        '      ln_in_place<KY>(tile_p, p.NC, s_ysc, s_yb, wi, lane);\n'
+        '      ln_in_place<KR>(res_p, p.C, s_xsc, s_xb, wi, lane);\n', '')],
+    'no_store': [('          if (m < p.M && c < p.C)\n',
+                  '          if (m < 0)\n')],
+}
+KERNELS = {'recycle_embed': ('recycle_embed.cu', 'abx_recycle_embed',
+                             RECYCLE),
+           'tri_mult_post_gatefold': ('gatefold_sm90.cu',
+                                      'abx_tri_mult_post_gatefold_sm90',
+                                      GATEFOLD)}
+
+
+def _cases(dev):
+    """{kernel: (call(fn), want, out)} at the flagship shape, bf16."""
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+    b, l, c, c0, nc = 4, 288, 192, 128, 128
+    m = b * l * l
+    static, prev = rnd(b, l, l, c0).bfloat16(), rnd(b, l, l, c).bfloat16()
+    t_emb = rnd(b, 32).bfloat16()
+    rec = (1 + rnd(c, scale=0.1), rnd(c, scale=0.1), rnd(15, c),
+           torch.randint(0, 15, (b, l, l), generator=g, device=dev))
+    pk = re_op.pack_recycle(*rec[:3])
+    rec_out = torch.empty_like(prev)
+
+    def rec_call(fn):
+        return fn(1, static.data_ptr(), t_emb.data_ptr(), 0, 32,
+                  prev.data_ptr(), pk.ln_scale.data_ptr(),
+                  pk.ln_bias.data_ptr(), pk.table.data_ptr(),
+                  rec[3].data_ptr(), rec_out.data_ptr(), m, c0, c, l * l, 15,
+                  _lib.stream(prev))
+    rec_want = re_op.recycle_embed_plain(static, t_emb, prev, *rec)
+    y, res = rnd(b, l, l, nc).bfloat16(), rnd(b, l, l, c).bfloat16()
+    post = (1 + rnd(nc, scale=0.1), rnd(nc, scale=0.1),
+            rnd(c, nc, scale=nc ** -0.5), rnd(c, scale=0.1),
+            1 + rnd(c, scale=0.1), rnd(c, scale=0.1),
+            rnd(c, c, scale=c ** -0.5), rnd(c, scale=0.5))
+    fk = tm_op.pack_gatefold(*post, torch.bfloat16)
+    fold_out = torch.empty_like(res)
+
+    def fold_call(fn):
+        return fn(y.data_ptr(), res.data_ptr(), m, nc, c, fk.scale.data_ptr(),
+                  fk.bias.data_ptr(), fk.w.data_ptr(), fk.wb.data_ptr(),
+                  fk.x_scale.data_ptr(), fk.x_bias.data_ptr(),
+                  fk.wg.data_ptr(), fk.wgb.data_ptr(), fold_out.data_ptr(),
+                  _lib.stream(y))
+    fold_want = tm_op.tri_mult_post_gatefold_plain(y, *post, res)
+    return {'recycle_embed': (rec_call, rec_want, rec_out),
+            'tri_mult_post_gatefold': (fold_call, fold_want, fold_out)}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--out', default='build/ablate_kernels.json')
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit('ablate_kernels needs a CUDA device')
+    dev = torch.device('cuda')
+    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader'], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    result = {'card': card}
+    cases = _cases(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        for kernel, (src, entry, variants) in KERNELS.items():
+            work = Path(tmp) / kernel
+            work.mkdir()
+            libs = build(work, _lib.CSRC / src, variants)
+            fns = {}
+            for name, (lib, report) in libs.items():
+                print(f'{kernel} {name}: ' + '; '.join(report), flush=True)
+                fn = getattr(ctypes.CDLL(str(lib)), entry)
+                fn.argtypes = _lib._SIGNATURES[entry]
+                fn.restype = ctypes.c_int
+                fns[name] = fn
+            call, want, out = cases[kernel]
+
+            def run(fn):
+                err = call(fn)
+                if err:
+                    raise RuntimeError(f'{kernel}: launch failed, '
+                                       f'cudaError_t {err}')
+            run(fns['full'])
+            torch.cuda.synchronize()
+            err = ((out.float() - want.float()).abs().max()
+                   / want.float().abs().max()).item()
+            print(f'{kernel} full vs the bf16 plain version: err/max|ref| '
+                  f'{err:.3g}', flush=True)
+            if not err <= 3e-2:
+                raise SystemExit(f'{kernel}: the full variant disagrees '
+                                 'with the plain version')
+            times = {name: [] for name in fns}
+            for order in (list(fns), list(fns)[::-1]):
+                for name in order:
+                    times[name].append(time_ms(lambda: run(fns[name])))
+            for name, ts in times.items():
+                print(f'{kernel} {name}: '
+                      f'{" / ".join(f"{t:.4f}" for t in ts)} ms on {card}',
+                      flush=True)
+            result[kernel] = {'ms': times, 'full_rel_err': err,
+                              'ptxas': {k: v[1] for k, v in libs.items()}}
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, 'w') as f:
+        json.dump(result, f, indent=1)
+
+
+if __name__ == '__main__':
+    main()

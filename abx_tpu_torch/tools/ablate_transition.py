@@ -79,20 +79,21 @@ VARIANTS = {
 VARIANTS['no_gemm'] = VARIANTS['no_gemm1'] + VARIANTS['no_gemm2']
 
 
-def build(work: Path):
-    """{variant: (library, ptxas report)}, one nvcc a variant, together."""
-    text = SRC.read_text()
+def build(work: Path, src=SRC, variants=None):
+    """{variant: (library, ptxas report)} of `src` with each of `variants`'
+    edits (VARIANTS by default), one nvcc a variant, together."""
+    text = src.read_text()
     nvcc = _lib._nvcc()
     procs = {}
-    for name, edits in VARIANTS.items():
-        src = text
+    for name, edits in (variants or VARIANTS).items():
+        code = text
         for old, new in edits:
-            if src.count(old) != 1:
+            if code.count(old) != 1:
                 raise RuntimeError(f'{name}: the source no longer holds '
                                    f'{old!r}')
-            src = src.replace(old, new)
+            code = code.replace(old, new)
         cu = work / f'{name}.cu'
-        cu.write_text(src)
+        cu.write_text(code)
         lib = work / f'lib{name}.so'
         cmd = [nvcc, *_lib.NVCC_FLAGS, '-I', str(_lib.CSRC), '-shared', '-o',
                str(lib), str(cu)]

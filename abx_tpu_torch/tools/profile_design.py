@@ -4,15 +4,17 @@
         [--profile_t 2] [--out build/profile_design.json]
 
 In one process, for ESM-off design and for design conditioned on ESM2-3B
-(random weights made on the card): the released config, bf16, B=4 samples
+(random weights made on the card; `--configs esm_off` runs the first
+alone): the released config, bf16, B=4 samples
 of testdata/6ct7_H_L_S.pdb (L = 256 + 32).  After one warm-up trajectory
 each, it times whole trajectories at --num_t in turns (off, on, on, off)
 and reports seconds per diffusion step and samples/hour; times one ESM2-3B
 forward alone (CUDA events) with the attention through the hand-written
 kernel, torch's scaled_dot_product_attention and the plain version; and
 traces a --profile_t trajectory of each with torch.profiler, printing the
-device time by kernel name, the summed device time and the device kernels
-per trunk pass.  Needs a CUDA device; writes the numbers as JSON to --out.
+device time by kernel name (the top 40, and every kernel of the port's
+own library), the summed device time and the device kernels per trunk
+pass.  Needs a CUDA device; writes the numbers as JSON to --out.
 """
 
 from __future__ import annotations
@@ -83,12 +85,16 @@ def _profile(sampler, batch, passes: int):
             by_name[e.name][1] += 1
     total = sum(v[0] for v in by_name.values())
     count = sum(v[1] for v in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:40]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     return {'wall_s': wall, 'device_ms': total, 'device_kernels': count,
             'device_ms_per_pass': total / passes,
             'kernels_per_pass': count / passes,
             'top': [{'name': k[:120], 'ms': v[0], 'calls': v[1]}
-                    for k, v in top]}
+                    for k, v in ranked[:40]],
+            # Every kernel of the port's library (namespace abx), however
+            # small its share.
+            'port': [{'name': k[:120], 'ms': v[0], 'calls': v[1]}
+                     for k, v in ranked if 'abx::' in k]}
 
 
 def _esm_forward_ms(rt, batch):
@@ -127,16 +133,19 @@ def main(argv=None):
     p.add_argument('--profile_t', type=int, default=2)
     p.add_argument('--out', default=os.path.join(REPO, 'build',
                                                  'profile_design.json'))
+    p.add_argument('--configs', default='esm_off,esm_on',
+                   help='which of esm_off, esm_on to run (comma-separated)')
     args = p.parse_args(argv)
+    configs = args.configs.split(',')
     if not torch.cuda.is_available():
         raise SystemExit('profile_design: needs a CUDA device')
     card = _card()
     print(f'card: {card}', flush=True)
-    runs = {name: _setup(name == 'esm_on') for name in ('esm_off', 'esm_on')}
+    runs = {name: _setup(name == 'esm_on') for name in configs}
     for name, (_, batch, sampler) in runs.items():
         _trajectory_s(sampler(4), batch, 0)          # warm-up
     steady = collections.defaultdict(list)
-    for name in ('esm_off', 'esm_on', 'esm_on', 'esm_off'):
+    for name in configs + configs[::-1]:
         _, batch, sampler = runs[name]
         s = _trajectory_s(sampler(args.num_t), batch, 1)
         per_step = s / (args.num_t + 1)
@@ -148,10 +157,12 @@ def main(argv=None):
               'samples_per_hour': {
                   k: [BATCH / (v * (args.num_t + 1)) * 3600 for v in vs]
                   for k, vs in steady.items()}}
-    rt, batch, _ = runs['esm_on']
-    result['esm_forward_ms'] = _esm_forward_ms(rt, batch)
-    print(f'ESM2-3B forward (B=4, L=306) by attention route, ms: '
-          f'{json.dumps(result["esm_forward_ms"])}', flush=True)
+    if 'esm_on' in runs:
+        rt, batch, _ = runs['esm_on']
+        result['esm_forward_ms'] = _esm_forward_ms(rt, batch)
+        print(f'ESM2-3B forward (B=4, L=306) by attention route, ms: '
+              f'{json.dumps(result["esm_forward_ms"])}', flush=True)
+    rt = next(iter(runs.values()))[0]
     passes = (args.profile_t + 1) * (rt.config.model.num_recycle + 1)
     result['profile'] = {}
     for name, (_, batch, sampler) in runs.items():
@@ -164,6 +175,9 @@ def main(argv=None):
               f'{prof["wall_s"]:.3f} s', flush=True)
         for row in prof['top']:
             print(f'  {row["ms"]:9.2f} ms {row["calls"]:6d}  {row["name"]}')
+        print('  the port\'s kernels:')
+        for row in prof['port']:
+            print(f'  {row["ms"]:9.3f} ms {row["calls"]:6d}  {row["name"]}')
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, 'w') as f:
         json.dump(result, f, indent=1)

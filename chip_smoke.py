@@ -14,19 +14,26 @@ fatal on failure:
      plain version with the same exponent); kernel and plain times (median
      of CUDA event timings after warm-up, bf16), and the time of the one
      torch call that computes the same function where there is one (and
-     esm_attention's, ipa_attention's, tri_mult_pre's, pair_bias_proj's
-     and fused_transition's one call each launch one device kernel, under
-     the profiler, and the last two's is the Hopper kernel by name;
-     tri_mult_pre, the triangle attentions, pair_bias_proj and
-     fused_transition take their weights packed, as the modules cache
-     them; the row-linear cases and fused_transition print beside them the
-     bare bf16 torch.matmul of their products as a yardstick), and row 1's
-     attention core alone on ready projection rows beside SDPA; the bf16
-     core against the plain core with the TPU kernel's exponent (against
-     the row's final max) on rows whose logits are exact in f32, to
-     EXP_TOL relative; the bf16 IPA scalar attend with p rounded to bf16
-     (the TPU kernel's p.astype(in_dt)) on a case where the rounding of p
-     moves the output by 15-35%, to IPA_CANCEL_TOL relative; then
+     esm_attention's, ipa_attention's, tri_mult_pre's, pair_bias_proj's,
+     fused_transition's, the gate-fold post's and recycle_embed's one call
+     each launch one device kernel, under the profiler, and the last four's
+     is the Hopper kernel by name; tri_mult_pre, the triangle attentions,
+     pair_bias_proj, fused_transition, the gate-fold post and
+     recycle_embed take their weights packed, as the modules cache them;
+     the row-linear cases, fused_transition and the gate-fold post print
+     beside them the bare bf16 torch.matmul of their products as a
+     yardstick, recycle_embed a bare torch.add of two bf16 pair tensors),
+     and row 1's attention core alone on ready projection rows beside
+     SDPA; the bf16 core against the plain core with the TPU kernel's
+     exponent (against the row's final max) on rows whose logits are exact
+     in f32, to EXP_TOL relative; the bf16 Hopper kernels of tri_mult_pre
+     (three variants), tri_mult_post, the gate-fold post and gate_proj
+     against their bf16 plain versions (the TPU kernels' rounding points):
+     at most BF16_SHARE of the outputs differ, by at most BF16_STEPS, and a
+     second call gives the same bits; the bf16 IPA scalar attend with p
+     rounded to bf16 (the TPU kernel's p.astype(in_dt)) on a case where
+     the rounding of p moves the output by 15-35%, to IPA_CANCEL_TOL
+     relative; then
      the channel-major contraction (torch.matmul, checked under the
      profiler to run no copy kernel) timed beside the natural einsum and
      the triangle_multiply kernel, both orientations;
@@ -181,19 +188,22 @@ def kernel_cases(torch, dev):
 
     def case(name, label, kern, plain, a32, a16, reads, flops, library=None,
              env=None, plain16=None, one_launch=False, gemm=None,
-             kernel_name=None):
+             kernel_name=None, stream=None):
         """env: flags set while the case runs; plain16: the plain version
         the bf16 kernel is held to, where it differs from `plain`;
         one_launch: the wrapper must launch its kernel and no other device
         kernel (checked under the profiler), whose name holds kernel_name
         where given; gemm: [(k, n), ...] of the bare bf16 torch.matmul
         products (M, k) x (k, n), timed together beside the kernel as a
-        yardstick (not the same function: no LayerNorm, no epilogue)."""
+        yardstick (not the same function: no LayerNorm, no epilogue);
+        stream: (label, fn) of a bare torch call that streams about the
+        bytes the kernel moves, timed beside it as a yardstick of the rate
+        the card streams at (not the same function)."""
         cases.append(dict(name=name, label=label, kern=kern, plain=plain,
                           a32=a32, a16=a16, reads=reads, flops=flops,
                           library=library, env=env or {}, plain16=plain16,
                           one_launch=one_launch, gemm=gemm,
-                          kernel_name=kernel_name))
+                          kernel_name=kernel_name, stream=stream))
 
     def tri(label, r, c, h, exp_flag):
         x = rnd(b, r, l, c)
@@ -343,12 +353,18 @@ def kernel_cases(torch, dev):
          (x,), (x.bfloat16(),), list(pre4), 2 * m * c * 4 * nc)
     fold = (1 + rnd(c, scale=0.1), rnd(c, scale=0.1),
             rnd(c, c, scale=c ** -0.5), rnd(c, scale=0.5))
+    # The packed weights, as TriangleMultiplication caches them (then a
+    # bf16 call is one launch of the Hopper kernel).
+    fold_pk = {dt: tm_op.pack_gatefold(*post, *fold, dt)
+               for dt in (torch.float32, torch.bfloat16)}
     case('tri_mult_post_gatefold', '(4,288,288,128) + res 192 -> 192',
-         lambda y, res: tm_op.tri_mult_post_gatefold(y, *post, *fold, res),
+         lambda y, res: tm_op.tri_mult_post_gatefold(
+             y, *post, *fold, res, packed=fold_pk[y.dtype]),
          lambda y, res: tm_op.tri_mult_post_gatefold_plain(y, *post, *fold,
                                                            res),
          (y, res), (y.bfloat16(), res.bfloat16()), list(post) + list(fold),
-         2 * m * (nc * c + c * c))
+         2 * m * (nc * c + c * c), one_launch=True,
+         kernel_name='gatefold_sm90_kernel', gemm=[(nc, c), (c, c)])
     hd = 192
     gy, gate = rnd(b, l, l, hd), rnd(b, l, l, hd, scale=2.0)
     gw = (rnd(c, hd, scale=hd ** -0.5), rnd(c, scale=0.1))
@@ -371,14 +387,27 @@ def kernel_cases(torch, dev):
              2 * b * l * l * l * nc,
              lambda lt, rt, eq=eq: torch.einsum(eq, lt, rt))
     del left, right
+    # As EmbeddingAndSeqformer calls it: the (B, 32) time embedding in the
+    # compute dtype on both index-embed blocks (its values exact in bf16, so
+    # the f32 plain version sees the ones the bf16 call does), the params
+    # packed in f32 as the module caches them.
     static, prev = rnd(b, l, l, 128), rnd(b, l, l, c, scale=2.0)
-    rec = (rnd(b, 64), 1 + rnd(c, scale=0.1), rnd(c, scale=0.1),
-           rnd(15, c), torch.randint(0, 15, (b, l, l), generator=g,
-                                     device=dev))
-    case('recycle_embed', '(4,288,288,128) + (4,288,288,192) -> 192',
-         lambda sp, pp: re_op.recycle_embed(sp, rec[0], pp, *rec[1:]),
-         lambda sp, pp: re_op.recycle_embed_plain(sp, rec[0], pp, *rec[1:]),
-         (static, prev), (static.bfloat16(), prev.bfloat16()), list(rec), 0)
+    t_emb = rnd(b, 32).bfloat16().float()
+    t_of = {torch.float32: t_emb, torch.bfloat16: t_emb.bfloat16()}
+    rec = (1 + rnd(c, scale=0.1), rnd(c, scale=0.1), rnd(15, c),
+           torch.randint(0, 15, (b, l, l), generator=g, device=dev))
+    rec_pk = re_op.pack_recycle(*rec[:3])
+    prev2 = rnd(b, l, l, c).bfloat16()
+    case('recycle_embed', '(4,288,288,128) + (4,288,288,192) -> 192, t (4,32) '
+         'x2',
+         lambda sp, pp: re_op.recycle_embed(sp, t_of[pp.dtype], pp, *rec,
+                                            packed=rec_pk),
+         lambda sp, pp: re_op.recycle_embed_plain(sp, t_emb, pp, *rec),
+         (static, prev), (static.bfloat16(), prev.bfloat16()),
+         [t_of[torch.bfloat16], *rec], 0, one_launch=True,
+         kernel_name='recycle_kernel',
+         stream=('torch.add of two (4,288,288,192) bf16',
+                 lambda sp, pp: torch.add(pp, prev2)))
 
     # As the IPA module hands them in: k / v column blocks of one (B, L, H,
     # 2 Ds) projection, the bias the permuted (B, L, L, H) pair projection
@@ -502,7 +531,7 @@ KERNEL_META = {
                         'abx_tpu/ops/ipa_attend.py:36'),
     'triangle_multiply': ('abx_tpu_torch/csrc/triangle.cu',
                           'abx_tpu/ops/triangle.py:81'),
-    'tri_mult_post_gatefold': ('abx_tpu_torch/csrc/row_linear.cu',
+    'tri_mult_post_gatefold': ('abx_tpu_torch/csrc/gatefold_sm90.cu',
                                'abx_tpu/ops/tri_mult.py:245'),
     'gate_proj_residual': ('abx_tpu_torch/csrc/row_linear.cu',
                            'abx_tpu/ops/gate_proj.py:34'),
@@ -564,6 +593,9 @@ def phase_kernels(torch, dev):
             gemm_ms = time_ms(torch, lambda: [torch.matmul(ga, gb)
                                               for ga, gb in mats])
             del mats
+        stream_ms = None
+        if cs['stream']:
+            stream_ms = time_ms(torch, lambda: cs['stream'][1](*a16))
         launched = None
         if cs['one_launch']:
             launched = device_kernel_names(torch, lambda: kern(*a16))
@@ -586,6 +618,9 @@ def phase_kernels(torch, dev):
                                for gk, gn in cs['gemm'])
             lib_txt += (f'; yardstick torch.matmul {prods} bf16 '
                         f'{gemm_ms:.3f} ms')
+        if stream_ms is not None:
+            lib_txt += (f'; stream yardstick {cs["stream"][0]} '
+                        f'{stream_ms:.3f} ms')
         print(f'kernel {name} {label}: f32 err/max|ref| {e32:.3g}, bf16 '
               f'err/max|ref| {e16:.3g}; bf16 kernel {ms:.3f} ms, plain '
               f'{plain_ms:.3f} ms{lib_txt}; bound {bms:.4f} ms by {by} '
@@ -596,7 +631,8 @@ def phase_kernels(torch, dev):
             'case': label, 'max_abs_err': abs16, 'rel_err_bf16': e16,
             'rel_err_f32': e32, 'ms': ms, 'plain_ms': plain_ms,
             'library_ms': lib_ms, 'bound_ms': bms, 'bound_by': by,
-            'flops': cs['flops'], 'bytes': nbytes, 'gemm_yardstick_ms': gemm_ms})
+            'flops': cs['flops'], 'bytes': nbytes,
+            'gemm_yardstick_ms': gemm_ms, 'stream_yardstick_ms': stream_ms})
         if cs['one_launch']:
             entry['cases'][-1]['device_kernels_per_call'] = launched
             seen = launched or 'not recorded by the profiler'
@@ -657,6 +693,94 @@ def phase_exponent(torch, dev):
             fail(f'the bf16 core missed the final-max exponent ({what}): '
                  f'rel err {err:.3g} > {EXP_TOL}')
         report[what] = err
+    return report
+
+
+# The bf16 rounding-point check: two results at the same rounding points
+# differ only where an f32 sum taken in another order lands on the other
+# side of a bf16 rounding; one missed rounding point moves 16-29% of the
+# outputs (tests/test_torch_kernels.py and tests/test_torch_ops.py).
+BF16_SHARE = 1e-2     # share of the bf16 outputs that may differ
+BF16_STEPS = 2 ** -7  # max |got - want| / max|want|: two bf16 steps
+
+
+def phase_rounding_points(torch, dev):
+    """The bf16 Hopper kernels of tri_mult_pre (natural, without the final
+    gate, channel-major), tri_mult_post (natural input), the gate-fold post
+    and gate_proj_residual against their plain versions in bf16 on the same
+    bf16 inputs (the TPU kernels' rounding points), at the flagship shapes:
+    at most BF16_SHARE of the outputs may differ, by at most BF16_STEPS of
+    max|want|; and a second call gives the same bits."""
+    from abx_tpu_torch.ops import gate_proj as gp_op
+    from abx_tpu_torch.ops import tri_mult as tm_op
+    g = torch.Generator(device=dev).manual_seed(4)
+    b, l, c, nc = 4, 288, 192, 128
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    def bf(*shape, scale=1.0):
+        return rnd(*shape, scale=scale).bfloat16()
+    mask = torch.ones(b, l, device=dev)
+    mask[:, -9:] = 0.0
+    x, res = bf(b, l, l, c), bf(b, l, l, c)
+    lnp = (1 + rnd(c, scale=0.1), rnd(c, scale=0.1))
+    w_pre, b_pre = rnd(4 * nc + c, c, scale=c ** -0.5), rnd(4 * nc + c,
+                                                            scale=0.5)
+    parts = (torch.split(w_pre, [nc] * 4 + [c]),
+             torch.split(b_pre, [nc] * 4 + [c]))
+    pre = (*lnp, w_pre, b_pre, mask)
+    pre4 = (*lnp, w_pre[:4 * nc], b_pre[:4 * nc], mask)
+    pk = tm_op.pack_pre(*parts, *lnp, torch.bfloat16)
+    pk4 = tm_op.pack_pre(parts[0][:4], parts[1][:4], *lnp, torch.bfloat16)
+    y, fg = bf(b, l, l, nc), bf(b, l, l, c)
+    post = (1 + rnd(nc, scale=0.1), rnd(nc, scale=0.1),
+            rnd(c, nc, scale=nc ** -0.5), rnd(c, scale=0.1))
+    fold = (*lnp, rnd(c, c, scale=c ** -0.5), rnd(c, scale=0.5))
+    fold_pk = tm_op.pack_gatefold(*post, *fold, torch.bfloat16)
+    gy, gate = bf(b, l, l, c), bf(b, l, l, c, scale=2.0)
+    gw = (rnd(c, c, scale=c ** -0.5), rnd(c, scale=0.1))
+    cases = [
+        ('tri_mult_pre', lambda: tm_op.tri_mult_pre(x, *pre, packed=pk),
+         lambda: tm_op.tri_mult_pre_plain(x, *pre)),
+        ('tri_mult_pre_no_fgate',
+         lambda: tm_op.tri_mult_pre(x, *pre4, emit_fgate=False, packed=pk4),
+         lambda: tm_op.tri_mult_pre_plain(x, *pre4, emit_fgate=False)),
+        ('tri_mult_pre_c_major',
+         lambda: tm_op.tri_mult_pre(x, *pre, c_major=True, packed=pk),
+         lambda: tm_op.tri_mult_pre_plain(x, *pre, c_major=True)),
+        ('tri_mult_post', lambda: tm_op.tri_mult_post(y, *post, fg, res),
+         lambda: tm_op.tri_mult_post_plain(y, *post, fg, res)),
+        ('tri_mult_post_gatefold',
+         lambda: tm_op.tri_mult_post_gatefold(y, *post, *fold, res,
+                                              packed=fold_pk),
+         lambda: tm_op.tri_mult_post_gatefold_plain(y, *post, *fold, res)),
+        ('gate_proj_residual',
+         lambda: gp_op.gate_proj_residual(gy, gate, *gw, res),
+         lambda: gp_op.gate_proj_residual_plain(gy, gate, *gw, res))]
+    report = {}
+    for name, kern, plain in cases:
+        want = as_tuple(plain())
+        got, again = as_tuple(kern()), as_tuple(kern())
+        torch.cuda.synchronize()
+        worst = (0.0, 0.0)
+        for gt, ag, wt in zip(got, again, want):
+            if not torch.equal(gt, ag):
+                fail(f'rounding points, {name}: a second call gave other '
+                     'bits')
+            err = ((gt.float() - wt.float()).abs().max()
+                   / wt.float().abs().max()).item()
+            share = (gt != wt).float().mean().item()
+            worst = (max(worst[0], err), max(worst[1], share))
+        print(f'rounding points, {name} bf16 (4,288,288): max err/max|want| '
+              f'{worst[0]:.3g} (bound {BF16_STEPS:.3g}), share of outputs '
+              f'that differ {worst[1]:.3g} (bound {BF16_SHARE})', flush=True)
+        if not (worst[0] <= BF16_STEPS and worst[1] <= BF16_SHARE):
+            fail(f'{name} missed the bf16 plain version\'s rounding points: '
+                 f'err {worst[0]:.3g}, share {worst[1]:.3g}')
+        report[name] = {'rel_err': worst[0], 'share_differing': worst[1]}
+        del want, got, again
+    torch.cuda.empty_cache()
     return report
 
 
@@ -1287,6 +1411,7 @@ def main():
 
     kernels = phase_kernels(torch, dev)
     exponent = phase_exponent(torch, dev)
+    rounding = phase_rounding_points(torch, dev)
     ipa_cancel = phase_ipa_cancel(torch, dev)
     contraction = phase_contraction(torch, dev)
     flags = phase_flags(torch, dev)
@@ -1316,6 +1441,7 @@ def main():
             'library_ms': first['library_ms'], 'cases': cases})
     print(card)
     print(json.dumps({'kernels': rows, 'bf16_exp_final_max': exponent,
+                      'bf16_rounding_points': rounding,
                       'ipa_scalar_attend_bf16_p': ipa_cancel,
                       'flags_vs_off': flags,
                       'esm_flags_on_vs_off': esm_flags,

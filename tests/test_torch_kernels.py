@@ -190,17 +190,26 @@ def _triangle_case(seed, b, l, c):
                  for _ in range(2))
 
 
-def _gatefold_port(args, fn=None):
-    y, s, lb, w, wb, xs, xb, wg, wgb, res = args
+def _gatefold_port(args, fn=None, dtype=torch.float32):
+    """The gate-fold case through fn (the plain version by default), y and
+    res in `dtype`."""
     fn = fn or tri_mult_op.tri_mult_post_gatefold_plain
-    return fn(t(y), t(s), t(lb), t(w.T), t(wb), t(xs), t(xb), t(wg.T),
-              t(wgb), t(res))
+    return fn(*_gatefold_args(args, dtype))
 
 
-def _gate_proj_port(args, fn=None):
+def _gatefold_args(args, dtype, dev='cpu'):
+    """The gate-fold case as the port's arguments, y and res in `dtype`."""
+    y, s, lb, w, wb, xs, xb, wg, wgb, res = (t(a).to(dev) for a in args)
+    return (y.to(dtype), s, lb, w.T.contiguous(), wb, xs, xb,
+            wg.T.contiguous(), wgb, res.to(dtype))
+
+
+def _gate_proj_port(args, fn=None, dtype=torch.float32):
+    """The gate_proj case through fn, y, gate and res in `dtype`."""
     y, g, w, wb, res = args
     fn = fn or gate_proj_op.gate_proj_residual_plain
-    return fn(t(y), t(g), t(w.T), t(wb), t(res))
+    return fn(t(y).to(dtype), t(g).to(dtype), t(w.T), t(wb),
+              t(res).to(dtype))
 
 
 def _recycle_case(seed, b, l, c0, c, n_bins):
@@ -324,6 +333,24 @@ def test_lib_signatures_match_extern_c_declarations():
                 assert re.fullmatch(r'int\s+\w+', p), (name, p)
                 want.append(ctypes.c_int)
         assert _lib._SIGNATURES[name] == want, name
+
+
+@pytest.mark.parametrize('tool', ['ablate_transition', 'ablate_kernels'])
+def test_ablation_edits_find_their_text(tool):
+    """Each variant of the ablation tools edits text that its kernel source
+    holds exactly once (the tools raise on the card otherwise)."""
+    import importlib
+    mod = importlib.import_module(f'abx_tpu_torch.tools.{tool}')
+    if tool == 'ablate_transition':
+        plans = [(mod.SRC, mod.VARIANTS)]
+    else:
+        plans = [(_lib.CSRC / src, variants)
+                 for src, _, variants in mod.KERNELS.values()]
+    for src, variants in plans:
+        text = src.read_text()
+        for name, edits in variants.items():
+            for old, _ in edits:
+                assert text.count(old) == 1, (src.name, name, old)
 
 
 # --- wrappers: CPU tensors take the plain version; counters -----------------
@@ -572,6 +599,35 @@ def test_recycle_embed_kernel_matches_plain(cuda, shape, dtype):
     _close_on_card(got, want, dtype)
 
 
+# (b, l, c0, c, n_bins, t repeats, t_dtype): M not a multiple of the 32-row
+# group, C0 and C not multiples of 8 (pieces straddling C0, element
+# stores), C = 256 (four pieces a lane), the time vector repeated, in bf16.
+RECYCLE_SHAPES = [(2, 37, 128, 192, 15, 2, torch.bfloat16),
+                  (1, 9, 20, 36, 7, 1, torch.float32),
+                  (3, 11, 16, 32, 15, 2, torch.float32),
+                  (1, 13, 60, 256, 5, 4, torch.bfloat16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', RECYCLE_SHAPES)
+def test_recycle_embed_ragged_matches_plain(cuda, shape, dtype):
+    """The kernel against its plain version, three bins out of range (they
+    add zero)."""
+    b, l, c0, c, n_bins, tiles, t_dtype = shape
+    case = list(_recycle_case(34, b, l, c0, c, n_bins))
+    # The time vector's values exact in t_dtype, so the f32 plain version
+    # sees the ones the call does.
+    case[1] = t(case[1][:, :(c - c0) // tiles]).to(t_dtype).float().numpy()
+    case[-1][0, 0, :3] = [-1, n_bins, n_bins + 2]
+    f32, low = _on_card(case, cuda, dtype, {0, 2})
+    low[1] = low[1].to(t_dtype)
+    want = recycle_op.recycle_embed_plain(*f32)
+    got = recycle_op.recycle_embed(*low)
+    torch.cuda.synchronize()
+    _close_on_card(got, want, dtype)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('shape', [(2, 3, 70, 64, True, None),
@@ -638,6 +694,29 @@ def test_tri_mult_post_gatefold_kernel_matches_plain(cuda, shape, dtype):
     y, s, lb, w, wb, xs, xb, wg, wgb, res = _gatefold_case(17, b, l, nc, c)
     f32, low = _on_card((y, s, lb, w.T.copy(), wb, xs, xb, wg.T.copy(), wgb,
                          res), cuda, dtype, {0, 9})
+    want = tri_mult_op.tri_mult_post_gatefold_plain(*f32)
+    got = tri_mult_op.tri_mult_post_gatefold(*low)
+    torch.cuda.synchronize()
+    _close_on_card(got, want, dtype)
+
+
+# (b, l, c, nc): C of three, two and three 64-column chunks (136: a ragged
+# last chunk), nc of two and one atoms (72: a ragged K atom), M not a
+# multiple of the 64-row tile.
+GATEFOLD_SHAPES = [(1, 45, 192, 128), (2, 23, 128, 64), (1, 30, 136, 72)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', GATEFOLD_SHAPES)
+def test_gatefold_hopper_matches_plain(cuda, shape, dtype):
+    """bf16 takes csrc/gatefold_sm90.cu, f32 the tile kernel."""
+    b, l, c, nc = shape
+    case = _gatefold_case(35, b, l, nc, c)
+    f32 = _gatefold_args(case, torch.float32, cuda)
+    low = _gatefold_args(case, dtype, cuda)
+    assert tri_mult_op.gatefold_hopper_route(low[0], low[-1]) == (
+        dtype == torch.bfloat16)
     want = tri_mult_op.tri_mult_post_gatefold_plain(*f32)
     got = tri_mult_op.tri_mult_post_gatefold(*low)
     torch.cuda.synchronize()
@@ -1302,6 +1381,18 @@ def pair_bias_missed_rounding(pair, s, lb, w):
     return y.permute(0, 3, 1, 2).contiguous()
 
 
+def gatefold_missed_rounding(y, s, lb, w, wb, xs, xb, wg, wgb, res):
+    """tri_mult_post_gatefold_plain with each product rounded to the input
+    dtype before its bias (the JAX `*_reference` twin's rounding, which the
+    Pallas kernel does not have)."""
+    import torch.nn.functional as F
+    from abx_tpu_torch.models.modules import layer_norm
+    dt = y.dtype
+    o = F.linear(layer_norm(y, s, lb, dtype=dt), w.to(dt)).float() + wb
+    fg = F.linear(layer_norm(res, xs, xb, dtype=dt), wg.to(dt)).float() + wgb
+    return (o * torch.sigmoid(fg) + res.float()).to(dt)
+
+
 def _transition_port(case, dtype, dev='cpu'):
     x, s, lb, w1, b1, w2, b2 = (t(a).to(dev) for a in case)
     return x.to(dtype), s, lb, w1.T.contiguous(), b1, w2.T.contiguous(), b2
@@ -1312,15 +1403,21 @@ def _pair_bias_port(case, dtype, dev='cpu'):
     return pair.to(dtype), s, lb, w.T.contiguous()
 
 
-@pytest.mark.parametrize('kind', ['transition', 'pair_bias'])
+@pytest.mark.parametrize('kind', ['transition', 'pair_bias', 'gatefold'])
 def test_bf16_check_resolves_a_missed_rounding_point(kind):
     """The bf16 check holds the plain version to itself and tells it from
-    the same function with one rounding point missed."""
+    the same function with one rounding point missed (for the gate-fold:
+    the bf16-rounded products of the plain version before its repair)."""
     if kind == 'transition':
         args = _transition_port(_transition_case(9, 1, 8, 16, 64),
                                 torch.bfloat16)
         plain, missed = (transition_op.fused_transition_plain,
                          transition_missed_rounding)
+    elif kind == 'gatefold':
+        args = _gatefold_args(_gatefold_case(9, 1, 16, 64, 48),
+                              torch.bfloat16)
+        plain, missed = (tri_mult_op.tri_mult_post_gatefold_plain,
+                         gatefold_missed_rounding)
     else:
         args = _pair_bias_port(_pair_bias_case(9, 2, 8, 8, 64, 5),
                                torch.bfloat16)
@@ -1345,67 +1442,89 @@ def test_hopper_routes_are_decided_by_dtype_and_shape(dtype, c, h, want):
     assert not transition_op.hopper_route(x, 4 * c + 4)
 
 
-def _module_case(kind):
-    """(module, call, its packed-weight cache, the wrapper it calls, a
-    parameter of the packed weights) at a tiny size, f32 on the CPU."""
+def _module_case(kind, dev='cpu', dtype=torch.float32):
+    """(module, call, its packed-weight cache, the wrapper it calls, the
+    submodule and name of a parameter the packed weights hold, and the
+    packed tensor made from it) at a tiny size, f32 on the CPU by
+    default."""
     from abx_tpu_torch import config as config_lib
     from abx_tpu_torch.models import seqformer as sf
-    cfg = config_lib.tiny_model_config().model.embeddings_and_seqformer\
-        .seqformer
+    cfg = config_lib.tiny_model_config().model.embeddings_and_seqformer
+    scfg = cfg.seqformer
     torch.manual_seed(0)
-    pair = torch.randn(1, 5, 5, 16)
-    mask = torch.ones(1, 5)
+    pair = torch.randn(1, 5, 5, 16).to(dev, dtype)
+    mask = torch.ones(1, 5, device=dev)
     if kind == 'transition':
-        mod = sf.Transition(cfg.pair_transition, 16)
+        mod = sf.Transition(scfg.pair_transition, 16)
         return (mod, lambda: mod(pair, residual=True), mod._pack,
-                'fused_transition', 'in_proj')
+                'fused_transition', 'in_proj', 'weight', lambda pk: pk.w1)
     if kind == 'seq_attention':
-        mod = sf.SeqAttentionWithPairBias(cfg.seq_attention_with_pair_bias,
+        mod = sf.SeqAttentionWithPairBias(scfg.seq_attention_with_pair_bias,
                                           8, 16)
-        seq = torch.randn(1, 5, 8)
+        seq = torch.randn(1, 5, 8).to(dev, dtype)
         return (mod, lambda: mod(seq, pair, mask), mod._bias_pack,
-                'pair_bias_proj', 'proj_pair')
-    mod = sf.TriangleAttention(cfg.triangle_attention_starting_node, 16)
+                'pair_bias_proj', 'proj_pair', 'weight', lambda pk: pk.w)
+    if kind == 'gatefold':
+        mod = sf.TriangleMultiplication(scfg.triangle_multiplication_outgoing,
+                                        16)
+        return (mod, lambda: mod(pair, mask, residual=True), mod._fold_pack,
+                'tri_mult_post_gatefold', 'proj_out', 'weight',
+                lambda pk: pk.w)
+    if kind == 'recycle':
+        mod = sf.EmbeddingAndSeqformer(cfg, 3)
+        c = cfg.pair_channel + 2 * cfg.index_embed_size
+        static = torch.randn(1, 5, 5, cfg.pair_channel).to(dev, dtype)
+        t_embed = torch.randn(1, cfg.index_embed_size).to(dev, dtype)
+        batch = {'prev_pair': torch.randn(1, 5, 5, c).to(dev, dtype),
+                 'prev_pos': torch.randint(0, cfg.prev_pos.num_bins,
+                                           (1, 5, 5)).to(dev)}
+        return (mod, lambda: mod._recycled_pair(static, t_embed, batch),
+                mod._recycle_pack, 'recycle_embed', 'proj_prev_pos',
+                'embedding', lambda pk: pk.table)
+    mod = sf.TriangleAttention(scfg.triangle_attention_starting_node, 16)
     return (mod, lambda: mod(pair, mask, residual=True), mod._bias_pack,
-            'pair_bias_proj', 'proj_pair')
+            'pair_bias_proj', 'proj_pair', 'weight', lambda pk: pk.w)
 
 
 @pytest.mark.parametrize('kind', ['transition', 'seq_attention',
-                                  'tri_attention'])
+                                  'tri_attention', 'gatefold', 'recycle'])
 def test_module_caches_the_packed_weights(monkeypatch, kind):
     """On the kernel route a module packs the kernel's weights once and
     hands them to the wrapper on every call; it packs them anew when a
     parameter is assigned or written in place."""
     from abx_tpu_torch.models import seqformer as sf
     from abx_tpu_torch.ops import registry, tri_attention
-    mod, call, cache, wrapper, proj = _module_case(kind)
+    mod, call, cache, wrapper, proj, attr, packed_of = _module_case(kind)
     plain = {'fused_transition': transition_op.fused_transition_plain,
-             'pair_bias_proj': pair_bias_op.pair_bias_proj_plain}[wrapper]
+             'pair_bias_proj': pair_bias_op.pair_bias_proj_plain,
+             'tri_mult_post_gatefold':
+                 tri_mult_op.tri_mult_post_gatefold_plain,
+             'recycle_embed': recycle_op.recycle_embed_plain}[wrapper]
     seen = []
 
-    def spy(*args, packed=None):
+    def spy(*args, packed=None, **kw):
         seen.append(packed)
-        return plain(*args)
+        return plain(*args, **kw)
     monkeypatch.setattr(registry, 'on_device', lambda x: True)
+    monkeypatch.setenv('ABX_TRIMULT_GATEFOLD', '1')
     monkeypatch.setattr(sf, wrapper, spy)
     monkeypatch.setattr(sf, 'triangle_attention_packed',
                         tri_attention.triangle_attention_packed_plain)
+    monkeypatch.setattr(sf, 'tri_mult_pre', tri_mult_op.tri_mult_pre_plain)
     with torch.no_grad():
         call()
         call()
         assert cache.builds == 1 and seen[0] is seen[1]
-        weight = getattr(mod, proj).weight
+        weight = getattr(getattr(mod, proj), attr)
         w_new = torch.nn.Parameter(weight.detach() * -2.0)
-        setattr(getattr(mod, proj), 'weight', w_new)
+        setattr(getattr(mod, proj), attr, w_new)
         call()
         assert cache.builds == 2
-        packed_w = seen[-1].w1 if kind == 'transition' else seen[-1].w
-        torch.testing.assert_close(packed_w, w_new.detach())
+        torch.testing.assert_close(packed_of(seen[-1]), w_new.detach())
         w_new.mul_(0.5)
         call()
         assert cache.builds == 3
-        packed_w = seen[-1].w1 if kind == 'transition' else seen[-1].w
-        torch.testing.assert_close(packed_w, w_new.detach())
+        torch.testing.assert_close(packed_of(seen[-1]), w_new.detach())
 
 
 TRANSITION_SHAPES = [(2, 5, 70, 48), (1, 7, 37, 192), (1, 3, 45, 40),
@@ -1449,29 +1568,63 @@ def test_pair_bias_hopper_matches_plain(cuda, shape, h, dtype):
     _close_on_card(got, want, dtype)
 
 
+def rounding_point_case(kind, dev, seed=33):
+    """(wrapper, plain version, bf16 arguments) of a Hopper kernel at a
+    shape of several tiles a block: M = 55,296 to 57,600 rows."""
+    bf = torch.bfloat16
+    if kind == 'transition':
+        return (transition_op.fused_transition,
+                transition_op.fused_transition_plain,
+                _transition_port(_transition_case(seed, 2, 96, 288, 192), bf,
+                                 dev))
+    if kind == 'pair_bias':
+        return (pair_bias_op.pair_bias_proj,
+                pair_bias_op.pair_bias_proj_plain,
+                _pair_bias_port(_pair_bias_case(seed, 2, 96, 288, 192, 32),
+                                bf, dev))
+    if kind == 'tri_mult_pre':
+        x, s, lb, w, wb, mask = _tri_mult_pre_case(seed, 1, 240, 192, 128)
+        f32, low = _on_card((x, s, lb, w.T.copy(), wb, mask), dev, bf, {0})
+        return tri_mult_op.tri_mult_pre, tri_mult_op.tri_mult_pre_plain, low
+    if kind == 'tri_mult_post':
+        case = _tri_mult_post_case(seed, 1, 240, 128, 192)
+        y, s, lb, w, wb, fg, res = case
+        f32, low = _on_card((y, s, lb, w.T.copy(), wb, fg, res), dev, bf,
+                            {0, 5, 6})
+        return tri_mult_op.tri_mult_post, tri_mult_op.tri_mult_post_plain, low
+    if kind == 'gatefold':
+        return (tri_mult_op.tri_mult_post_gatefold,
+                tri_mult_op.tri_mult_post_gatefold_plain,
+                _gatefold_args(_gatefold_case(seed, 1, 240, 128, 192), bf,
+                               dev))
+    y, g, w, wb, res = _gate_proj_case(seed, 1, 240, 240, 192, 192)
+    f32, low = _on_card((y, g, w.T.copy(), wb, res), dev, bf, {0, 1, 4})
+    return (gate_proj_op.gate_proj_residual,
+            gate_proj_op.gate_proj_residual_plain, low)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize('kind', ['transition', 'pair_bias'])
+@pytest.mark.parametrize('kind', ['transition', 'pair_bias', 'tri_mult_pre',
+                                  'tri_mult_post', 'gatefold', 'gate_proj'])
 def test_hopper_kernels_keep_the_rounding_points(cuda, kind):
     """The bf16 kernels against the bf16 plain versions (the TPU kernels'
     rounding points), at the bf16 check's bounds, at a shape of several
     tiles a block; and a second call gives the same bits (a race between
     the kernel's warps would show here)."""
-    if kind == 'transition':
-        args = _transition_port(_transition_case(33, 2, 96, 288, 192),
-                                torch.bfloat16, cuda)
-        fn = transition_op.fused_transition
-        want = transition_op.fused_transition_plain(*args)
-    else:
-        args = _pair_bias_port(_pair_bias_case(33, 2, 96, 288, 192, 32),
-                               torch.bfloat16, cuda)
-        fn = pair_bias_op.pair_bias_proj
-        want = pair_bias_op.pair_bias_proj_plain(*args)
-    got = fn(*args)
-    again = fn(*args)
+    fn, plain, args = rounding_point_case(kind, cuda)
+    want = as_tuple(plain(*args))
+    got = as_tuple(fn(*args))
+    again = as_tuple(fn(*args))
     torch.cuda.synchronize()
-    assert torch.equal(got, again)
-    err, share = bf16_agree(got, want)
-    assert err <= BF16_STEPS and share <= BF16_SHARE, (err, share)
+    assert len(got) == len(want)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        err, share = bf16_agree(g, w)
+        assert err <= BF16_STEPS and share <= BF16_SHARE, (err, share)
+
+
+def as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
 
 
 @pytest.mark.gpu
@@ -1483,7 +1636,7 @@ def test_module_launches_the_hopper_kernel_once(cuda, kind):
     it), and follows an in-place change of a weight."""
     from torch.profiler import ProfilerActivity, profile
     from abx_tpu_torch.models.seqformer import _bias_packed
-    mod, _, cache, wrapper, proj = _module_case(kind)
+    mod, _, cache, wrapper, proj, _, _ = _module_case(kind)
     mod = mod.to(cuda).to(torch.bfloat16)
     with torch.no_grad():
         for p in mod.parameters():
@@ -1517,6 +1670,66 @@ def test_module_launches_the_hopper_kernel_once(cuda, kind):
         assert len(names) == 1 and want in names[0], names
         builds = cache.builds
         getattr(mod, proj).weight.mul_(-1.5)
+        got = call()
+        assert cache.builds == builds + 1
+        torch.cuda.synchronize()
+        err, share = bf16_agree(got, plain())
+    assert err <= BF16_STEPS and share <= BF16_SHARE, (err, share)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kind', ['gatefold', 'recycle'])
+def test_module_launches_its_kernel_once(cuda, kind):
+    """A bf16 call with the module's cached weights launches the kernel
+    alone (the gate-fold post on a contraction output, the recycled pair
+    input), and follows an in-place change of a weight."""
+    from torch.profiler import ProfilerActivity, profile
+    mod, _, cache, _, proj, attr, _ = _module_case(kind)
+    mod = mod.to(cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        for p in mod.parameters():
+            p.normal_(0.0, 0.3)
+    if kind == 'gatefold':
+        nc = mod.final_norm.scale.shape[0]
+        y = torch.randn(2, 9, 9, nc, device=cuda).bfloat16()
+        res = torch.randn(2, 9, 9, 16, device=cuda).bfloat16()
+
+        def call():
+            return tri_mult_op.tri_mult_post_gatefold(
+                y, *mod._fold_params(), res,
+                packed=mod._fold_packed(torch.bfloat16))
+
+        def plain():
+            return tri_mult_op.tri_mult_post_gatefold_plain(
+                y, *mod._fold_params(), res)
+        want = 'gatefold_sm90'
+    else:
+        c, c0 = mod.prev_pair_norm.scale.shape[0], mod.config.pair_channel
+        static = torch.randn(2, 9, 9, c0, device=cuda).bfloat16()
+        t_embed = torch.randn(2, (c - c0) // 2, device=cuda).bfloat16()
+        batch = {'prev_pair': torch.randn(2, 9, 9, c, device=cuda).bfloat16(),
+                 'prev_pos': torch.randint(0, 15, (2, 9, 9), device=cuda)}
+
+        def call():
+            return mod._recycled_pair(static, t_embed, batch)
+
+        def plain():
+            return recycle_op.recycle_embed_plain(
+                static, t_embed, batch['prev_pair'],
+                mod.prev_pair_norm.scale, mod.prev_pair_norm.bias,
+                mod.proj_prev_pos.embedding, batch['prev_pos'])
+        want = 'recycle_kernel'
+    with torch.no_grad():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(names) == 1 and want in names[0], names
+        builds = cache.builds
+        getattr(getattr(mod, proj), attr).mul_(-1.5)
         got = call()
         assert cache.builds == builds + 1
         torch.cuda.synchronize()

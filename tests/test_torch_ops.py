@@ -32,7 +32,9 @@ from abx_tpu.ops.tri_mult import tri_mult_pre as jax_tri_mult_pre
 from abx_tpu.ops.tri_mult import tri_mult_pre_reference
 from abx_tpu_torch.ops import ipa_attention as ipa_op
 from abx_tpu_torch.ops import pair_bias as pair_bias_op
+from abx_tpu_torch.ops import recycle_embed as recycle_op
 from abx_tpu_torch.ops import transition as transition_op
+from abx_tpu_torch.ops import tri_mult as tri_mult_op
 from tests.test_torch_kernels import (BF16_SHARE, BF16_STEPS,
                                      IPA_CANCEL_TOL, TRI_SHAPES, _cancel_err,
                                      _ipa_cancel_case, _ipa_cancel_inputs,
@@ -220,6 +222,51 @@ def test_tri_mult_post_plain_matches_jax(shape):
         np.testing.assert_allclose(got, np.asarray(want), **TOL)
 
 
+# --- tri_mult_pre / tri_mult_post in bf16 ----------------------------------
+# The bf16 check above, for the repaired plain versions: each product of
+# values in the input dtype summed in f32 (preferred_element_type=f32), not
+# rounded to bf16 before its bias; LN(x) rounded to the input dtype, one
+# rounding of each output.  Rounding the product first made 16-29% of
+# these outputs differ from the Pallas kernel's.
+
+def _bf16_inputs(args, low):
+    """The case as port tensors and JAX arrays, those at `low` in bf16 (the
+    rest f32, integer arrays as they are)."""
+    import torch
+    port = [torch.as_tensor(a) if a.dtype.kind != 'f'
+            else t(a).bfloat16() if i in low else t(a)
+            for i, a in enumerate(args)]
+    jax_args = [jnp.asarray(a, jnp.bfloat16) if i in low else jnp.asarray(a)
+                for i, a in enumerate(args)]
+    return port, jax_args
+
+
+def _assert_bf16_agree(got, want):
+    import torch
+    err, share = bf16_agree(got, torch.as_tensor(np.array(
+        want.astype(jnp.float32))))
+    assert err <= BF16_STEPS and share <= BF16_SHARE, (err, share)
+
+
+@pytest.mark.parametrize('kind', ['pre', 'post'])
+@pytest.mark.parametrize('shape', TRI_MULT_CPU_SHAPES)
+def test_tri_mult_plain_matches_pallas_interpret_in_bf16(kind, shape):
+    b, l, c, nc = shape
+    if kind == 'pre':
+        args = _tri_mult_pre_case(24, *shape)
+        (x, s, lb, w, wb, mask), jargs = _bf16_inputs(args, {0})
+        got = tri_mult_op.tri_mult_pre_plain(x, s, lb, w.T, wb, mask)
+        want = jax_tri_mult_pre(*jargs, row_block=4, interpret=True)
+    else:
+        args = _tri_mult_post_case(25, b, l, nc, c)
+        (y, s, lb, w, wb, fg, res), jargs = _bf16_inputs(args, {0, 5, 6})
+        got = (tri_mult_op.tri_mult_post_plain(y, s, lb, w.T, wb, fg, res),)
+        want = (jax_tri_mult_post(*jargs, row_block=4, interpret=True),)
+    assert len(got) == len(want)
+    for g, w_ in zip(got, want):
+        _assert_bf16_agree(g, w_)
+
+
 # --- recycle_embed ---------------------------------------------------------
 
 @pytest.mark.parametrize('shape', [(2, 9, 16, 24, 7), (1, 11, 20, 36, 15)])
@@ -231,3 +278,17 @@ def test_recycle_embed_plain_matches_jax(shape):
     for want in (recycle_embed_reference(*jargs),
                  jax_recycle(*jargs, row_block=4, interpret=True)):
         np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize('shape', [(2, 9, 16, 24, 7), (1, 8, 128, 192, 15)])
+def test_recycle_embed_plain_matches_pallas_interpret_in_bf16(shape):
+    """Every term in f32, one rounding of the output: the plain version in
+    bf16 against the Pallas kernel in interpret mode in bf16; three bins
+    out of range, which add zero (the kernel's one-hot product)."""
+    args = _recycle_case(26, *shape)
+    args[-1][0, 0, :3] = [-1, shape[-1], shape[-1] + 2]
+    port, jargs = _bf16_inputs(args, {0, 2})
+    jargs[-1] = jnp.asarray(args[-1], jnp.int32)
+    got = recycle_op.recycle_embed_plain(*port)
+    _assert_bf16_agree(got, jax_recycle(*jargs, row_block=4,
+                                        interpret=True))

@@ -53,11 +53,12 @@ from abx_tpu_torch.ops import registry
 from abx_tpu_torch.ops import tri_mult as tri_mult_op
 from abx_tpu_torch.ops import triangle as triangle_op
 from abx_tpu_torch.utils import params as params_lib
-from tests.test_torch_kernels import (TRI_MULT_SHAPES, _gate_proj_case,
+from tests.test_torch_kernels import (BF16_SHARE, BF16_STEPS,
+                                      TRI_MULT_SHAPES, _gate_proj_case,
                                       _gate_proj_port, _gatefold_case,
                                       _gatefold_port, _ipa_attend_case,
                                       _no_fgate, _tri_mult_pre_case,
-                                      _triangle_case, t)
+                                      _triangle_case, bf16_agree, t)
 from tests.test_torch_modules import (L_AB, L_AG, OPT_IN, _feats,
                                       _force_kernel_route)
 
@@ -93,6 +94,34 @@ def test_tri_mult_post_gatefold_plain_matches_jax():
     got = _gatefold_port(args).numpy()
     _close(got, tri_mult_post_gatefold_reference(*_jnp(args)))
     _close(got, jax_gatefold(*_jnp(args), row_block=4, interpret=True))
+
+
+@pytest.mark.parametrize('kind,shape', [
+    ('gatefold', (1, 11, 24, 72)), ('gatefold', (2, 9, 16, 8)),
+    ('gate_proj', (2, 9, 9, 16, 24)), ('gate_proj', (1, 5, 11, 40, 8))])
+def test_opt_in_plain_matches_pallas_interpret_in_bf16(kind, shape):
+    """tri_mult_post_gatefold and gate_proj_residual in bf16 against the
+    Pallas kernels in interpret mode: both products (or the projection)
+    of values in the input dtype summed in f32, LN(y), LN_x(res) and z =
+    y * sigmoid(gate) rounded to the input dtype, the gate-fold's gate kept
+    in f32, one rounding of the output; at most BF16_SHARE of the outputs
+    differ, by at most BF16_STEPS (tests/test_torch_kernels.py)."""
+    if kind == 'gatefold':
+        b, l, c, nc = shape
+        args = _gatefold_case(27, b, l, nc, c)
+        low = {0, 9}
+        fn, jax_fn = _gatefold_port, jax_gatefold
+    else:
+        args = _gate_proj_case(28, *shape)
+        low = {0, 1, 4}
+        fn, jax_fn = _gate_proj_port, jax_gate_proj
+    got = fn(args, dtype=torch.bfloat16)
+    want = jax_fn(*[jnp.asarray(a, jnp.bfloat16) if i in low
+                    else jnp.asarray(a) for i, a in enumerate(args)],
+                  row_block=4, interpret=True)
+    err, share = bf16_agree(got, torch.as_tensor(np.array(
+        want.astype(jnp.float32))))
+    assert err <= BF16_STEPS and share <= BF16_SHARE, (err, share)
 
 
 def test_tri_mult_pre_no_fgate_plain_matches_jax():
