@@ -56,6 +56,19 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       : "memory");
 }
 
+// 3-d TMA box load into shared memory at dst, completing on bar.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
 // 4-d TMA box load into shared memory at dst, completing on bar.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int c0, int c1, int c2,
@@ -96,6 +109,32 @@ inline bool encode_bf16_sw128(CUtensorMap* map, const void* ptr, int rows,
   const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t estride[2] = {1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+             dims, strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A (batch, ch, pos) bf16 channel-major tensor, contiguous, as a 3-d tensor
+// map of {64 positions, box_ch channels, 1} boxes (box_ch <= 256), 128-byte
+// swizzle: a box lands as box_ch rows of 64 positions, the MN-major layout
+// wgmma reads for a transposed A operand.  Positions past pos and channels
+// past ch are zero-filled; no box reaches into the next batch element.
+// pos a multiple of 8 (16-byte strides).  False if no encoder is available
+// or the map is refused.
+inline bool encode_bf16_cmajor_sw128(CUtensorMap* map, const void* ptr,
+                                     int batch, int ch, int pos,
+                                     int box_ch) {
+  auto enc = tensor_map_encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(pos),
+                              static_cast<cuuint64_t>(ch),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(pos) * 2,
+      static_cast<cuuint64_t>(pos) * static_cast<cuuint64_t>(ch) * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_ch), 1};
+  const cuuint32_t estride[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
              dims, strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -37,8 +37,8 @@ from abx_tpu_torch.ops.recycle_embed import pack_recycle, recycle_embed
 from abx_tpu_torch.ops.transition import fused_transition, pack_transition
 from abx_tpu_torch.ops.tri_attention import (pack_projection,
                                              triangle_attention_packed)
-from abx_tpu_torch.ops.tri_mult import (pack_gatefold, pack_pre,
-                                        tri_mult_post,
+from abx_tpu_torch.ops.tri_mult import (pack_gatefold, pack_post,
+                                        pack_pre, tri_mult_post,
                                         tri_mult_post_gatefold, tri_mult_pre)
 from abx_tpu_torch.ops.weight_cache import WeightCache
 from abx_tpu_torch.ops.triangle import (triangle_multiply,
@@ -317,8 +317,9 @@ class TriangleMultiplication(nn.Module):
         self.final_norm = LayerNorm(nc, dtype=dtype)
         self.proj_out = Linear(nc, num_in, 'final', dtype=dtype)
         # The pre kernel's packed weights: with the final gate, and without;
-        # the gate-fold post's.
+        # the post's; the gate-fold post's.
         self._packs = {True: WeightCache(), False: WeightCache()}
+        self._post_pack = WeightCache()
         self._fold_pack = WeightCache()
 
     def _pre_packed(self, dtype, emit_fgate: bool):
@@ -333,6 +334,18 @@ class TriangleMultiplication(nn.Module):
         return self._packs[emit_fgate].get(
             weights + biases + ln, dtype,
             lambda: pack_pre(weights, biases, *ln, dtype))
+
+    def _post_params(self):
+        """The post's parameters, in its wrapper's order."""
+        return (self.final_norm.scale, self.final_norm.bias,
+                self.proj_out.weight, self.proj_out.bias)
+
+    def _post_packed(self, dtype):
+        """The post's weights packed for the kernels, from the cache
+        (rebuilt when one of them changes)."""
+        params = self._post_params()
+        return self._post_pack.get(list(params), dtype,
+                                   lambda: pack_post(*params, dtype))
 
     def _fold_params(self):
         """The gate-fold post's parameters, in its wrapper's order."""
@@ -352,7 +365,6 @@ class TriangleMultiplication(nn.Module):
         use_pallas = registry.use_pallas_triangle()
         if (residual and self.gating and act.dim() == 4
                 and registry.on_device(act) and registry.use_fused_trimult()):
-            fscale, fbias = self.final_norm.scale, self.final_norm.bias
             # Channel-major is checked first, as in the JAX package: no
             # layout copies around the contraction's matrix product.
             c_major = registry.use_trimult_c_major() and not use_pallas
@@ -376,9 +388,9 @@ class TriangleMultiplication(nn.Module):
             else:
                 out = triangle_multiply(left, right, per_row=self.per_row,
                                         use_pallas=use_pallas)
-            return tri_mult_post(out, fscale, fbias, self.proj_out.weight,
-                                 self.proj_out.bias, fg, act,
-                                 y_c_major=c_major)
+            return tri_mult_post(out, *self._post_params(), fg, act,
+                                 y_c_major=c_major,
+                                 packed=self._post_packed(act.dtype))
         pair_mask = (mask[:, :, None, None] * mask[:, None, :, None]).to(dt)
         x = self.norm(act)
         branches = [self.left_proj, self.right_proj]

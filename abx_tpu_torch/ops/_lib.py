@@ -33,6 +33,7 @@ _SIGNATURES = {
                          _I, _P, _P, _P],
     'abx_tri_mult_post_c_major': [_I, _P, _I, _I] + [_P] * 7 + [_I] * 3
                                  + [_P],
+    'abx_tri_mult_post_c_major_sm90': [_P, _I, _I, _I, _I] + [_P] * 8,
     'abx_recycle_embed': [_I, _P, _P, _I, _I] + [_P] * 6 + [_I] * 5 + [_P],
     'abx_fused_transition': [_I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                              _P],
@@ -127,6 +128,8 @@ def build() -> Path:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
+    if _lib is not None:  # the wrappers' fast path: no lock once loaded
+        return _lib
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))

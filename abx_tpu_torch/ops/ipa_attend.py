@@ -2,10 +2,11 @@
 
 Counterpart of abx_tpu/ops/ipa_attend.py::ipa_pair_attend (the Pallas TPU
 kernel), taken by the IPA's non-fused route (`ABX_FUSED_IPA_ATTN=0`) when
-`ABX_IPA_ATTEND=1`.  On the card this runs `csrc/ipa_attend.cu`: one block
-per query row contracts the (H x J) attention rows with that query's own
-(J x C) pair row, reading the pair track once; the f32 attention is
-rounded to the pair dtype while it is staged.  See the source note there
+`ABX_IPA_ATTEND=1`.  On the card this runs `csrc/ipa_attend.cu`: a block
+takes a few query rows of one batch element (one wave of the SMs), streams
+their pair rows through a TMA ring and contracts each with its (H x L)
+attention rows on mma.sync, the heads as M; the f32 attention is rounded
+to the pair dtype as its fragments are read.  See the source note there
 for what bounds it.
 """
 
@@ -15,14 +16,18 @@ import torch
 
 from abx_tpu_torch.ops import _lib, registry
 
-MAX_HEADS = 16  # one wmma M tile (csrc/ipa_attend.cu kHeads)
+MAX_HEADS = 16  # the M of one mma tile (csrc/ipa_attend.cu kHeads)
+MAX_C = 192     # csrc/ipa_attend.cu kMaxC
 
 
 def ipa_pair_attend_plain(attn, pair):
-    """Plain PyTorch version (mirrors ipa_pair_attend_reference)."""
-    out = torch.einsum('bhij,bijc->bihc', attn.to(pair.dtype), pair)
+    """Plain PyTorch version, at the Pallas kernel's rounding points: attn
+    rounded to the pair dtype, the products summed in f32, one rounding of
+    the output."""
+    dt = pair.dtype
+    out = torch.einsum('bhij,bijc->bihc', attn.to(dt).float(), pair.float())
     b, l, h, c = out.shape
-    return out.reshape(b, l, h * c)
+    return out.reshape(b, l, h * c).to(dt)
 
 
 def ipa_pair_attend(attn, pair):
@@ -31,7 +36,8 @@ def ipa_pair_attend(attn, pair):
     Args:
         attn: (B, H, L, L) attention probabilities (f32 on the kernel
             route; H <= 16).
-        pair: (B, L, L, C) pair activations.
+        pair: (B, L, L, C) pair activations (C a multiple of 8, at most
+            192, on the kernel route).
     Returns: (B, L, H*C) in pair.dtype.
     """
     if not registry.on_device(pair):
@@ -41,12 +47,14 @@ def ipa_pair_attend(attn, pair):
     dt = pair.dtype
     attn = attn.float().contiguous()
     pair = pair.contiguous()
-    _lib.check_cuda_inputs('ipa_pair_attend', dt, pair=pair,
-                           f32=dict(attn=attn))
-    _lib.require(attn.shape == (b, h, l, l) and pair.shape == (b, l, l, c),
-                 'ipa_pair_attend: attn (B, H, L, L), pair (B, L, L, C)')
-    _lib.require(h <= MAX_HEADS,
-                 f'ipa_pair_attend: at most {MAX_HEADS} heads, got {h}')
+    # What the launch needs, checked in one expression: the wrapper's host
+    # work is a share of the kernel's time at this size.
+    _lib.require(attn.is_cuda and pair.is_cuda and dt in _lib.DTYPE_CODE
+                 and attn.shape == (b, h, l, l) and pair.shape == (b, l, l, c)
+                 and h <= MAX_HEADS and c % 8 == 0 and c <= MAX_C,
+                 f'ipa_pair_attend: attn (B, H, L, L) f32 with H <= '
+                 f'{MAX_HEADS}, pair (B, L, L, C) on the card in f32 or '
+                 f'bf16 with C a multiple of 8, at most {MAX_C}')
     out = torch.empty((b, l, h * c), dtype=dt, device=pair.device)
     err = _lib.lib().abx_ipa_pair_attend(
         _lib.DTYPE_CODE[dt], attn.data_ptr(), pair.data_ptr(),

@@ -10,10 +10,13 @@ contraction between them is `ops/triangle.py`.  On the card all run
 `csrc/row_linear.cu`: pre as its gated-pairs mode (entry
 `abx_tri_mult_pre`), post as the plain row linear with a sigmoid gate and
 the residual in its epilogue (entry `abx_tri_mult_post_c_major` for the
-channel-major input), the gate-fold post as two LN-staged products per
-output tile (entry `abx_tri_mult_post_gatefold`), whose bf16 launches take
-the Hopper kernel of `csrc/gatefold_sm90.cu` instead (both weights
-resident in shared memory, the two products on wgmma).  The LayerNorm is
+channel-major input, whose bf16 launches take the Hopper kernel of
+`csrc/post_cmajor_sm90.cu` instead: W resident in shared memory, the
+channel-major tile normalised in place and fed to wgmma as a transposed
+operand), the gate-fold post as two LN-staged products per output tile
+(entry `abx_tri_mult_post_gatefold`), whose bf16 launches take the Hopper
+kernel of `csrc/gatefold_sm90.cu` instead (both weights resident in shared
+memory, the two products on wgmma).  The LayerNorm is
 applied while a tile is staged, so the normalised tensor never reaches
 device memory; see the source notes there for what bounds them.
 """
@@ -178,11 +181,11 @@ tri_mult_pre.launches_c_major = 0
 
 
 def tri_mult_post_plain(y, scale, bias, w, wb, fg, res, eps: float = 1e-5,
-                        y_c_major: bool = False):
+                        y_c_major: bool = False, packed=None):
     """Plain PyTorch version, at the Pallas kernel's rounding points (a
     channel-major y moved to the natural layout first): LN in f32, rounded
     to the input dtype; the product summed in f32; bias, gate and residual
-    in f32, rounded once."""
+    in f32, rounded once.  `packed` (the kernel's weights) is not used."""
     if y_c_major:
         y = y.permute(0, 2, 3, 1)
     dt = y.dtype
@@ -192,7 +195,34 @@ def tri_mult_post_plain(y, scale, bias, w, wb, fg, res, eps: float = 1e-5,
     return (o + res.float()).to(res.dtype)
 
 
-def tri_mult_post(y, scale, bias, w, wb, fg, res, y_c_major: bool = False):
+class PostPack(NamedTuple):
+    """tri_mult_post's weights as the kernels take them: w (C, nc) in the
+    compute dtype, its f32 bias and the f32 LayerNorm params."""
+    scale: torch.Tensor
+    bias: torch.Tensor
+    w: torch.Tensor
+    wb: torch.Tensor
+
+
+def pack_post(scale, bias, w, wb, dtype) -> PostPack:
+    return PostPack(scale.float().contiguous(), bias.float().contiguous(),
+                    w.to(dtype).contiguous(), wb.float().contiguous())
+
+
+def post_c_major_hopper_route(y, res) -> bool:
+    """True when a channel-major launch (y (B, nc, R, L)) takes the Hopper
+    kernel (csrc/post_cmajor_sm90.cu): bf16, nc <= 128 and C <= 192, both
+    multiples of 8, R*L a multiple of 8, 16-byte aligned y and res; the
+    tile kernel of csrc/row_linear.cu takes the rest (f32 among them).
+    Decided before the launch."""
+    nc, c = y.shape[1], res.shape[-1]
+    return (y.dtype == torch.bfloat16 and nc % 8 == 0 and nc <= 128
+            and c % 8 == 0 and c <= 192 and (y.shape[2] * y.shape[3]) % 8 == 0
+            and y.data_ptr() % 16 == 0 and res.data_ptr() % 16 == 0)
+
+
+def tri_mult_post(y, scale, bias, w, wb, fg, res, y_c_major: bool = False,
+                  packed: PostPack | None = None):
     """LN -> Linear(nc, C) -> * sigmoid(fg) -> + res.
 
     Args:
@@ -202,6 +232,9 @@ def tri_mult_post(y, scale, bias, w, wb, fg, res, y_c_major: bool = False):
         scale, bias: (nc,) LayerNorm params.
         w: (C, nc), wb: (C,) (nn.Linear layout).
         fg: (B, L, L, C) pre-sigmoid final gate; res: (B, L, L, C).
+        packed: the same weights as `pack_post` packs them for y.dtype (a
+            module caches it, so a call launches the kernel alone); packed
+            here when None.
     Returns: (B, L, L, C) in y.dtype.
     """
     if not registry.on_device(y):
@@ -214,29 +247,32 @@ def tri_mult_post(y, scale, bias, w, wb, fg, res, y_c_major: bool = False):
     c = w.shape[0]
     dt = y.dtype
     y = y.contiguous()
-    w = w.to(dt).contiguous()
-    wb = wb.float().contiguous()
-    scale, bias = scale.float().contiguous(), bias.float().contiguous()
-    _lib.check_cuda_inputs('tri_mult_post', dt, y=y, w=w, fg=fg, res=res,
-                           f32=dict(wb=wb, scale=scale, bias=bias))
-    _lib.require(w.shape == (c, nc) and wb.shape == (c,)
-                 and scale.shape == (nc,) and bias.shape == (nc,)
+    pk = packed if packed is not None else pack_post(scale, bias, w, wb, dt)
+    _lib.check_cuda_inputs('tri_mult_post', dt, y=y, w=pk.w, fg=fg, res=res,
+                           f32=dict(wb=pk.wb, scale=pk.scale, bias=pk.bias))
+    _lib.require(pk.w.shape == (c, nc) and pk.wb.shape == (c,)
+                 and pk.scale.shape == (nc,) and pk.bias.shape == (nc,)
                  and fg.shape == (b, r, l, c) and res.shape == (b, r, l, c),
                  'tri_mult_post: w (C, nc), wb (C,), LN params (nc,), '
                  'fg and res (B, L, L, C)')
     out = torch.empty_like(res)
-    if y_c_major:
+    if y_c_major and post_c_major_hopper_route(y, res):
+        err = _lib.lib().abx_tri_mult_post_c_major_sm90(
+            y.data_ptr(), b, nc, r * l, c, pk.scale.data_ptr(),
+            pk.bias.data_ptr(), pk.w.data_ptr(), pk.wb.data_ptr(),
+            fg.data_ptr(), res.data_ptr(), out.data_ptr(), _lib.stream(y))
+    elif y_c_major:
         err = _lib.lib().abx_tri_mult_post_c_major(
             _lib.DTYPE_CODE[dt], y.data_ptr(), b * r * l, nc,
-            scale.data_ptr(), bias.data_ptr(), w.data_ptr(), wb.data_ptr(),
-            fg.data_ptr(), res.data_ptr(), out.data_ptr(), c, r, l,
-            _lib.stream(y))
+            pk.scale.data_ptr(), pk.bias.data_ptr(), pk.w.data_ptr(),
+            pk.wb.data_ptr(), fg.data_ptr(), res.data_ptr(), out.data_ptr(),
+            c, r, l, _lib.stream(y))
     else:
         err = _lib.lib().abx_row_linear(
             _lib.DTYPE_CODE[dt], y.data_ptr(), b * r * l, nc, nc,
-            scale.data_ptr(), bias.data_ptr(), w.data_ptr(), wb.data_ptr(),
-            res.data_ptr(), fg.data_ptr(), out.data_ptr(), c, 0, 1, 1,
-            _lib.stream(y))
+            pk.scale.data_ptr(), pk.bias.data_ptr(), pk.w.data_ptr(),
+            pk.wb.data_ptr(), res.data_ptr(), fg.data_ptr(), out.data_ptr(),
+            c, 0, 1, 1, _lib.stream(y))
     _lib.check(err, 'tri_mult_post')
     tri_mult_post.launches += 1
     tri_mult_post.launches_c_major += int(y_c_major)

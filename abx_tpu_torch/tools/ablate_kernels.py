@@ -1,16 +1,18 @@
-"""What sets the pace of the recycle_embed and gate-fold kernels, by cutting
-parts out.
+"""What sets the pace of the recycle_embed, gate-fold, channel-major post and
+ipa_pair_attend kernels, by cutting parts out.
 
     python -m abx_tpu_torch.tools.ablate_kernels \
-        [--out build/ablate_kernels.json]
+        [--out build/ablate_kernels.json] [--kernels NAME ...]
 
 As tools/ablate_transition.py does for the transition: builds variants of
-`csrc/recycle_embed.cu` and `csrc/gatefold_sm90.cu`, each with one part of
-the work removed by a source edit, into libraries of their own (one nvcc
-each, all started together; the `-Xptxas -v` report of each is printed),
-and times each at the flagship shape (bf16, B=4, L=288; median of
-CUDA-event timings after warm-up) in turns, twice.  The variants compute
-wrong values on purpose; only `full` is checked against the plain version.
+`csrc/recycle_embed.cu`, `csrc/gatefold_sm90.cu`, `csrc/post_cmajor_sm90.cu`
+and `csrc/ipa_attend.cu`, each with one part of the work removed by a
+source edit, into libraries of their own (one nvcc each, all started
+together; the `-Xptxas -v` report of each is printed), and times each bare
+launch at the flagship shape (bf16, B=4, L=288; median of CUDA-event
+timings after warm-up, and the device time a call from torch.profiler over
+20 calls, which leaves out the launch's host work) in turns, twice.  The variants compute wrong values
+on purpose; only `full` is checked against the plain version.
 recycle_embed ((4,288,288,128) + (4,288,288,192) -> 192):
   full          the kernel as it is;
   no_prefetch   each row group loaded just before it is used (no loads of
@@ -24,6 +26,18 @@ tri_mult_post_gatefold ((4,288,288,128) + res 192 -> 192):
   no_gemm       both products left out;
   no_ln         neither tile normalised;
   no_store      the staged output never written out.
+tri_mult_post_c_major ((4,128,288,288) -> (4,288,288,192)):
+  full          the kernel as it is;
+  no_ln         the channel-major tile not normalised;
+  no_gemm       the products left out;
+  no_fg_res     fg and res never loaded (the epilogue reads stale tiles);
+  no_store      the output never written out.
+ipa_pair_attend (attn (4,12,288,288) f32, pair (4,288,288,128)):
+  full          the kernel as it is;
+  no_pair       no pair chunks loaded (stale B fragments);
+  no_attn       no attention rows loaded (stale A fragments);
+  no_mma        no products (the B fragments still loaded by ldmatrix);
+  no_store      the staged rows never written out.
 Needs a CUDA device and nvcc; writes the times as JSON to --out.
 """
 
@@ -38,8 +52,10 @@ import tempfile
 from pathlib import Path
 
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from abx_tpu_torch.ops import _lib
+from abx_tpu_torch.ops import ipa_attend as ia_op
 from abx_tpu_torch.ops import recycle_embed as re_op
 from abx_tpu_torch.ops import tri_mult as tm_op
 from abx_tpu_torch.tools.ablate_transition import build, time_ms
@@ -86,11 +102,60 @@ GATEFOLD = {
     'no_store': [('          if (m < p.M && c < p.C)\n',
                   '          if (m < 0)\n')],
 }
+POST_C_MAJOR = {
+    'full': [],
+    'no_ln': [(
+        '      ln_cmajor<KY>(y_p, p.NC, s_sc, s_bi, part, 1 + wg, wi, lane);\n',
+        '')],
+    'no_gemm': [
+        ('        float o[32];\n', '        float o[32] = {};\n'),
+        ('            wgmma_ta64(o, desc_mn_sw128(a_y + (64 * a + 16 * kk) * '
+         '128),\n                       desc_sw128(wj + a * P::kWAtom + 32 * '
+         'kk), a + kk > 0);\n', '            ;\n')],
+    'no_fg_res': [(
+        '        mbar_expect_tx(fr_full(pw), P::kFR);\n'
+        '        for (int a = 0; a < KR; ++a)\n'
+        '          tma_load_2d(dst + P::kY + a * kAtom, &map_fg, fr_full(pw), '
+        '64 * a,\n                      m0);\n'
+        '        for (int a = 0; a < KR; ++a)\n'
+        '          tma_load_2d(dst + P::kY + (KR + a) * kAtom, &map_res, '
+        'fr_full(pw),\n                      64 * a, m0);\n',
+        '        mbar_arrive(fr_full(pw));\n')],
+    'no_store': [('          if (r < valid && c < p.C)\n',
+                  '          if (r < 0)\n')],
+}
+IPA_ATTEND = {
+    'full': [],
+    'no_pair': [(
+        '        mbar_expect_tx(bar, pl.stage);\n'
+        '        for (int a = 0; a * 64 < C; ++a)\n'
+        '          tma_load_3d(base + stage * pl.stage + a * kPC * 128, '
+        '&map_pair, bar,\n'
+        '                      64 * a, j0, b * L + i0 + r);\n',
+        '        mbar_arrive(bar);\n')],
+    'no_attn': [(
+        '      if (j0 == 0) {  // the row\'s H attention rows, zero past L\n',
+        '      if (false) {\n')],
+    'no_mma': [(
+        '          mma_bf16(acc[u][0], af, rr[0], rr[1]);\n'
+        '          if (tp + 1 < ctiles) mma_bf16(acc[u][1], af, rr[2], '
+        'rr[3]);\n',
+        '          acc[u][0][0] += __uint_as_float((rr[0] ^ rr[1] ^ rr[2] ^ '
+        'rr[3] ^ af[0]) & 0x3f000000u);\n')],
+    'no_store': [('      *reinterpret_cast<uint4*>(dst + h * C + c) =\n',
+                  '      if (h < 0) *reinterpret_cast<uint4*>(dst + h * C + '
+                  'c) =\n')],
+}
 KERNELS = {'recycle_embed': ('recycle_embed.cu', 'abx_recycle_embed',
                              RECYCLE),
            'tri_mult_post_gatefold': ('gatefold_sm90.cu',
                                       'abx_tri_mult_post_gatefold_sm90',
-                                      GATEFOLD)}
+                                      GATEFOLD),
+           'tri_mult_post_c_major': ('post_cmajor_sm90.cu',
+                                     'abx_tri_mult_post_c_major_sm90',
+                                     POST_C_MAJOR),
+           'ipa_pair_attend': ('ipa_attend.cu', 'abx_ipa_pair_attend',
+                               IPA_ATTEND)}
 
 
 def _cases(dev):
@@ -130,13 +195,50 @@ def _cases(dev):
                   fk.wg.data_ptr(), fk.wgb.data_ptr(), fold_out.data_ptr(),
                   _lib.stream(y))
     fold_want = tm_op.tri_mult_post_gatefold_plain(y, *post, res)
+    ycm, fg = rnd(b, nc, l, l).bfloat16(), rnd(b, l, l, c).bfloat16()
+    pk = tm_op.pack_post(*post[:4], torch.bfloat16)
+    cm_out = torch.empty_like(res)
+
+    def cm_call(fn):
+        return fn(ycm.data_ptr(), b, nc, l * l, c, pk.scale.data_ptr(),
+                  pk.bias.data_ptr(), pk.w.data_ptr(), pk.wb.data_ptr(),
+                  fg.data_ptr(), res.data_ptr(), cm_out.data_ptr(),
+                  _lib.stream(ycm))
+    cm_want = tm_op.tri_mult_post_plain(ycm, *post[:4], fg, res,
+                                        y_c_major=True)
+    h, cp = 12, 128
+    attn = torch.softmax(rnd(b, h, l, l, scale=2.0), dim=-1)
+    pair = rnd(b, l, l, cp).bfloat16()
+    ia_out = torch.empty((b, l, h * cp), dtype=torch.bfloat16, device=dev)
+
+    def ia_call(fn):
+        return fn(1, attn.data_ptr(), pair.data_ptr(), ia_out.data_ptr(), b,
+                  h, l, cp, _lib.stream(pair))
+    ia_want = ia_op.ipa_pair_attend_plain(attn, pair)
     return {'recycle_embed': (rec_call, rec_want, rec_out),
-            'tri_mult_post_gatefold': (fold_call, fold_want, fold_out)}
+            'tri_mult_post_gatefold': (fold_call, fold_want, fold_out),
+            'tri_mult_post_c_major': (cm_call, cm_want, cm_out),
+            'ipa_pair_attend': (ia_call, ia_want, ia_out)}
+
+
+def device_ms(fn, n=20):
+    """Device time of one fn() call: the kernels' time under torch.profiler
+    over n calls."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / n / 1e3
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--out', default='build/ablate_kernels.json')
+    ap.add_argument('--kernels', nargs='+', choices=list(KERNELS),
+                    default=list(KERNELS))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('ablate_kernels needs a CUDA device')
@@ -147,7 +249,8 @@ def main(argv=None):
     result = {'card': card}
     cases = _cases(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        for kernel, (src, entry, variants) in KERNELS.items():
+        for kernel in args.kernels:
+            src, entry, variants = KERNELS[kernel]
             work = Path(tmp) / kernel
             work.mkdir()
             libs = build(work, _lib.CSRC / src, variants)
@@ -175,14 +278,18 @@ def main(argv=None):
                 raise SystemExit(f'{kernel}: the full variant disagrees '
                                  'with the plain version')
             times = {name: [] for name in fns}
+            dev_times = {name: [] for name in fns}
             for order in (list(fns), list(fns)[::-1]):
                 for name in order:
                     times[name].append(time_ms(lambda: run(fns[name])))
+                    dev_times[name].append(device_ms(lambda: run(fns[name])))
             for name, ts in times.items():
                 print(f'{kernel} {name}: '
-                      f'{" / ".join(f"{t:.4f}" for t in ts)} ms on {card}',
-                      flush=True)
-            result[kernel] = {'ms': times, 'full_rel_err': err,
+                      f'{" / ".join(f"{t:.4f}" for t in ts)} ms, device '
+                      f'{" / ".join(f"{t:.4f}" for t in dev_times[name])} '
+                      f'ms on {card}', flush=True)
+            result[kernel] = {'ms': times, 'device_ms': dev_times,
+                              'full_rel_err': err,
                               'ptxas': {k: v[1] for k, v in libs.items()}}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, 'w') as f:

@@ -6,18 +6,25 @@
 Run from the root of a checkout on a machine with one H100.  Phases, each
 fatal on failure:
   1. the device, and the card's name and power limit from nvidia-smi;
-  2. build the CUDA kernels from abx_tpu_torch/csrc;
+  2. build the CUDA kernels from abx_tpu_torch/csrc; the channel-major
+     post's Hopper kernel on one 64-position tile against its bf16 plain
+     version (its MN-major wgmma descriptor), at the rounding-point bars;
   3. each kernel against its plain PyTorch version at the flagship shapes
-     (B=4, L=288): f32 to 1e-4 * max|ref|, bf16 against the f32 plain
+     (B=4, L=288; the channel-major post also at L=284, a partial tile a
+     batch element, and ipa_pair_attend at L=287 with H=16): f32 to 1e-4 *
+     max|ref|, bf16 against the f32 plain
      version to 3e-2 * max|ref| (the packed triangle attention and its
      column variant with ABX_TRI_ATTN_BF16_EXP on and off, against the
      plain version with the same exponent); kernel and plain times (median
      of CUDA event timings after warm-up, bf16), and the time of the one
      torch call that computes the same function where there is one (and
-     esm_attention's, ipa_attention's, tri_mult_pre's, pair_bias_proj's,
-     fused_transition's, the gate-fold post's and recycle_embed's one call
-     each launch one device kernel, under the profiler, and the last four's
-     is the Hopper kernel by name; tri_mult_pre, the triangle attentions,
+     esm_attention's, ipa_attention's, tri_mult_pre's, tri_mult_post's
+     (both inputs), pair_bias_proj's, fused_transition's, the gate-fold
+     post's, recycle_embed's and ipa_pair_attend's one call each launch one
+     device kernel, under the profiler, and that of pair_bias_proj,
+     fused_transition, the two posts on Hopper kernels of their own,
+     recycle_embed and ipa_pair_attend is that kernel by name;
+     tri_mult_pre and tri_mult_post, the triangle attentions,
      pair_bias_proj, fused_transition, the gate-fold post and
      recycle_embed take their weights packed, as the modules cache them;
      the row-linear cases, fused_transition and the gate-fold post print
@@ -27,8 +34,9 @@ fatal on failure:
      SDPA; the bf16 core against the plain core with the TPU kernel's
      exponent (against the row's final max) on rows whose logits are exact
      in f32, to EXP_TOL relative; the bf16 Hopper kernels of tri_mult_pre
-     (three variants), tri_mult_post, the gate-fold post and gate_proj
-     against their bf16 plain versions (the TPU kernels' rounding points):
+     (three variants), tri_mult_post (both inputs), the gate-fold post,
+     gate_proj and ipa_pair_attend against their bf16 plain versions (the
+     TPU kernels' rounding points):
      at most BF16_SHARE of the outputs differ, by at most BF16_STEPS, and a
      second call gives the same bits; the bf16 IPA scalar attend with p
      rounded to bf16 (the TPU kernel's p.astype(in_dt)) on a case where
@@ -327,20 +335,36 @@ def kernel_cases(torch, dev):
     y, fg, res = rnd(b, l, l, nc), rnd(b, l, l, c), rnd(b, l, l, c)
     post = (1 + rnd(nc, scale=0.1), rnd(nc, scale=0.1),
             rnd(c, nc, scale=nc ** -0.5), rnd(c, scale=0.1))
+    # The packed weights, as TriangleMultiplication caches them (then a call
+    # is one launch).
+    post_pk = {dt: tm_op.pack_post(*post, dt)
+               for dt in (torch.float32, torch.bfloat16)}
     case('tri_mult_post', '(4,288,288,128) -> 192',
-         lambda y, fg, res: tm_op.tri_mult_post(y, *post, fg, res),
+         lambda y, fg, res: tm_op.tri_mult_post(y, *post, fg, res,
+                                                packed=post_pk[y.dtype]),
          lambda y, fg, res: tm_op.tri_mult_post_plain(y, *post, fg, res),
          (y, fg, res), (y.bfloat16(), fg.bfloat16(), res.bfloat16()),
-         list(post), 2 * m * nc * c, gemm=[(nc, c)])
-    ycm = y.permute(0, 3, 1, 2).contiguous()
-    case('tri_mult_post_c_major', '(4,128,288,288) -> (4,288,288,192)',
-         lambda y, fg, res: tm_op.tri_mult_post(y, *post, fg, res,
-                                                y_c_major=True),
-         lambda y, fg, res: tm_op.tri_mult_post_plain(y, *post, fg, res,
-                                                      y_c_major=True),
-         (ycm, fg, res), (ycm.bfloat16(), fg.bfloat16(), res.bfloat16()),
-         list(post), 2 * m * nc * c)
-    del ycm
+         list(post), 2 * m * nc * c, one_launch=True, gemm=[(nc, c)])
+    def post_cm(y, fg, res):
+        return tm_op.tri_mult_post(y, *post, fg, res, y_c_major=True,
+                                   packed=post_pk[y.dtype])
+
+    def post_cm_plain(y, fg, res):
+        return tm_op.tri_mult_post_plain(y, *post, fg, res, y_c_major=True)
+    # At the flagship, and at L = 284: R*L a multiple of 8, not of 64, so the
+    # last tile of each batch element is partial.
+    for lo, what in ((l, ''), (284, ', a partial last tile a batch element')):
+        ycm = (y.permute(0, 3, 1, 2).contiguous() if lo == l
+               else rnd(b, nc, lo, lo))
+        fgo, reso = (fg, res) if lo == l else (rnd(b, lo, lo, c),
+                                               rnd(b, lo, lo, c))
+        case('tri_mult_post_c_major',
+             f'(4,128,{lo},{lo}) -> (4,{lo},{lo},192){what}', post_cm,
+             post_cm_plain, (ycm, fgo, reso),
+             (ycm.bfloat16(), fgo.bfloat16(), reso.bfloat16()), list(post),
+             2 * b * lo * lo * nc * c, one_launch=True,
+             kernel_name='post_cmajor_sm90_kernel')
+        del ycm, fgo, reso
     pre4 = (pre[0], pre[1], pre[2][:4 * nc].contiguous(), pre[3][:4 * nc],
             mask)
     pre4_pk = {dt: tm_op.pack_pre(pre_parts[0][:4], pre_parts[1][:4],
@@ -431,12 +455,20 @@ def kernel_cases(torch, dev):
          [*pts, pw, ibias16, mask], one_launch=True, flops=(
              # logits (scalar + point terms), scalar / point / pair attends.
              2 * b * h * l * l * (2 * ds + 3 * pq + 3 * pv + c)))
-    attn = torch.softmax(rnd(b, h, l, l, scale=2.0), dim=-1)
-    case('ipa_pair_attend', 'attn (4,12,288,288) f32, pair (4,288,288,128)',
-         lambda at, pr: ia_op.ipa_pair_attend(at, pr),
-         lambda at, pr: ia_op.ipa_pair_attend_plain(at, pr),
-         (attn, pair), (attn, pair.bfloat16()), [], 2 * b * h * l * l * c,
-         lambda at, pr: torch.einsum('bhij,bijc->bihc', at.to(pr.dtype), pr))
+    # At the flagship, and at L = 287 (attention rows not 16-byte aligned)
+    # with H = 16.
+    for lo, ho in ((l, h), (287, 16)):
+        attn = torch.softmax(rnd(b, ho, lo, lo, scale=2.0), dim=-1)
+        pair_o = pair if lo == l else rnd(b, lo, lo, c)
+        case('ipa_pair_attend',
+             f'attn (4,{ho},{lo},{lo}) f32, pair (4,{lo},{lo},128)',
+             ia_op.ipa_pair_attend, ia_op.ipa_pair_attend_plain,
+             (attn, pair_o), (attn, pair_o.bfloat16()), [],
+             2 * b * ho * lo * lo * c,
+             lambda at, pr: torch.einsum('bhij,bijc->bihc', at.to(pr.dtype),
+                                         pr),
+             one_launch=True, kernel_name='ipa_attend_kernel')
+        del attn, pair_o
 
     # Row 13: head-major q / k / v at the tri-attention shape, f32 bias.
     # Its library call is SDPA on (B*R, H, L, D) views with bias + key-mask
@@ -537,7 +569,7 @@ KERNEL_META = {
                            'abx_tpu/ops/gate_proj.py:34'),
     'tri_mult_pre_c_major': ('abx_tpu_torch/csrc/row_linear.cu',
                              'abx_tpu/ops/tri_mult.py:72'),
-    'tri_mult_post_c_major': ('abx_tpu_torch/csrc/row_linear.cu',
+    'tri_mult_post_c_major': ('abx_tpu_torch/csrc/post_cmajor_sm90.cu',
                               'abx_tpu/ops/tri_mult.py:168'),
     'triangle_attention_fused': ('abx_tpu_torch/csrc/tri_attention.cu',
                                  'abx_tpu/ops/tri_attention.py:66'),
@@ -706,12 +738,14 @@ BF16_STEPS = 2 ** -7  # max |got - want| / max|want|: two bf16 steps
 
 def phase_rounding_points(torch, dev):
     """The bf16 Hopper kernels of tri_mult_pre (natural, without the final
-    gate, channel-major), tri_mult_post (natural input), the gate-fold post
-    and gate_proj_residual against their plain versions in bf16 on the same
-    bf16 inputs (the TPU kernels' rounding points), at the flagship shapes:
-    at most BF16_SHARE of the outputs may differ, by at most BF16_STEPS of
+    gate, channel-major), tri_mult_post (natural and channel-major input),
+    the gate-fold post, gate_proj_residual and ipa_pair_attend (f32 attn,
+    bf16 pair) against their plain versions in bf16 on the same inputs (the
+    TPU kernels' rounding points), at the flagship shapes: at most
+    BF16_SHARE of the outputs may differ, by at most BF16_STEPS of
     max|want|; and a second call gives the same bits."""
     from abx_tpu_torch.ops import gate_proj as gp_op
+    from abx_tpu_torch.ops import ipa_attend as ia_op
     from abx_tpu_torch.ops import tri_mult as tm_op
     g = torch.Generator(device=dev).manual_seed(4)
     b, l, c, nc = 4, 288, 192, 128
@@ -740,6 +774,10 @@ def phase_rounding_points(torch, dev):
     fold_pk = tm_op.pack_gatefold(*post, *fold, torch.bfloat16)
     gy, gate = bf(b, l, l, c), bf(b, l, l, c, scale=2.0)
     gw = (rnd(c, c, scale=c ** -0.5), rnd(c, scale=0.1))
+    ycm = bf(b, nc, l, l)
+    post_pk = tm_op.pack_post(*post, torch.bfloat16)
+    attn = torch.softmax(rnd(b, 12, l, l, scale=2.0), dim=-1)
+    pair = bf(b, l, l, 128)
     cases = [
         ('tri_mult_pre', lambda: tm_op.tri_mult_pre(x, *pre, packed=pk),
          lambda: tm_op.tri_mult_pre_plain(x, *pre)),
@@ -757,7 +795,14 @@ def phase_rounding_points(torch, dev):
          lambda: tm_op.tri_mult_post_gatefold_plain(y, *post, *fold, res)),
         ('gate_proj_residual',
          lambda: gp_op.gate_proj_residual(gy, gate, *gw, res),
-         lambda: gp_op.gate_proj_residual_plain(gy, gate, *gw, res))]
+         lambda: gp_op.gate_proj_residual_plain(gy, gate, *gw, res)),
+        ('tri_mult_post_c_major',
+         lambda: tm_op.tri_mult_post(ycm, *post, fg, res, y_c_major=True,
+                                     packed=post_pk),
+         lambda: tm_op.tri_mult_post_plain(ycm, *post, fg, res,
+                                           y_c_major=True)),
+        ('ipa_pair_attend', lambda: ia_op.ipa_pair_attend(attn, pair),
+         lambda: ia_op.ipa_pair_attend_plain(attn, pair))]
     report = {}
     for name, kern, plain in cases:
         want = as_tuple(plain())
@@ -782,6 +827,40 @@ def phase_rounding_points(torch, dev):
         del want, got, again
     torch.cuda.empty_cache()
     return report
+
+
+def phase_one_tile(torch, dev):
+    """The channel-major post's Hopper kernel on one 64-position tile (B=1,
+    R = L = 8, nc = 128, C = 192), bf16, against the bf16 plain version at
+    the rounding-point bars: the MN-major wgmma descriptor of its
+    transposed A operand (the stride of its 8-channel groups) is held here
+    before any timed run."""
+    from abx_tpu_torch.ops import tri_mult as tm_op
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+    nc, c = 128, 192
+    y, fg, res = (rnd(1, nc, 8, 8).bfloat16(), rnd(1, 8, 8, c).bfloat16(),
+                  rnd(1, 8, 8, c).bfloat16())
+    post = (1 + rnd(nc, scale=0.1), rnd(nc, scale=0.1),
+            rnd(c, nc, scale=nc ** -0.5), rnd(c, scale=0.1))
+    if not tm_op.post_c_major_hopper_route(y, res):
+        fail('one-tile check: the case does not take the Hopper kernel')
+    got = tm_op.tri_mult_post(y, *post, fg, res, y_c_major=True)
+    want = tm_op.tri_mult_post_plain(y, *post, fg, res, y_c_major=True)
+    torch.cuda.synchronize()
+    err = ((got.float() - want.float()).abs().max()
+           / want.float().abs().max()).item()
+    share = (got != want).float().mean().item()
+    print(f'one-tile check of the MN-major wgmma descriptor '
+          f'(tri_mult_post_c_major, (1,128,8,8) -> 192, bf16): max '
+          f'err/max|want| {err:.3g} (bound {BF16_STEPS:.3g}), share of outputs '
+          f'that differ {share:.3g} (bound {BF16_SHARE})', flush=True)
+    if not (err <= BF16_STEPS and share <= BF16_SHARE):
+        fail(f'one-tile check: the MN-major descriptor is wrong: err '
+             f'{err:.3g}, share {share:.3g}')
+    return {'rel_err': err, 'share_differing': share}
 
 
 IPA_CANCEL_TOL = 1e-2   # the IPA scalar attend vs the bf16-p plain version
@@ -1409,6 +1488,7 @@ def main():
     print(f'kernels built and loaded in {time.time() - t0:.1f} s: {path}',
           flush=True)
 
+    one_tile = phase_one_tile(torch, dev)
     kernels = phase_kernels(torch, dev)
     exponent = phase_exponent(torch, dev)
     rounding = phase_rounding_points(torch, dev)
@@ -1442,6 +1522,7 @@ def main():
     print(card)
     print(json.dumps({'kernels': rows, 'bf16_exp_final_max': exponent,
                       'bf16_rounding_points': rounding,
+                      'post_c_major_one_tile': one_tile,
                       'ipa_scalar_attend_bf16_p': ipa_cancel,
                       'flags_vs_off': flags,
                       'esm_flags_on_vs_off': esm_flags,

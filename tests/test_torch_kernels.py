@@ -12,6 +12,7 @@ package.
 """
 
 import ctypes
+import functools
 import re
 
 import numpy as np
@@ -740,11 +741,13 @@ def test_gate_proj_kernel_matches_plain(cuda, shape, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('shape', [(2, 12, 37, 128), (1, 5, 70, 24),
-                                   (1, 16, 9, 136)])
+                                   (1, 16, 9, 136), (4, 12, 288, 128),
+                                   (4, 16, 287, 128)])
 def test_ipa_pair_attend_kernel_matches_plain(cuda, shape, dtype):
-    """(b, h, l, c): ragged L, H below and at 16, C below, at and above one
-    128-column block.  The bf16 route rounds attn to bf16 as the plain
-    version does."""
+    """(b, h, l, c): ragged L (287: attention rows not 16-byte aligned),
+    H below and at 16, C below, at and above 128 (136: a warp's second pair
+    of n8 tiles, half of it past C), and the flagship shape.  The bf16
+    route rounds attn to bf16 as the plain version does."""
     attn, pair = (t(a).to(cuda) for a in _ipa_attend_case(19, *shape))
     want = ipa_attend_op.ipa_pair_attend_plain(attn, pair)
     got = ipa_attend_op.ipa_pair_attend(attn, pair.to(dtype))
@@ -801,6 +804,59 @@ def test_tri_mult_post_c_major_kernel_matches_plain(cuda, shape, dtype):
     got = tri_mult_op.tri_mult_post(*low, y_c_major=True)
     torch.cuda.synchronize()
     _close_on_card(got, want, dtype)
+
+
+def _post_c_major_args(shape, dev, dtype, seed=36):
+    """(b, l, c, nc) tri_mult_post arguments with y channel-major, made on
+    `dev` from a seed (the flagship shape is too large for numpy to make
+    quickly), y, fg and res in `dtype`."""
+    b, l, c, nc = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*sh, scale=1.0):
+        return torch.randn(sh, generator=g, device=dev) * scale
+    y, fg, res = rnd(b, nc, l, l), rnd(b, l, l, c), rnd(b, l, l, c)
+    params = (1 + rnd(nc, scale=0.1), rnd(nc, scale=0.1),
+              rnd(c, nc, scale=nc ** -0.5), rnd(c, scale=0.1))
+    return (y.to(dtype), *params, fg.to(dtype), res.to(dtype))
+
+
+# (b, l, c, nc): the flagship; L = 284 (R*L a multiple of 8, not of 64: a
+# partial last tile in each batch element); C of three 64-column chunks
+# with a ragged last one (136) and nc of two K atoms with a ragged one (72).
+POST_C_MAJOR_SHAPES = [(4, 288, 192, 128), (2, 284, 192, 128),
+                       (2, 20, 136, 72)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', POST_C_MAJOR_SHAPES)
+def test_post_c_major_hopper_matches_plain(cuda, shape, dtype):
+    """bf16 takes csrc/post_cmajor_sm90.cu, f32 the tile kernel."""
+    f32 = _post_c_major_args(shape, cuda, torch.float32)
+    low = _post_c_major_args(shape, cuda, dtype)
+    assert tri_mult_op.post_c_major_hopper_route(low[0], low[-1]) == (
+        dtype == torch.bfloat16)
+    want = tri_mult_op.tri_mult_post_plain(*f32, y_c_major=True)
+    got = tri_mult_op.tri_mult_post(*low, y_c_major=True)
+    torch.cuda.synchronize()
+    _close_on_card(got, want, dtype)
+
+
+@pytest.mark.parametrize('dtype,nc,c,l,want', [
+    (torch.bfloat16, 128, 192, 288, True), (torch.bfloat16, 72, 136, 20, True),
+    (torch.bfloat16, 128, 192, 284, True), (torch.float32, 128, 192, 288, False),
+    (torch.bfloat16, 128, 192, 37, False), (torch.bfloat16, 136, 192, 288, False),
+    (torch.bfloat16, 128, 200, 288, False), (torch.bfloat16, 44, 192, 288, False),
+    (torch.bfloat16, 128, 36, 288, False)])
+def test_post_c_major_route_is_decided_by_dtype_and_shape(dtype, nc, c, l,
+                                                          want):
+    """The channel-major post takes the Hopper kernel for bf16 with nc <=
+    128 and C <= 192, both multiples of 8, and L*L a multiple of 8 (37 * 37
+    is not); f32 and other shapes the tile kernel."""
+    y = torch.zeros(1, nc, l, l, dtype=dtype)
+    res = torch.zeros(1, l, l, c, dtype=dtype)
+    assert tri_mult_op.post_c_major_hopper_route(y, res) == want
 
 
 @pytest.mark.gpu
@@ -1464,12 +1520,14 @@ def _module_case(kind, dev='cpu', dtype=torch.float32):
         seq = torch.randn(1, 5, 8).to(dev, dtype)
         return (mod, lambda: mod(seq, pair, mask), mod._bias_pack,
                 'pair_bias_proj', 'proj_pair', 'weight', lambda pk: pk.w)
-    if kind == 'gatefold':
+    if kind in ('gatefold', 'post'):
         mod = sf.TriangleMultiplication(scfg.triangle_multiplication_outgoing,
                                         16)
-        return (mod, lambda: mod(pair, mask, residual=True), mod._fold_pack,
-                'tri_mult_post_gatefold', 'proj_out', 'weight',
-                lambda pk: pk.w)
+        cache, wrapper = ((mod._fold_pack, 'tri_mult_post_gatefold')
+                          if kind == 'gatefold'
+                          else (mod._post_pack, 'tri_mult_post'))
+        return (mod, lambda: mod(pair, mask, residual=True), cache, wrapper,
+                'proj_out', 'weight', lambda pk: pk.w)
     if kind == 'recycle':
         mod = sf.EmbeddingAndSeqformer(cfg, 3)
         c = cfg.pair_channel + 2 * cfg.index_embed_size
@@ -1487,7 +1545,8 @@ def _module_case(kind, dev='cpu', dtype=torch.float32):
 
 
 @pytest.mark.parametrize('kind', ['transition', 'seq_attention',
-                                  'tri_attention', 'gatefold', 'recycle'])
+                                  'tri_attention', 'gatefold', 'recycle',
+                                  'post'])
 def test_module_caches_the_packed_weights(monkeypatch, kind):
     """On the kernel route a module packs the kernel's weights once and
     hands them to the wrapper on every call; it packs them anew when a
@@ -1499,6 +1558,7 @@ def test_module_caches_the_packed_weights(monkeypatch, kind):
              'pair_bias_proj': pair_bias_op.pair_bias_proj_plain,
              'tri_mult_post_gatefold':
                  tri_mult_op.tri_mult_post_gatefold_plain,
+             'tri_mult_post': tri_mult_op.tri_mult_post_plain,
              'recycle_embed': recycle_op.recycle_embed_plain}[wrapper]
     seen = []
 
@@ -1506,7 +1566,8 @@ def test_module_caches_the_packed_weights(monkeypatch, kind):
         seen.append(packed)
         return plain(*args, **kw)
     monkeypatch.setattr(registry, 'on_device', lambda x: True)
-    monkeypatch.setenv('ABX_TRIMULT_GATEFOLD', '1')
+    monkeypatch.setenv('ABX_TRIMULT_GATEFOLD',
+                       '0' if kind == 'post' else '1')
     monkeypatch.setattr(sf, wrapper, spy)
     monkeypatch.setattr(sf, 'triangle_attention_packed',
                         tri_attention.triangle_attention_packed_plain)
@@ -1597,6 +1658,16 @@ def rounding_point_case(kind, dev, seed=33):
                 tri_mult_op.tri_mult_post_gatefold_plain,
                 _gatefold_args(_gatefold_case(seed, 1, 240, 128, 192), bf,
                                dev))
+    if kind == 'post_c_major':
+        return (functools.partial(tri_mult_op.tri_mult_post, y_c_major=True),
+                functools.partial(tri_mult_op.tri_mult_post_plain,
+                                  y_c_major=True),
+                _post_c_major_args((1, 240, 192, 128), dev, bf, seed))
+    if kind == 'ipa_pair_attend':
+        attn, pair = (t(a).to(dev) for a in _ipa_attend_case(seed, 2, 12,
+                                                             240, 128))
+        return (ipa_attend_op.ipa_pair_attend,
+                ipa_attend_op.ipa_pair_attend_plain, (attn, pair.to(bf)))
     y, g, w, wb, res = _gate_proj_case(seed, 1, 240, 240, 192, 192)
     f32, low = _on_card((y, g, w.T.copy(), wb, res), dev, bf, {0, 1, 4})
     return (gate_proj_op.gate_proj_residual,
@@ -1605,7 +1676,8 @@ def rounding_point_case(kind, dev, seed=33):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize('kind', ['transition', 'pair_bias', 'tri_mult_pre',
-                                  'tri_mult_post', 'gatefold', 'gate_proj'])
+                                  'tri_mult_post', 'gatefold', 'gate_proj',
+                                  'post_c_major', 'ipa_pair_attend'])
 def test_hopper_kernels_keep_the_rounding_points(cuda, kind):
     """The bf16 kernels against the bf16 plain versions (the TPU kernels'
     rounding points), at the bf16 check's bounds, at a shape of several
@@ -1678,18 +1750,34 @@ def test_module_launches_the_hopper_kernel_once(cuda, kind):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('kind', ['gatefold', 'recycle'])
+@pytest.mark.parametrize('kind', ['gatefold', 'recycle', 'post'])
 def test_module_launches_its_kernel_once(cuda, kind):
     """A bf16 call with the module's cached weights launches the kernel
-    alone (the gate-fold post on a contraction output, the recycled pair
-    input), and follows an in-place change of a weight."""
+    alone (the gate-fold post and the channel-major post on a contraction
+    output, the recycled pair input), and follows an in-place change of a
+    weight."""
     from torch.profiler import ProfilerActivity, profile
     mod, _, cache, _, proj, attr, _ = _module_case(kind)
     mod = mod.to(cuda).to(torch.bfloat16)
     with torch.no_grad():
         for p in mod.parameters():
             p.normal_(0.0, 0.3)
-    if kind == 'gatefold':
+    if kind == 'post':
+        nc = mod.final_norm.scale.shape[0]
+        y = torch.randn(2, nc, 12, 12, device=cuda).bfloat16()
+        fg, res = (torch.randn(2, 12, 12, 16, device=cuda).bfloat16()
+                   for _ in range(2))
+
+        def call():
+            return tri_mult_op.tri_mult_post(
+                y, *mod._post_params(), fg, res, y_c_major=True,
+                packed=mod._post_packed(torch.bfloat16))
+
+        def plain():
+            return tri_mult_op.tri_mult_post_plain(
+                y, *mod._post_params(), fg, res, y_c_major=True)
+        want = 'post_cmajor_sm90'
+    elif kind == 'gatefold':
         nc = mod.final_norm.scale.shape[0]
         y = torch.randn(2, 9, 9, nc, device=cuda).bfloat16()
         res = torch.randn(2, 9, 9, 16, device=cuda).bfloat16()

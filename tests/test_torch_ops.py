@@ -248,9 +248,11 @@ def _assert_bf16_agree(got, want):
     assert err <= BF16_STEPS and share <= BF16_SHARE, (err, share)
 
 
-@pytest.mark.parametrize('kind', ['pre', 'post'])
+@pytest.mark.parametrize('kind', ['pre', 'post', 'post_c_major'])
 @pytest.mark.parametrize('shape', TRI_MULT_CPU_SHAPES)
 def test_tri_mult_plain_matches_pallas_interpret_in_bf16(kind, shape):
+    """post_c_major: y channel-major (B, nc, L, L) into both, the Pallas
+    kernel's transpose in VMEM against the plain version's permute."""
     b, l, c, nc = shape
     if kind == 'pre':
         args = _tri_mult_pre_case(24, *shape)
@@ -258,10 +260,15 @@ def test_tri_mult_plain_matches_pallas_interpret_in_bf16(kind, shape):
         got = tri_mult_op.tri_mult_pre_plain(x, s, lb, w.T, wb, mask)
         want = jax_tri_mult_pre(*jargs, row_block=4, interpret=True)
     else:
-        args = _tri_mult_post_case(25, b, l, nc, c)
+        c_major = kind == 'post_c_major'
+        args = list(_tri_mult_post_case(25, b, l, nc, c))
+        if c_major:
+            args[0] = np.ascontiguousarray(args[0].transpose(0, 3, 1, 2))
         (y, s, lb, w, wb, fg, res), jargs = _bf16_inputs(args, {0, 5, 6})
-        got = (tri_mult_op.tri_mult_post_plain(y, s, lb, w.T, wb, fg, res),)
-        want = (jax_tri_mult_post(*jargs, row_block=4, interpret=True),)
+        got = (tri_mult_op.tri_mult_post_plain(y, s, lb, w.T, wb, fg, res,
+                                               y_c_major=c_major),)
+        want = (jax_tri_mult_post(*jargs, row_block=4, y_c_major=c_major,
+                                  interpret=True),)
     assert len(got) == len(want)
     for g, w_ in zip(got, want):
         _assert_bf16_agree(g, w_)

@@ -98,19 +98,30 @@ def test_tri_mult_post_gatefold_plain_matches_jax():
 
 @pytest.mark.parametrize('kind,shape', [
     ('gatefold', (1, 11, 24, 72)), ('gatefold', (2, 9, 16, 8)),
-    ('gate_proj', (2, 9, 9, 16, 24)), ('gate_proj', (1, 5, 11, 40, 8))])
+    ('gate_proj', (2, 9, 9, 16, 24)), ('gate_proj', (1, 5, 11, 40, 8)),
+    ('ipa_pair_attend', (2, 12, 11, 24)),
+    ('ipa_pair_attend', (1, 16, 13, 40))])
 def test_opt_in_plain_matches_pallas_interpret_in_bf16(kind, shape):
-    """tri_mult_post_gatefold and gate_proj_residual in bf16 against the
-    Pallas kernels in interpret mode: both products (or the projection)
-    of values in the input dtype summed in f32, LN(y), LN_x(res) and z =
-    y * sigmoid(gate) rounded to the input dtype, the gate-fold's gate kept
-    in f32, one rounding of the output; at most BF16_SHARE of the outputs
-    differ, by at most BF16_STEPS (tests/test_torch_kernels.py)."""
+    """tri_mult_post_gatefold, gate_proj_residual and ipa_pair_attend (f32
+    attn, bf16 pair) in bf16 against the Pallas kernels in interpret mode:
+    both products (or the projection) of values in the input dtype summed
+    in f32, LN(y), LN_x(res), z = y * sigmoid(gate) and attn rounded to the
+    input dtype, the gate-fold's gate kept in f32, one rounding of the
+    output; at most BF16_SHARE of the outputs differ, by at most BF16_STEPS
+    (tests/test_torch_kernels.py)."""
     if kind == 'gatefold':
         b, l, c, nc = shape
         args = _gatefold_case(27, b, l, nc, c)
         low = {0, 9}
         fn, jax_fn = _gatefold_port, jax_gatefold
+    elif kind == 'ipa_pair_attend':
+        args = _ipa_attend_case(29, *shape)
+        low = {1}
+
+        def fn(args, dtype):
+            return ipa_attend_op.ipa_pair_attend_plain(t(args[0]),
+                                                       t(args[1]).to(dtype))
+        jax_fn = jax_ipa_attend
     else:
         args = _gate_proj_case(28, *shape)
         low = {0, 1, 4}
