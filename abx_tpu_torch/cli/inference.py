@@ -13,6 +13,9 @@ two re-noising strengths:
         --optimize_steps 4 8 --num_samples 4 --batch_samples 4 --bf16 \\
         --model_config config/config_model.json
 
+`--esm_reuse_recycles`, `--esm_refresh_every` and `--seq_corrector_steps`
+are the sampler's opt-in, output-changing options.
+
 `--device` defaults to cuda and never falls back: without a card it
 raises.  `--device cpu` must be asked for (with `--tiny` it is the CPU
 smoke run).  Without `--model` the weights are random, from `--seed`.
@@ -55,6 +58,19 @@ def main(argv: Optional[List[str]] = None):
                    help='ESM2 weights (.pt fair-esm, or a msgpack of the '
                         'JAX package\'s ESM2 tree): conditions the trunk '
                         'on ESM2 embeddings')
+    p.add_argument('--esm_reuse_recycles', action='store_true',
+                   help='OPT-IN, output-changing: one ESM pass per diffusion '
+                        'step, reused across recycle passes (~3x less ESM '
+                        'compute; quality eval in docs/ESM.md)')
+    p.add_argument('--esm_refresh_every', type=int, default=1,
+                   help='OPT-IN, output-changing, needs --esm_reuse_recycles:'
+                        ' refresh the cached ESM embedding every k steps '
+                        '(further ~k x less ESM compute; docs/ESM.md)')
+    p.add_argument('--seq_corrector_steps', type=int, default=0,
+                   help='OPT-IN, output-changing: k Gibbs-corrector jumps '
+                        'on the sequence track after each predictor step '
+                        '(repairs tau-leaping error at reduced --num_t; '
+                        'docs/SAMPLING.md)')
     p.add_argument('--bf16', action='store_true',
                    help='bfloat16 trunk compute')
     p.add_argument('--device', type=str, default='cuda',
@@ -76,7 +92,10 @@ def main(argv: Optional[List[str]] = None):
         rt, os.path.join(args.output_dir, args.mode), complexes,
         num_samples=args.num_samples, generate_area=args.generate_area,
         num_t=args.num_t, seed=args.seed, batch_samples=args.batch_samples,
-        mode=args.mode, opt_steps=args.optimize_steps, resume=args.resume)
+        mode=args.mode, opt_steps=args.optimize_steps, resume=args.resume,
+        esm_reuse_recycles=args.esm_reuse_recycles,
+        esm_refresh_every=args.esm_refresh_every,
+        seq_corrector_steps=args.seq_corrector_steps)
 
 
 if __name__ == '__main__':

@@ -149,14 +149,17 @@ def _random_esm(cfg, dtype, dev: torch.device, seed: int) -> AntibodyESM:
 
 def load_complexes(data_dir: Optional[str],
                    name_idx: Optional[Sequence[str]],
-                   pdb_file: Optional[str], runtime: Runtime):
-    """Yield (feats, meta) for a complex PDB named <code>_<H>_<L>_<AG>.pdb,
-    or for each name of `name_idx` with a `<data_dir>/<name>.npz`."""
+                   pdb_file: Optional[str], runtime: Runtime,
+                   use_seqres: bool = False):
+    """Yield (feats, meta) for a complex PDB named <code>_<H>_<L>_<AG>.pdb
+    (re-indexed onto its SEQRES records with `use_seqres`), or for each
+    name of `name_idx` with a `<data_dir>/<name>.npz`."""
     if pdb_file:
         name = os.path.splitext(os.path.basename(pdb_file))[0]
         parts = name.split('_')
         antigens = parts[3].split('|') if len(parts) > 3 else []
-        ex = ds.complex_from_pdb(pdb_file, parts[1], parts[2], antigens)
+        ex = ds.complex_from_pdb(pdb_file, parts[1], parts[2], antigens,
+                                 use_seqres=use_seqres)
         prep = ds.prepare_example(ex, runtime.data_config, False)
         if prep is not None:
             yield prep
@@ -212,14 +215,18 @@ def run_sampling(runtime: Runtime, output_dir: str, complexes,
                  num_samples: int = 1, generate_area: str = 'H3',
                  num_t: Optional[int] = None, seed: int = 42,
                  batch_samples: Optional[int] = None, mode: str = 'design',
-                 opt_steps: Sequence[int] = (), resume: bool = False
+                 opt_steps: Sequence[int] = (), resume: bool = False,
+                 esm_reuse_recycles: bool = False,
+                 esm_refresh_every: int = 1, seq_corrector_steps: int = 0
                  ) -> List[Tuple[str, int, float]]:
     """Sample `num_samples` samples of each complex, `batch_samples` at a
     time in the batch axis; writes reference/<name>.pdb and
     <NNNN>/<name>.pdb under `output_dir` -- under OPT-<k>/ for each
     optimize strength k of `opt_steps` in optimize mode, and one
     <name>@<t>.pdb per step in trajectory mode.  `resume` skips the samples
-    whose output exists.  Returns (name, n, seconds) per batch."""
+    whose output exists.  `esm_reuse_recycles`, `esm_refresh_every` and
+    `seq_corrector_steps` are the sampler's opt-in, output-changing options
+    (SamplerConfig).  Returns (name, n, seconds) per batch."""
     cfg = runtime.config
     num_t = num_t or cfg.diffuser.inference_step
     batch_samples = batch_samples or 1
@@ -229,12 +236,15 @@ def run_sampling(runtime: Runtime, output_dir: str, complexes,
     complexes = list(complexes)  # reused across optimize strengths
     results_log = []
     for opt_step in opt_list:
-        sampler = Sampler(
-            runtime.model, runtime.diffuser, cfg.model,
-            SamplerConfig(num_t=num_t, generate_area=generate_area,
-                          mode=mode, opt_step=opt_step,
-                          collect_trajectory=mode == 'trajectory'),
-            esm_fn=runtime.esm)
+        scfg = SamplerConfig(num_t=num_t, generate_area=generate_area,
+                             mode=mode, opt_step=opt_step,
+                             collect_trajectory=mode == 'trajectory',
+                             esm_reuse_recycles=esm_reuse_recycles,
+                             esm_refresh_every=esm_refresh_every,
+                             seq_corrector_steps=seq_corrector_steps)
+        logger.debug('%s', scfg)
+        sampler = Sampler(runtime.model, runtime.diffuser, cfg.model, scfg,
+                          esm_fn=runtime.esm)
         sub_dir = (os.path.join(output_dir, f'OPT-{opt_step}')
                    if opt_step is not None else output_dir)
         os.makedirs(sub_dir, exist_ok=True)

@@ -52,15 +52,25 @@ def load_complex_npz(path: str, name: str) -> Dict[str, np.ndarray]:
 
 
 def complex_from_pdb(pdb_file: str, heavy_chain: str, light_chain: str,
-                     antigen_chains: Sequence[str]) -> Dict[str, np.ndarray]:
+                     antigen_chains: Sequence[str],
+                     use_seqres: bool = False) -> Dict[str, np.ndarray]:
     """Build the npz-schema dict directly from a PDB file.
 
     Equivalent to reference `process_pdb` + `make_pdb_npz`
     (data/utils.py:32-83, make_ab_data_from_mmcif.py:142-191): variable-domain
     trim + CDR labels per antibody chain, then chain merging with
     chain_id/residx offsets (H=0, L=1 with +512 residx, antigen chains 2+).
+
+    `use_seqres` re-indexes each chain onto its SEQRES sequence so residues
+    with missing density keep their true positions (gappy SAbDab entries;
+    reference parser.py:77-135 semantics).
     """
     chains = pdb_io.parse_pdb(pdb_file)
+    if use_seqres:
+        seqres = pdb_io.parse_seqres(pdb_file)
+        chains = {cid: (pdb_io.expand_to_seqres(ch, seqres[cid])
+                        if cid in seqres else ch)
+                  for cid, ch in chains.items()}
 
     def _maybe_flip_case(a, b):
         if a.islower() and a.upper() == b:

@@ -2,9 +2,9 @@
 
 The port's own copy of the parts of `abx_tpu/data/pdb_io.py` that it calls:
 `parse_pdb` (ATOM records of the first model, chains, insertion codes,
-altlocs) and `save_complex_pdb` (AF2-style PDBs with pLDDT b-factors), with
-the same names and output.  The SEQRES re-indexing helpers stay in the JAX
-package: the port's runner does not use them.
+altlocs), the SEQRES re-indexing of gappy chains (`parse_seqres`,
+`expand_to_seqres`) and `save_complex_pdb` (AF2-style PDBs with pLDDT
+b-factors), with the same names and output.
 """
 
 from __future__ import annotations
@@ -95,6 +95,75 @@ def parse_pdb(path: str) -> Dict[str, ChainData]:
             chain_id=chain_id, str_seq=''.join(seq_chars), coords=coords,
             coord_mask=mask, resseq=resseqs, icodes=icodes)
     return out
+
+
+def parse_seqres(path: str) -> Dict[str, str]:
+    """SEQRES records -> per-chain full sequence (1-letter, X for nonstd).
+
+    PDB-format counterpart of the mmCIF `_pdbx_poly_seq_scheme` handling
+    (reference abx/preprocess/parser.py:77-135 aligns structure residues to
+    the SEQRES sequence so missing-density residues keep their positions).
+    """
+    seqs: Dict[str, List[str]] = {}
+    with open(path, 'r', encoding='utf-8', errors='replace') as f:
+        for line in f:
+            if line[:6] != 'SEQRES':
+                continue
+            chain_id = line[11]
+            for resname in line[19:70].split():
+                seqs.setdefault(chain_id, []).append(
+                    rc.restype_3to1.get(resname, 'X'))
+    return {k: ''.join(v) for k, v in seqs.items()}
+
+
+def expand_to_seqres(chain: ChainData, seqres: str) -> ChainData:
+    """Re-index an observed (ATOM-record) chain onto its SEQRES sequence.
+
+    Residues missing density become coord_mask=0 rows at their true
+    sequence positions, so downstream relative-position features and CDR
+    annotation see the real chain — the reference handles this with a
+    struct<->seq alignment (abx/preprocess/parser.py:77-135); here the
+    observed sequence (an exact subsequence of SEQRES up to point
+    mutations) is anchored with difflib matching blocks.
+    """
+    import difflib
+    obs = chain.str_seq
+    n = len(seqres)
+    coords = np.zeros((n, 14, 3), dtype=np.float32)
+    mask = np.zeros((n, 14), dtype=bool)
+    resseq = [0] * n
+    icodes = [' '] * n
+    matcher = difflib.SequenceMatcher(a=seqres, b=obs, autojunk=False)
+    placed = 0
+    for a, b, size in matcher.get_matching_blocks():
+        for k in range(size):
+            coords[a + k] = chain.coords[b + k]
+            mask[a + k] = chain.coord_mask[b + k]
+            resseq[a + k] = chain.resseq[b + k]
+            icodes[a + k] = chain.icodes[b + k]
+            placed += 1
+    if placed < 0.9 * len(obs):
+        # SEQRES doesn't explain the observed chain (wrong chain id or a
+        # heavily engineered construct): keep the observed-only view.
+        return chain
+    # Fill author numbering for unobserved rows by interpolation so residue
+    # indices stay monotone.
+    last = None
+    for i in range(n):
+        if mask[i].any():
+            last = resseq[i]
+        elif last is not None:
+            last = last + 1
+            resseq[i] = last
+    nxt = None
+    for i in range(n - 1, -1, -1):
+        if mask[i].any():
+            nxt = resseq[i]
+        elif nxt is not None and resseq[i] == 0:
+            nxt = nxt - 1
+            resseq[i] = nxt
+    return ChainData(chain_id=chain.chain_id, str_seq=seqres, coords=coords,
+                     coord_mask=mask, resseq=resseq, icodes=icodes)
 
 
 def _format_atom_line(serial, atom_name, resname, chain_id, resseq, xyz,

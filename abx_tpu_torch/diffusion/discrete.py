@@ -1,8 +1,9 @@
 """Continuous-time uniform-rate discrete diffusion over amino-acid types.
 
 Counterpart of abx_tpu/diffusion/discrete.py: a CTMC with uniform
-off-diagonal rate over S=20 states, its closed-form transition kernel, and
-tau-leaping reverse jumps driven by model logits.
+off-diagonal rate over S=20 states, its closed-form transition kernel,
+tau-leaping reverse jumps driven by model logits, and the Gibbs corrector
+(forward + reverse rates at a fixed time).
 """
 
 from __future__ import annotations
@@ -109,13 +110,27 @@ class DiscreteDiffuser:
         inner = torch.einsum('bds,bsk->bdk', p0t / qt0_denom, qt0)
         return forward_rates * inner * (1.0 - F.one_hot(x_t, s).float())
 
-    def reverse(self, generator, x_t, logits_t, t, dt,
-                eps_ratio: float = 1e-9, u: Optional[torch.Tensor] = None):
-        """Tau-leaping reverse jump step; `u` (B, D, S) uniforms draw the
-        Poisson counts by inverse CDF (shared-noise parity harness)."""
+    def corrector_rates(self, x_t, logits_t, t, eps_ratio: float = 1e-9):
+        """Gibbs-corrector jump rates at fixed time t, (B, D, S): the
+        reverse rates plus the forward rates out of x_t, diagonal zeroed.
+        The CTMC with generator R_t + R̂_t is stationary w.r.t. the noising
+        marginal q_t when the model posterior is exact, so extra jumps at
+        fixed t pull the sampled marginal back toward q_t."""
         s = self.num_states
-        x_t = x_t.clamp(0, s - 1).long()
-        rates = self.reverse_rates(x_t, logits_t, t, eps_ratio=eps_ratio)
+        rev = self.reverse_rates(x_t, logits_t, t, eps_ratio=eps_ratio)
+        t_vec = torch.as_tensor(t, dtype=torch.float32,
+                                device=logits_t.device).expand(x_t.shape[0])
+        x_i = x_t.clamp(0, s - 1).long()
+        fwd = torch.gather(self.rate(t_vec), 1,
+                           x_i[..., None].expand(-1, -1, s))
+        fwd = fwd * (1.0 - F.one_hot(x_i, s).float())
+        return (rev + fwd).clamp(min=0.0)
+
+    def _leap(self, generator, x_t, rates, dt, u):
+        """One tau-leap from x_t with the given jump rates: Poisson jump
+        counts (from `generator`, or by inverse CDF from uniforms `u`), net
+        displacement, clip."""
+        s = self.num_states
         diffs = torch.arange(s, device=x_t.device)[None, None, :] \
             - x_t[:, :, None]
         if u is None:
@@ -124,3 +139,21 @@ class DiscreteDiffuser:
             jump_nums = poisson_counts_from_uniform(rates * dt, u)
         overall_jump = torch.sum(jump_nums * diffs, dim=-1)
         return (x_t + overall_jump).clamp(0, s - 1)
+
+    def reverse(self, generator, x_t, logits_t, t, dt,
+                eps_ratio: float = 1e-9, u: Optional[torch.Tensor] = None):
+        """Tau-leaping reverse jump step; `u` (B, D, S) uniforms draw the
+        Poisson counts by inverse CDF (shared-noise parity harness)."""
+        x_t = x_t.clamp(0, self.num_states - 1).long()
+        rates = self.reverse_rates(x_t, logits_t, t, eps_ratio=eps_ratio)
+        return self._leap(generator, x_t, rates, dt, u)
+
+    def corrector(self, generator, x_t, logits_t, t, dt,
+                  eps_ratio: float = 1e-9, u: Optional[torch.Tensor] = None):
+        """One tau-leaping Gibbs-corrector step at fixed time t: the
+        reverse step's leap over `corrector_rates`, so repeated steps
+        equilibrate toward q_t instead of advancing time.  `dt` is the
+        leap size (the sampler's dt * corrector_scale)."""
+        x_t = x_t.clamp(0, self.num_states - 1).long()
+        rates = self.corrector_rates(x_t, logits_t, t, eps_ratio=eps_ratio)
+        return self._leap(generator, x_t, rates, dt, u)

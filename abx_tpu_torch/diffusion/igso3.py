@@ -174,13 +174,16 @@ class SO3Diffuser:
 
     def reverse(self, generator, rot_t, score_t, t, dt,
                 mask: Optional[torch.Tensor] = None,
+                noise_scale: float = 1.0,
                 z: Optional[torch.Tensor] = None):
-        """One geodesic-random-walk reverse step; `z` injects the normal
-        draw (shared-noise parity harness)."""
+        """One geodesic-random-walk reverse step; the normal draw is scaled
+        by `noise_scale`, and `z` injects it (shared-noise parity
+        harness)."""
         g_t = self.diffusion_coef(t)[:, None, None]
         if z is None:
             z = torch.randn(score_t.shape, generator=generator,
                             device=score_t.device)
+        z = noise_scale * z
         perturb = (g_t**2) * score_t * dt + g_t * np.sqrt(dt) * z
         if mask is not None:
             perturb = perturb * mask[..., None]

@@ -128,22 +128,28 @@ class JointDiffuser:
         return self.so3.score_scaling(t), self.r3.score_scaling(t)
 
     def reverse(self, generator, rigids_t, seq_t, rot_score, trans_score,
-                logits_t, t, dt, diffuse_mask=None,
+                logits_t, t, dt, diffuse_mask=None, center: bool = True,
+                noise_scale: float = 1.0,
                 noise: Optional[Dict[str, torch.Tensor]] = None):
-        """One joint reverse step; t (B,), dt scalar.  `noise` injects the
-        primitive draws: 'rot_z' (B, L, 3), 'trans_z' (B, L, 3) normals and
-        'seq_u' (B, L, S) uniforms; absent keys draw from `generator`."""
+        """One joint reverse step; t (B,), dt scalar.  `center` re-centres
+        the translations, `noise_scale` scales the rotation and translation
+        normals.  `noise` injects the primitive draws: 'rot_z' (B, L, 3),
+        'trans_z' (B, L, 3) normals and 'seq_u' (B, L, S) uniforms; absent
+        keys draw from `generator`."""
         c = self.config
         noise = noise or {}
         trans_t, rot_t = tensor7_split(rigids_t)
         if c.diffuse_rot:
             rot_t_1 = self.so3.reverse(generator, rot_t, rot_score, t, dt,
+                                       noise_scale=noise_scale,
                                        z=noise.get('rot_z'))
         else:
             rot_t_1 = rot_t
         if c.diffuse_trans:
             trans_t_1 = self.r3.reverse(generator, trans_t, trans_score, t,
-                                        dt, z=noise.get('trans_z'))
+                                        dt, center=center,
+                                        noise_scale=noise_scale,
+                                        z=noise.get('trans_z'))
         else:
             trans_t_1 = trans_t
         if c.diffuse_seq:

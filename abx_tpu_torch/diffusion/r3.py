@@ -78,17 +78,19 @@ class R3Diffuser:
                            device=device)
 
     def reverse(self, generator, x_t, score_t, t, dt,
-                mask: Optional[torch.Tensor] = None,
-                z: Optional[torch.Tensor] = None):
+                mask: Optional[torch.Tensor] = None, center: bool = True,
+                noise_scale: float = 1.0, z: Optional[torch.Tensor] = None):
         """One Euler-Maruyama reverse step; x_t in Angstroms, the result
-        re-centred on the (masked) centre of mass.  `z` injects the normal
-        draw (shared-noise parity harness)."""
+        re-centred on the (masked) centre of mass when `center`.  The
+        normal draw is scaled by `noise_scale`; `z` injects it (shared-noise
+        parity harness)."""
         x_s = self.scale(x_t)
         g_t = self.diffusion_coef(t)
         f_t = self.drift_coef(x_s, t)
         if z is None:
             z = torch.randn(score_t.shape, generator=generator,
                             device=score_t.device)
+        z = noise_scale * z
         noise_dt = dt if self.config.parity_dt_noise else float(np.sqrt(dt))
         perturb = (f_t - g_t**2 * score_t) * dt + g_t * noise_dt * z
         if mask is not None:
@@ -96,5 +98,8 @@ class R3Diffuser:
         else:
             mask = torch.ones(x_t.shape[:-1], device=x_t.device)
         x_t_1 = x_s - perturb
-        com = torch.sum(x_t_1, dim=-2) / torch.sum(mask, dim=-1, keepdim=True)
-        return self.unscale(x_t_1 - com[..., None, :])
+        if center:
+            com = torch.sum(x_t_1, dim=-2) / torch.sum(mask, dim=-1,
+                                                       keepdim=True)
+            x_t_1 = x_t_1 - com[..., None, :]
+        return self.unscale(x_t_1)

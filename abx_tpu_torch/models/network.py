@@ -78,6 +78,9 @@ class ScoreNetworkIteration(nn.Module):
     def static_embeddings(self, batch):
         return self.seqformer.static_embeddings(batch)
 
+    def esm_layer_weights(self):
+        return self.seqformer.esm_layer_weights()
+
     def forward(self, batch, static_acts=None, esm_fn=None):
         seq_act, pair_act = self.seqformer(batch, static_acts=static_acts,
                                            esm_fn=esm_fn)

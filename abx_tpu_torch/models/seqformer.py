@@ -585,9 +585,9 @@ class EmbeddingAndSeqformer(nn.Module):
 
     def forward(self, batch, static_acts=None, esm_fn=None):
         """`esm_fn(ab_aatype, heavy_len, light_len, layer_weights)` (an
-        `AntibodyESM`) is required when `esm.enabled`: it runs on this
-        pass's noisy antibody sequence and returns the weighted (B, L_ab,
-        D) embedding."""
+        `AntibodyESM`) is required when `esm.enabled` and the batch holds no
+        `esm_weighted`: it runs on this pass's noisy antibody sequence and
+        returns the weighted (B, L_ab, D) embedding."""
         c = self.config
         dt = self.dtype
         seq_t = batch['seq_t'].long()
@@ -597,11 +597,18 @@ class EmbeddingAndSeqformer(nn.Module):
             static_acts = self.static_embeddings(batch)
         ab_seq_act = self.proj_aa_type(seq_t[:, :ab])
         if c.esm.enabled:
-            if esm_fn is None:
+            if 'esm_weighted' in batch:
+                # The caller's weighted (B, L_ab, D) embedding (the
+                # sampler's esm_reuse_recycles: one ESM pass a step, shared
+                # by the recycle passes), cast as the esm_fn output is, so
+                # a single pass is bitwise the same either way.
+                esm_act = batch['esm_weighted'].to(dt)
+            elif esm_fn is None:
                 raise ValueError('esm.enabled needs an esm_fn')
-            esm_act = esm_fn(seq_t[:, :ab], batch['heavy_len'],
-                             batch['light_len'],
-                             self.esm_layer_weights()).to(dt)
+            else:
+                esm_act = esm_fn(seq_t[:, :ab], batch['heavy_len'],
+                                 batch['light_len'],
+                                 self.esm_layer_weights()).to(dt)
             ab_seq_act = ab_seq_act + self.proj_esm_embed(
                 self.esm_norm(esm_act))
         b, l = seq_t.shape

@@ -11,8 +11,10 @@ fatal on failure:
      version (its MN-major wgmma descriptor), at the rounding-point bars;
   3. each kernel against its plain PyTorch version at the flagship shapes
      (B=4, L=288; the channel-major post also at L=284, a partial tile a
-     batch element, and ipa_pair_attend at L=287 with H=16): f32 to 1e-4 *
-     max|ref|, bf16 against the f32 plain
+     batch element, and ipa_pair_attend at L=287 with H=16, and at H=20,
+     C=200 and H=12, C=36, shapes the wrapper cuts into several launches
+     of its kernel, under the profiler nothing else but their layout
+     copies; the profiled cases' device time a call is recorded): f32 to 1e-4 * max|ref|, bf16 against the f32 plain
      version to 3e-2 * max|ref| (the packed triangle attention and its
      column variant with ABX_TRI_ATTN_BF16_EXP on and off, against the
      plain version with the same exponent); kernel and plain times (median
@@ -35,8 +37,8 @@ fatal on failure:
      exponent (against the row's final max) on rows whose logits are exact
      in f32, to EXP_TOL relative; the bf16 Hopper kernels of tri_mult_pre
      (three variants), tri_mult_post (both inputs), the gate-fold post,
-     gate_proj and ipa_pair_attend against their bf16 plain versions (the
-     TPU kernels' rounding points):
+     gate_proj and ipa_pair_attend (also at the two split shapes) against
+     their bf16 plain versions (the TPU kernels' rounding points):
      at most BF16_SHARE of the outputs differ, by at most BF16_STEPS, and a
      second call gives the same bits; the bf16 IPA scalar attend with p
      rounded to bf16 (the TPU kernel's p.astype(in_dt)) on a case where
@@ -67,6 +69,20 @@ fatal on failure:
      PDBs, esm_attention launched 36 x 3 x (num_t + 1) times and the trunk
      kernels as in phase 5; then a second trajectory in the same process
      for the steady-state seconds per step;
+  6b. phase 6's design on its runtime with the sampler's opt-in ESM reuse
+     (the embedding refreshed at grid positions 0, 2, 4, 6 and 8) and two
+     Gibbs-corrector jumps a step, through runner.run_sampling: 4 PDBs,
+     esm_attention launched 36 x 5 = 180 times, the trunk kernels as in
+     phase 5;
+  10. ESM-off Sampler.sample_resumable in chunks of 3 grid positions,
+     whole, and killed as its second chunk starts (the first chunk's
+     state on disk) and then resumed: sequences identical to
+     Sampler.sample with the same generator seed, backbone within 0.1 A;
+     the killed run and its resume launch each trunk kernel as one
+     trajectory of phase 5 does;
+  bench smoke: the bench's per-config function
+     (abx_tpu_torch/tools/bench.py) on the runtimes already built, num_t
+     2, one rep, for no_esm and esm_reuse; its JSON line is printed;
   7. full-width bf16 test-set CDR-H3 optimization through
      abx_tpu_torch.cli.inference (--mode optimize --optimize_steps 4
      --num_t 8, 4 samples, random weights from seed 0) over an npz
@@ -79,9 +95,16 @@ fatal on failure:
      which writes one <name>@<t>.pdb per step;
   8. phase 5 again under ABX_TRIMULT_C_MAJOR=1: the channel-major
      tri_mult pre / post on every triangle multiplication, the natural ones
-     never.
-Each main path (phases 5, 6, 7, 8 and the trajectory run) is driven with the
-launch counts set to 0 just before it and read just after.  The lines
+     never;
+  9. ESM-off design through the design CLI with --use_seqres --verbose on
+     a copy of testdata/6ct7_H_L_S.pdb with SEQRES records for chain H
+     and residues 30-35 of H's ATOM records dropped: H of the npz schema
+     from complex_from_pdb(use_seqres=True) as long as the intact
+     structure's, the 6 residues present and unobserved; 4 PDBs; the
+     trunk kernels as in phase 5.
+Each main path (phases 5, 6, 6b, 7, 8, 9, 10 and the trajectory run) is
+driven with the launch counts set to 0 just before it and read just
+after.  The lines
 before the last are the nvidia-smi card line and the kernels JSON (each
 kernel's launches on each main path in `launches_by_path`, and in
 `launches` the largest of them, its error, its time, its plain
@@ -196,7 +219,7 @@ def kernel_cases(torch, dev):
 
     def case(name, label, kern, plain, a32, a16, reads, flops, library=None,
              env=None, plain16=None, one_launch=False, gemm=None,
-             kernel_name=None, stream=None):
+             kernel_name=None, stream=None, split=None):
         """env: flags set while the case runs; plain16: the plain version
         the bf16 kernel is held to, where it differs from `plain`;
         one_launch: the wrapper must launch its kernel and no other device
@@ -206,12 +229,16 @@ def kernel_cases(torch, dev):
         yardstick (not the same function: no LayerNorm, no epilogue);
         stream: (label, fn) of a bare torch call that streams about the
         bytes the kernel moves, timed beside it as a yardstick of the rate
-        the card streams at (not the same function)."""
+        the card streams at (not the same function); split: (kernel_name,
+        launches) of a call that the wrapper cuts into several launches:
+        under the profiler one call runs that kernel that many times and
+        nothing else but the split's layout copies and fills."""
         cases.append(dict(name=name, label=label, kern=kern, plain=plain,
                           a32=a32, a16=a16, reads=reads, flops=flops,
                           library=library, env=env or {}, plain16=plain16,
                           one_launch=one_launch, gemm=gemm,
-                          kernel_name=kernel_name, stream=stream))
+                          kernel_name=kernel_name, stream=stream,
+                          split=split))
 
     def tri(label, r, c, h, exp_flag):
         x = rnd(b, r, l, c)
@@ -469,6 +496,22 @@ def kernel_cases(torch, dev):
                                          pr),
              one_launch=True, kernel_name='ipa_attend_kernel')
         del attn, pair_o
+    # Shapes past one launch's limits (H <= 16; C a multiple of 8, at most
+    # 192), which the wrapper cuts into launches of the same kernel: H = 20
+    # in two groups of 10 by C = 200 in chunks of 104 and 96 (4 launches),
+    # and C = 36 padded to 40 (1 launch).
+    for ho, co, n_launch in ((20, 200, 4), (12, 36, 1)):
+        attn = torch.softmax(rnd(b, ho, l, l, scale=2.0), dim=-1)
+        pair_o = rnd(b, l, l, co)
+        case('ipa_pair_attend',
+             f'attn (4,{ho},{l},{l}) f32, pair (4,{l},{l},{co}), split',
+             ia_op.ipa_pair_attend, ia_op.ipa_pair_attend_plain,
+             (attn, pair_o), (attn, pair_o.bfloat16()), [],
+             2 * b * ho * l * l * co,
+             lambda at, pr: torch.einsum('bhij,bijc->bihc', at.to(pr.dtype),
+                                         pr),
+             split=('ipa_attend_kernel', n_launch))
+        del attn, pair_o
 
     # Row 13: head-major q / k / v at the tri-attention shape, f32 bias.
     # Its library call is SDPA on (B*R, H, L, D) views with bias + key-mask
@@ -628,9 +671,10 @@ def phase_kernels(torch, dev):
         stream_ms = None
         if cs['stream']:
             stream_ms = time_ms(torch, lambda: cs['stream'][1](*a16))
-        launched = None
+        launched = dev_ms = None
+        if cs['one_launch'] or cs['split']:
+            launched, dev_ms = device_kernels(torch, lambda: kern(*a16))
         if cs['one_launch']:
-            launched = device_kernel_names(torch, lambda: kern(*a16))
             if launched is not None and len(launched) != 1:
                 fail(f'{name} {label}: one call launched {launched}, not '
                      'one kernel')
@@ -639,6 +683,14 @@ def phase_kernels(torch, dev):
                     want_name not in launched[0]:
                 fail(f'{name} {label}: one call launched {launched}, not '
                      f'the kernel {want_name}')
+        if cs['split']:
+            want_name, n_launch = cs['split']
+            ours = [k for k in (launched or []) if want_name in k]
+            rest = [k for k in (launched or []) if want_name not in k
+                    and 'copy' not in k.lower() and 'fill' not in k.lower()]
+            if launched is not None and (len(ours) != n_launch or rest):
+                fail(f'{name} {label}: one call launched {launched}, not '
+                     f'{n_launch} x {want_name} and layout copies')
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -665,9 +717,11 @@ def phase_kernels(torch, dev):
             'library_ms': lib_ms, 'bound_ms': bms, 'bound_by': by,
             'flops': cs['flops'], 'bytes': nbytes,
             'gemm_yardstick_ms': gemm_ms, 'stream_yardstick_ms': stream_ms})
-        if cs['one_launch']:
+        if cs['one_launch'] or cs['split']:
             entry['cases'][-1]['device_kernels_per_call'] = launched
-            seen = launched or 'not recorded by the profiler'
+            entry['cases'][-1]['device_ms_per_call'] = dev_ms
+            seen = (f'{launched}, {dev_ms:.4f} ms' if launched
+                    else 'not recorded by the profiler')
             print(f'kernel {name} {label}: device kernels of one call '
                   f'{seen}', flush=True)
         del ref, ref16, got32, got16
@@ -778,6 +832,9 @@ def phase_rounding_points(torch, dev):
     post_pk = tm_op.pack_post(*post, torch.bfloat16)
     attn = torch.softmax(rnd(b, 12, l, l, scale=2.0), dim=-1)
     pair = bf(b, l, l, 128)
+    # ipa_pair_attend at shapes the wrapper splits into several launches.
+    attn20 = torch.softmax(rnd(b, 20, l, l, scale=2.0), dim=-1)
+    pair200, pair36 = bf(b, l, l, 200), bf(b, l, l, 36)
     cases = [
         ('tri_mult_pre', lambda: tm_op.tri_mult_pre(x, *pre, packed=pk),
          lambda: tm_op.tri_mult_pre_plain(x, *pre)),
@@ -802,7 +859,13 @@ def phase_rounding_points(torch, dev):
          lambda: tm_op.tri_mult_post_plain(ycm, *post, fg, res,
                                            y_c_major=True)),
         ('ipa_pair_attend', lambda: ia_op.ipa_pair_attend(attn, pair),
-         lambda: ia_op.ipa_pair_attend_plain(attn, pair))]
+         lambda: ia_op.ipa_pair_attend_plain(attn, pair)),
+        ('ipa_pair_attend H=20 C=200',
+         lambda: ia_op.ipa_pair_attend(attn20, pair200),
+         lambda: ia_op.ipa_pair_attend_plain(attn20, pair200)),
+        ('ipa_pair_attend H=12 C=36',
+         lambda: ia_op.ipa_pair_attend(attn, pair36),
+         lambda: ia_op.ipa_pair_attend_plain(attn, pair36))]
     report = {}
     for name, kern, plain in cases:
         want = as_tuple(plain())
@@ -909,18 +972,28 @@ def phase_ipa_cancel(torch, dev):
     return {'max_rel_err': err, 'f32_p_emulation_rel_err': err_f32p}
 
 
-def device_kernel_names(torch, fn):
-    """Names of the device kernels fn() launches, from torch.profiler (None
-    when the profiler records no device activity)."""
+def device_kernels(torch, fn):
+    """(names, summed device ms) of the device kernels one fn() call
+    launches, from torch.profiler ((None, None) when the profiler records
+    no device activity)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    return names or None
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ev:
+        return None, None
+    return ([e.name for e in ev],
+            sum(e.time_range.elapsed_us() for e in ev) / 1e3)
+
+
+def device_kernel_names(torch, fn):
+    """Names of the device kernels fn() launches (None when the profiler
+    records no device activity)."""
+    return device_kernels(torch, fn)[0]
 
 
 def phase_contraction(torch, dev):
@@ -1352,9 +1425,135 @@ def phase_design_esm(torch, card):
                           'trajectory')
     stats['steady_s_per_step'] = steady['s_per_step']
     stats['steady_samples_per_hour'] = steady['samples_per_hour']
-    del rt
-    torch.cuda.empty_cache()
-    return launches, stats
+    return launches, stats, rt, complexes
+
+
+# Phase 6b: ESM reuse across the recycle passes, the embedding refreshed at
+# every REFRESH-th grid position (the prime step is position 0), and
+# CORRECTOR Gibbs-corrector jumps a step.
+REFRESH, CORRECTOR = 2, 2
+
+
+def phase_design_esm_reuse(torch, card, rt, complexes):
+    """Phase 6b: the ESM-on design of phase 6 on its runtime with the
+    sampler's opt-in ESM reuse and corrector, through the runner API."""
+    from abx_tpu_torch.cli import runner
+    ws = wrappers()
+    refreshes = len(range(0, NUM_T + 1, REFRESH))
+    expected = {k: n * PASSES for k, n in PER_PASS.items()}
+    expected['esm_attention'] = ESM_LAYERS * refreshes
+    with tempfile.TemporaryDirectory() as out:
+        reset_counts(ws)
+        log = runner.run_sampling(
+            rt, os.path.join(out, 'design'), complexes,
+            num_samples=NUM_SAMPLES, num_t=NUM_T, seed=0,
+            batch_samples=NUM_SAMPLES, esm_reuse_recycles=True,
+            esm_refresh_every=REFRESH, seq_corrector_steps=CORRECTOR)
+        torch.cuda.synchronize()
+        launches = read_counts(ws)
+        check_design(out, launches, expected,
+                     f'ESM-on design, ESM reuse (refresh every {REFRESH}, '
+                     f'{CORRECTOR} corrector steps)')
+    return launches, design_stats(log, None, card, 'ESM-on design, ESM '
+                                  'reuse')
+
+
+def design_batch(rt):
+    """The 6ct7 complex as a device batch of NUM_SAMPLES samples."""
+    import numpy as np
+    from abx_tpu_torch.cli import runner
+    from abx_tpu_torch.data import dataset as ds
+    from abx_tpu_torch.sampling.sampler import to_device_batch
+    feats, _ = next(runner.load_complexes(None, None, PDB, rt))
+    return to_device_batch({k: np.repeat(v, NUM_SAMPLES, axis=0)
+                            for k, v in ds.stack_batch([feats]).items()},
+                           rt.device)
+
+
+CHUNK = 3       # phase 10's grid positions a chunk
+BB_TOL = 0.1    # A, backbone atoms
+
+
+class Killed(Exception):
+    """Phase 10's process dying mid-trajectory."""
+
+
+def phase_resumable(torch, rt):
+    """Phase 10: ESM-off sample_resumable (chunks of CHUNK grid positions)
+    whole, and killed as its second chunk starts (the first chunk's state
+    on disk) and then resumed, against sample with the same generator
+    seed: identical sequences, backbone within BB_TOL.  The launches are
+    those of the killed run and its resume: one trajectory's worth."""
+    from abx_tpu_torch.sampling.sampler import Sampler, SamplerConfig
+    ws = wrappers()
+    feats = design_batch(rt)
+    sampler = Sampler(rt.model, rt.diffuser, rt.config.model,
+                      SamplerConfig(num_t=NUM_T))
+
+    def gen():
+        return torch.Generator(device='cuda').manual_seed(5)
+    want = sampler.sample(feats, gen())
+    whole = sampler.sample_resumable(feats, gen(), chunk_steps=CHUNK)
+    run_steps = sampler._run_steps
+    chunks = []
+
+    def die_on_second_chunk(*args, **kwargs):
+        if chunks:
+            raise Killed
+        chunks.append(1)
+        return run_steps(*args, **kwargs)
+    with tempfile.TemporaryDirectory() as d:
+        state = os.path.join(d, 'state.npz')
+        torch.cuda.synchronize()
+        reset_counts(ws)
+        sampler._run_steps = die_on_second_chunk
+        try:
+            sampler.sample_resumable(feats, gen(), chunk_steps=CHUNK,
+                                     state_path=state)
+            fail('resumable: the killed run ran to the end')
+        except Killed:
+            pass
+        finally:
+            del sampler._run_steps
+        if not os.path.exists(state):
+            fail('resumable: no state file after the first chunk')
+        resumed = sampler.sample_resumable(feats, gen(), chunk_steps=CHUNK,
+                                           state_path=state)
+        torch.cuda.synchronize()
+        launches = read_counts(ws)
+        if os.path.exists(state):
+            fail('resumable: the state file outlived the run')
+    report = {}
+    for what, got in (('whole', whole), ('resumed', resumed)):
+        if not torch.equal(got['seq'], want['seq']):
+            fail(f'resumable ({what}): sequences differ from sample')
+        if not torch.isfinite(got['atom14']).all():
+            fail(f'resumable ({what}): non-finite coordinates')
+        dev = (got['atom14'][..., :4, :] - want['atom14'][..., :4, :]
+               ).abs().max().item()
+        if dev > BB_TOL:
+            fail(f'resumable ({what}): backbone {dev:.3g} A from sample')
+        report[f'{what}_max_backbone_dev_A'] = dev
+    check_launches(launches, {k: n * PASSES for k, n in PER_PASS.items()},
+                   'resumable')
+    print(f'resumable (num_t {NUM_T}, chunks of {CHUNK}): sequences '
+          f'identical to sample, backbone {report}', flush=True)
+    return launches, report
+
+
+def phase_bench(torch, rt_off, rt_esm):
+    """The bench's per-config function on the runtimes already built, at
+    num_t 2 and one rep, for no_esm and esm_reuse; prints its JSON line."""
+    from abx_tpu_torch.tools import bench
+    runtimes = {'no_esm': rt_off, 'esm': rt_esm}
+    configs = {name: bench.bench_config(name, runtimes, num_t=2,
+                                        batch=NUM_SAMPLES, reps=1)
+               for name in ('no_esm', 'esm_reuse')}
+    for name, detail in configs.items():
+        if 'samples_per_hr' not in detail:
+            fail(f'bench smoke {name}: {detail}')
+    print(json.dumps({'bench_smoke': configs}), flush=True)
+    return configs
 
 
 def write_test_set(torch, out):
@@ -1465,6 +1664,76 @@ def phase_trajectory(torch):
     return launches
 
 
+def write_seqres_pdb(path):
+    """testdata/6ct7_H_L_S.pdb with SEQRES records for chain H and
+    residues 30-35 of H's ATOM records dropped; returns the SEQRES
+    sequence."""
+    from abx_tpu_torch.common import residue_constants as rc
+    from abx_tpu_torch.data import pdb_io
+    h = pdb_io.parse_pdb(PDB)['H']
+    three = [rc.restype_1to3[c] for c in h.str_seq]
+    lines = [f'SEQRES {i // 13 + 1:>3d} H {len(three):>4d}  '
+             + ' '.join(three[i:i + 13]) for i in range(0, len(three), 13)]
+    drop = {(r, ' ') for r in h.resseq[30:36]}
+    with open(PDB) as f:
+        for line in f.read().splitlines():
+            if line[:6] == 'ATOM  ' and line[21] == 'H' and \
+                    (int(line[22:26]), line[26]) in drop:
+                continue
+            lines.append(line)
+    with open(path, 'w') as f:
+        f.write('\n'.join(lines) + '\n')
+    return h.str_seq
+
+
+def phase_seqres(torch, card):
+    """Phase 9: ESM-off design through the design CLI with --use_seqres on
+    a copy of 6ct7 whose chain H has SEQRES records and a 6-residue gap."""
+    from abx_tpu_torch.cli import design
+    from abx_tpu_torch.data import dataset as ds
+    from abx_tpu_torch.data import pdb_io
+    ws = wrappers()
+    expected = {k: n * PASSES for k, n in PER_PASS.items()}
+    with tempfile.TemporaryDirectory() as d, \
+            tempfile.TemporaryDirectory() as out:
+        path = os.path.join(d, '6ct7_H_L_S.pdb')
+        seqres = write_seqres_pdb(path)
+        if pdb_io.parse_seqres(path)['H'] != seqres:
+            fail('SEQRES: parse_seqres did not read the H records back')
+        # The npz schema holds H's variable domain: re-indexed onto SEQRES
+        # it has the intact structure's length, the 6 dropped residues
+        # present and unobserved.
+        ex = ds.complex_from_pdb(path, 'H', 'L', ['S'], use_seqres=True)
+        gap = ds.complex_from_pdb(path, 'H', 'L', ['S'])
+        full = ds.complex_from_pdb(PDB, 'H', 'L', ['S'])
+        n_h = [int((e['antibody_chain_ids'] == 0).sum())
+               for e in (ex, gap, full)]
+        unobserved = int((~ex['antibody_coord_mask'][:, 1].astype(bool)
+                          ).sum()) - int(
+            (~full['antibody_coord_mask'][:, 1].astype(bool)).sum())
+        if n_h[0] != n_h[2] or n_h[1] != n_h[2] - 6 or unobserved != 6:
+            fail(f'SEQRES: H lengths (seqres, gapped, intact) {n_h}, '
+                 f'{unobserved} residues unobserved, expected 6')
+        argv = ['--pdb_file', path, '--output_dir', out, '--model_config',
+                MODEL_CONFIG, '--seed', '0', '--bf16', '--device', 'cuda',
+                '--num_samples', str(NUM_SAMPLES), '--batch_samples',
+                str(NUM_SAMPLES), '--num_t', str(NUM_T), '--use_seqres',
+                '--verbose']
+        reset_counts(ws)
+        t0 = time.time()
+        log = design.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = read_counts(ws)
+        check_design(out, launches, expected, 'SEQRES design')
+    print(f'SEQRES design: H of the npz schema {n_h[0]} residues with '
+          f'SEQRES (gapped {n_h[1]}, intact {n_h[2]}; SEQRES chain '
+          f'{len(seqres)})', flush=True)
+    stats = design_stats(log, wall, card, 'SEQRES design')
+    stats['h_len_seqres_gapped_intact'] = n_h
+    return launches, stats
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, 'abx_tpu_torch')):
         fail('abx_tpu_torch/ not found beside chip_smoke.py: run it from a '
@@ -1498,13 +1767,23 @@ def main():
     esm_flags = phase_esm_flags(torch, dev)
     paths, stats = {}, {}
     paths['design_esm_off'], stats['design'] = phase_design(torch, card)
-    paths['design_esm_on'], stats['design_esm'] = phase_design_esm(torch,
-                                                                   card)
+    paths['design_esm_on'], stats['design_esm'], rt_esm, complexes = \
+        phase_design_esm(torch, card)
+    paths['design_esm_reuse'], stats['design_esm_reuse'] = \
+        phase_design_esm_reuse(torch, card, rt_esm, complexes)
+    from abx_tpu_torch.cli import runner
+    rt_off = runner.build_runtime(MODEL_CONFIG, seed=0, bf16=True,
+                                  device='cuda')
+    paths['resumable'], stats['resumable'] = phase_resumable(torch, rt_off)
+    stats['bench_smoke'] = phase_bench(torch, rt_off, rt_esm)
+    del rt_esm, rt_off, complexes
+    torch.cuda.empty_cache()
     paths['optimize_opt_in'], stats['optimize_opt_in'] = phase_optimize(
         torch, card)
     paths['trajectory'] = phase_trajectory(torch)
     paths['design_c_major'], stats['design_c_major'] = phase_design(
         torch, card, C_MAJOR, C_MAJOR_PER_PASS, 'design (ABX_TRIMULT_C_MAJOR)')
+    paths['design_seqres'], stats['design_seqres'] = phase_seqres(torch, card)
 
     rows = []
     for name, (source, replaces) in KERNEL_META.items():

@@ -738,6 +738,49 @@ def test_gate_proj_kernel_matches_plain(cuda, shape, dtype):
     _close_on_card(got, want, dtype)
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', [(2, 20, 9, 200), (1, 3, 11, 36),
+                                   (1, 12, 6, 192)])
+def test_ipa_pair_attend_split_matches_plain(shape, dtype):
+    """(b, h, l, c) past one launch's limits (H = 20 > 16, C = 200 > 192;
+    C = 36 not a multiple of 8) and the flagship H, C (one call, as
+    given): the split's launches, each within the kernel's limits, put
+    together equal the plain version on the whole."""
+    attn, pair = (t(a) for a in _ipa_attend_case(23, *shape))
+    pair = pair.to(dtype)
+    calls = []
+
+    def launch(a, p):
+        assert a.shape[1] <= ipa_attend_op.MAX_HEADS
+        assert p.shape[-1] <= ipa_attend_op.MAX_C and p.shape[-1] % 8 == 0
+        assert a.is_contiguous() and p.is_contiguous()
+        calls.append((a.shape[1], p.shape[-1]))
+        return ipa_attend_op.ipa_pair_attend_plain(a, p)
+    got = ipa_attend_op.split_pair_attend(attn, pair, launch)
+    want = ipa_attend_op.ipa_pair_attend_plain(attn, pair)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert calls == {(2, 20, 9, 200): [(10, 104), (10, 104), (10, 96),
+                                       (10, 96)],
+                     (1, 3, 11, 36): [(3, 40)],
+                     (1, 12, 6, 192): [(12, 192)]}[shape]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', [(2, 20, 37, 200), (1, 12, 70, 36),
+                                   (1, 3, 9, 20)])
+def test_ipa_pair_attend_kernel_takes_every_h_and_c(cuda, shape, dtype):
+    """Shapes past one launch's limits reach the kernel (several launches),
+    never the plain version."""
+    attn, pair = (t(a).to(cuda) for a in _ipa_attend_case(29, *shape))
+    want = ipa_attend_op.ipa_pair_attend_plain(attn, pair)
+    before = ipa_attend_op.ipa_pair_attend.launches
+    got = ipa_attend_op.ipa_pair_attend(attn, pair.to(dtype))
+    torch.cuda.synchronize()
+    assert ipa_attend_op.ipa_pair_attend.launches > before
+    _close_on_card(got, want, dtype)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('shape', [(2, 12, 37, 128), (1, 5, 70, 24),
