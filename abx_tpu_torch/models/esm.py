@@ -240,6 +240,31 @@ class ESM2(nn.Module):
         return torch.stack(reprs[:-1] + [final], dim=-1)
 
 
+class ESM2LMHead(nn.Module):
+    """Masked-LM head (fair-esm RobertaLMHead; `abx_tpu/models/esm.py:524`):
+    dense -> exact GELU -> LayerNorm in f32 (eps 1e-6, the flax default the
+    JAX package takes, where fair-esm uses 1e-5) -> the projection tied to
+    the encoder's token embedding, `x @ embed_weight.T` + bias.  It holds
+    no projection of its own: the caller passes `embed_weight`, as the JAX
+    CLI passes `embed_tokens`' table (`utils/params.load_lm_head_params`
+    says what happens to a checkpoint's `lm_head.weight`)."""
+
+    def __init__(self, config: ESM2Config, dtype=torch.float32, device=None):
+        super().__init__()
+        d = config.embed_dim
+        kw = dict(dtype=dtype, device=device)
+        self.dtype = dtype
+        self.dense = nn.Linear(d, d, **kw)
+        self.layer_norm = ESMLayerNorm(d, 1e-6, **kw)
+        self.bias = nn.Parameter(torch.zeros(config.alphabet_size, **kw))
+
+    def forward(self, features, embed_weight):
+        """features (B, L, D) -> logits (B, L, alphabet_size)."""
+        x = F.gelu(self.dense(features))
+        x = self.layer_norm(x).to(self.dtype)
+        return x @ embed_weight.t().to(self.dtype) + self.bias
+
+
 def build_esm_tokens(ab_aatype, heavy_len, light_len, sep_pad_num: int = 48):
     """(B, L_ab) aatype -> (B, L_ab+sep+2) ESM tokens, linker-joined."""
     b, l_ab = ab_aatype.shape

@@ -12,10 +12,11 @@ or a `.msgpack` written by `abx_tpu/utils/checkpoint.py` (flax msgpack
 bytes, read here with the `msgpack` package — no flax or jax needed).
 
 ESM2 weights have their own bridge (`esm_flax_to_state_dict`,
-`fair_esm_state_dict`, `load_esm_params`): the port's `models/esm.py`
-carries fair-esm's names, so a fair-esm state dict loads as it is, and the
-JAX package's ESM tree (per-layer `layer_{i}`, or the scanned `layers/layer`
-with a leading layer axis) is renamed onto them.
+`fair_esm_state_dict`, `load_esm_params`, and `load_lm_head_params` for
+the masked-LM head under `lm_head.`): the port's `models/esm.py` carries
+fair-esm's names, so a fair-esm state dict loads as it is, and the JAX
+package's ESM tree (per-layer `layer_{i}`, or the scanned `layers/layer`
+with a leading layer axis, and its `lm_head`) is renamed onto them.
 """
 
 from __future__ import annotations
@@ -126,11 +127,17 @@ def state_dict_tree(model: torch.nn.Module):
     return {'params': {'impl': root}}
 
 
-# fair-esm checkpoint entries that are not encoder parameters (the rotary
-# frequency buffers, the contact head) or that belong to the masked-LM head,
-# which the port does not have yet.
+# fair-esm checkpoint entries that are not parameters of the encoder or of
+# the masked-LM head: the rotary frequency buffers, the contact head and
+# fairseq bookkeeping.
 _ESM_DROPPED = ('rot_emb.inv_freq', 'contact_head.', '_float_tensor',
-                'embed_positions.', 'lm_head')
+                'embed_positions.')
+LM_HEAD = 'lm_head.'
+# The LM head's projection: tied to `embed_tokens.weight` in fair-esm, and
+# the JAX CLI projects with the embedding table (`abx_tpu/cli/eval_pll.py`),
+# so `ESM2LMHead` takes the table from the encoder and this entry is not
+# loaded.
+_LM_TIED = LM_HEAD + 'weight'
 
 
 def _esm_entry(path, v):
@@ -147,14 +154,14 @@ def esm_flax_to_state_dict(tree) -> Dict[str, np.ndarray]:
     """The JAX package's ESM2 tree ({'params': ...}, numpy or array leaves)
     -> the port's ESM2 state dict (fair-esm names, numpy arrays).  Takes
     both layouts: per-layer `layer_{i}` and the scanned `layers/layer` with
-    a leading layer axis.  The masked-LM head is dropped."""
+    a leading layer axis.  The masked-LM head (`lm_head/{dense,
+    layer_norm,bias}`, and `weight` where the tree has one) comes along
+    under `lm_head.`."""
     out = {}
     for path, v in _flatten(tree).items():
         p = list(path)
         if p[0] == 'params':
             p = p[1:]
-        if p[0] == 'lm_head':
-            continue
         if p[:2] == ['layers', 'layer']:
             for i in range(v.shape[0]):
                 k, vi = _esm_entry(['layers', str(i)] + p[2:], v[i])
@@ -171,8 +178,9 @@ def esm_flax_to_state_dict(tree) -> Dict[str, np.ndarray]:
 def fair_esm_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """A fair-esm ESM2 `.pt` checkpoint -> the port's ESM2 state dict
     (counterpart of `abx_tpu/utils/torch_convert.py::convert_esm2_ckpt`):
-    the `encoder.` prefixes stripped, and the rotary buffers, contact head
-    and masked-LM head dropped."""
+    the `encoder.` prefixes stripped, the rotary buffers and contact head
+    dropped; the masked-LM head's entries (`lm_head.dense.*`,
+    `lm_head.layer_norm.*`, `lm_head.weight`, `lm_head.bias`) kept."""
     ckpt = torch.load(path, map_location='cpu', weights_only=True)
     sd = ckpt.get('model', ckpt)
     out = {}
@@ -183,17 +191,40 @@ def fair_esm_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return out
 
 
-def load_esm_params(module: torch.nn.Module, state, device, dtype) -> None:
-    """Load an ESM2 state dict (tensors or numpy arrays) into `module`, in
-    the compute dtype on `device` (frozen weights: bf16 halves the 3B
-    model's residency).  The module may live on the 'meta' device: the
-    loaded tensors take the place of its parameters.  Strict both ways."""
+def has_lm_head(state) -> bool:
+    """The ESM2 state dict carries the masked-LM head."""
+    return any(k.startswith(LM_HEAD) for k in state)
+
+
+def _load_strict(module, sd, device, dtype, what):
     sd = {k: (v if torch.is_tensor(v)
               else torch.from_numpy(np.array(v, np.float32))).to(
                   device=device, dtype=dtype)
-          for k, v in state.items()}
+          for k, v in sd.items()}
     missing, unexpected = module.load_state_dict(sd, strict=False,
                                                  assign=True)
     if missing or unexpected:
-        raise KeyError(f'ESM2 weight mismatch: missing={missing[:8]} '
+        raise KeyError(f'{what} weight mismatch: missing={missing[:8]} '
                        f'unexpected={unexpected[:8]}')
+
+
+def load_esm_params(module: torch.nn.Module, state, device, dtype) -> None:
+    """Load an ESM2 state dict (tensors or numpy arrays) into the encoder
+    `module`, in the compute dtype on `device` (frozen weights: bf16 halves
+    the 3B model's residency).  The module may live on the 'meta' device:
+    the loaded tensors take the place of its parameters.  Strict both ways
+    over the encoder's entries; the masked-LM head's (`lm_head.*`) are
+    `load_lm_head_params`'."""
+    _load_strict(module, {k: v for k, v in state.items()
+                          if not k.startswith(LM_HEAD)},
+                 device, dtype, 'ESM2')
+
+
+def load_lm_head_params(head: torch.nn.Module, state, device, dtype
+                        ) -> None:
+    """Load the `lm_head.*` entries of an ESM2 state dict into an
+    `ESM2LMHead`, strict both ways, as `load_esm_params` does; the tied
+    projection (`lm_head.weight`) is not loaded (see `_LM_TIED`)."""
+    _load_strict(head, {k[len(LM_HEAD):]: v for k, v in state.items()
+                        if k.startswith(LM_HEAD) and k != _LM_TIED},
+                 device, dtype, 'ESM2 LM head')

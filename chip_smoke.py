@@ -31,7 +31,9 @@ fatal on failure:
      recycle_embed take their weights packed, as the modules cache them;
      the row-linear cases, fused_transition and the gate-fold post print
      beside them the bare bf16 torch.matmul of their products as a
-     yardstick, recycle_embed a bare torch.add of two bf16 pair tensors),
+     yardstick, recycle_embed a bare torch.add of two bf16 pair tensors;
+     esm_attention also at the masked-PLL batches of phase 11, B=32, L=122
+     and B=8, L=109, no key padded, with its f32 call timed too),
      and row 1's attention core alone on ready projection rows beside
      SDPA; the bf16 core against the plain core with the TPU kernel's
      exponent (against the row's final max) on rows whose logits are exact
@@ -63,7 +65,7 @@ fatal on failure:
      seed 0, 4 samples, num_t 8) on testdata/6ct7_H_L_S.pdb: 4 PDBs with
      chains H, L, S and finite coordinates, every trunk kernel launched the
      expected number of times (and esm_attention never), wall time, seconds
-     per step, samples/hour;
+     per step, samples/hour; its output directory is kept for phase 11;
   6. the same design conditioned on ESM2-3B (random weights made on the
      card, runner.build_runtime(esm_random=True) + runner.run_sampling): 4
      PDBs, esm_attention launched 36 x 3 x (num_t + 1) times and the trunk
@@ -101,8 +103,21 @@ fatal on failure:
      and residues 30-35 of H's ATOM records dropped: H of the npz schema
      from complex_from_pdb(use_seqres=True) as long as the intact
      structure's, the 6 residues present and unobserved; 4 PDBs; the
-     trunk kernels as in phase 5.
-Each main path (phases 5, 6, 6b, 7, 8, 9, 10 and the trajectory run) is
+     trunk kernels as in phase 5;
+  11. the evaluation path on phase 5's 4 designs: cli/relax_pdb.py on the
+     card writes 4 `_relaxed.pdb` (chains H, L, S, finite coordinates,
+     the relaxer's energy and its bond + clash violation not above their
+     values before, every atom outside the CDRs unchanged; seconds per
+     structure); cli/eval_violations.py on
+     the card over them (4 finite rows) and cli/eval_metric.py over the
+     designs (4 rows of results.csv, finite full_rmsd, H3 AAR in [0, 1]);
+     masked PLL (evaluation/pll.py) of chains H and L of each design under
+     ESM2-t36-3B with its LM head in f32, random weights made on the card:
+     every PLL finite and <= 0, esm_attention launched 36 x the batches of
+     32 masked copies (the `eval_pll` path; every trunk kernel 0); then
+     cli/eval_pll.py on a random t12_35M-shaped fair-esm checkpoint with
+     its LM head: the CSV, esm_attention launched 12 x the same batches.
+Each main path (phases 5, 6, 6b, 7, 8, 9, 10, 11 and the trajectory run) is
 driven with the launch counts set to 0 just before it and read just
 after.  The lines
 before the last are the nvidia-smi card line and the kernels JSON (each
@@ -118,6 +133,7 @@ per source, all started together.  No JAX is imported.
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -189,6 +205,13 @@ def bound_ms(flops, nbytes):
             'operations' if t_ops >= t_bytes else 'bytes')
 
 
+def bound_ms_f32(flops, nbytes):
+    """bound_ms of an f32 call of a kernel whose f32 products run as
+    bf16x3 on the tensor cores (three bf16 products a product: the flash
+    core of csrc/flash_attention.cuh), its bytes at 4 a value."""
+    return bound_ms(3 * flops, nbytes)
+
+
 def kernel_cases(torch, dev):
     """One dict per case at the flagship shapes of one trunk pass (B=4,
     L=288, bf16 trunk) and of one ESM2-3B layer (B=4, L=306, 40 heads):
@@ -219,7 +242,7 @@ def kernel_cases(torch, dev):
 
     def case(name, label, kern, plain, a32, a16, reads, flops, library=None,
              env=None, plain16=None, one_launch=False, gemm=None,
-             kernel_name=None, stream=None, split=None):
+             kernel_name=None, stream=None, split=None, time32=False):
         """env: flags set while the case runs; plain16: the plain version
         the bf16 kernel is held to, where it differs from `plain`;
         one_launch: the wrapper must launch its kernel and no other device
@@ -232,13 +255,15 @@ def kernel_cases(torch, dev):
         the card streams at (not the same function); split: (kernel_name,
         launches) of a call that the wrapper cuts into several launches:
         under the profiler one call runs that kernel that many times and
-        nothing else but the split's layout copies and fills."""
+        nothing else but the split's layout copies and fills; time32: the
+        f32 call is timed too (kernel, plain, library and its bound), where
+        a main path runs the kernel in f32."""
         cases.append(dict(name=name, label=label, kern=kern, plain=plain,
                           a32=a32, a16=a16, reads=reads, flops=flops,
                           library=library, env=env or {}, plain16=plain16,
                           one_launch=one_launch, gemm=gemm,
                           kernel_name=kernel_name, stream=stream,
-                          split=split))
+                          split=split, time32=time32))
 
     def tri(label, r, c, h, exp_flag):
         x = rnd(b, r, l, c)
@@ -579,6 +604,23 @@ def kernel_cases(torch, dev):
          lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
              q, k, v, attn_mask=~pad[:, None, None, :], scale=1.0),
          one_launch=True)
+    # The masked-PLL batches (evaluation/pll.py, the eval_pll path, f32):
+    # 32 masked copies of a 120-residue chain (L = n + 2) and a last batch
+    # of 8 of a 107-residue one; no key padded.
+    for pb, pl in ((32, 122), (8, 109)):
+        q, k, v = ((rnd(pb, pl, h, d) * (d ** -0.5 if i == 0 else 1.0))
+                   .transpose(1, 2) for i in range(3))
+        nopad = torch.zeros(pb, pl, dtype=torch.bool, device=dev)
+        case('esm_attention', f'masked PLL ({pb},{h},{pl},{d}), no padded '
+             'key',
+             lambda q, k, v, m=nopad: esm_op.esm_attention(q, k, v, m),
+             lambda q, k, v, m=nopad: esm_op.esm_attention_plain(q, k, v, m),
+             (q, k, v), (low(q), low(k), low(v)), [nopad],
+             4 * pb * h * pl * pl * d,
+             lambda q, k, v, m=nopad:
+                 torch.nn.functional.scaled_dot_product_attention(
+                     q, k, v, attn_mask=~m[:, None, None, :], scale=1.0),
+             one_launch=True, time32=True)
     return cases
 
 
@@ -659,6 +701,15 @@ def phase_kernels(torch, dev):
         plain_ms = time_ms(torch, lambda: plain(*a16))
         lib_ms = (time_ms(torch, lambda: cs['library'](*a16))
                   if cs['library'] else None)
+        f32 = None
+        if cs['time32']:
+            nbytes32 = tensor_bytes([*a32, *cs['reads'], *got32])
+            bms32, by32 = bound_ms_f32(cs['flops'], nbytes32)
+            f32 = {'ms': time_ms(torch, lambda: kern(*a32)),
+                   'plain_ms': time_ms(torch, lambda: plain(*a32)),
+                   'library_ms': (time_ms(torch, lambda: cs['library'](*a32))
+                                  if cs['library'] else None),
+                   'bound_ms': bms32, 'bound_by': by32, 'bytes': nbytes32}
         gemm_ms = None
         if cs['gemm']:
             rows = a16[0].numel() // a16[0].shape[-1]
@@ -710,6 +761,13 @@ def phase_kernels(torch, dev):
               f'{plain_ms:.3f} ms{lib_txt}; bound {bms:.4f} ms by {by} '
               f'({cs["flops"] / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)',
               flush=True)
+        if f32 is not None:
+            lib32 = (f', library {f32["library_ms"]:.3f} ms'
+                     if f32['library_ms'] is not None else '')
+            print(f'kernel {name} {label}: f32 kernel {f32["ms"]:.3f} ms, '
+                  f'plain {f32["plain_ms"]:.3f} ms{lib32}; bound '
+                  f'{f32["bound_ms"]:.4f} ms by {f32["bound_by"]} (products '
+                  f'as bf16x3, {f32["bytes"] / 1e6:.1f} MB)', flush=True)
         entry = results.setdefault(name, {'cases': []})
         entry['cases'].append({
             'case': label, 'max_abs_err': abs16, 'rel_err_bf16': e16,
@@ -717,6 +775,8 @@ def phase_kernels(torch, dev):
             'library_ms': lib_ms, 'bound_ms': bms, 'bound_by': by,
             'flops': cs['flops'], 'bytes': nbytes,
             'gemm_yardstick_ms': gemm_ms, 'stream_yardstick_ms': stream_ms})
+        if f32 is not None:
+            entry['cases'][-1]['f32'] = f32
         if cs['one_launch'] or cs['split']:
             entry['cases'][-1]['device_kernels_per_call'] = launched
             entry['cases'][-1]['device_ms_per_call'] = dev_ms
@@ -1370,13 +1430,16 @@ def design_stats(log, wall, card, what):
             'samples_per_hour': sph}
 
 
-def phase_design(torch, card, env=None, per_pass=PER_PASS, what='design'):
+def phase_design(torch, card, env=None, per_pass=PER_PASS, what='design',
+                 keep=None):
     """The ESM-off design path, through the design CLI, with the kernel
-    flags `env` (phase 8: ABX_TRIMULT_C_MAJOR=1)."""
+    flags `env` (phase 8: ABX_TRIMULT_C_MAJOR=1); its output directory is
+    `keep` where given (phase 11 evaluates phase 5's designs)."""
     from abx_tpu_torch.cli import design
     ws = wrappers()
     expected = {k: n * PASSES for k, n in per_pass.items()}
-    with tempfile.TemporaryDirectory() as out:
+    with tempfile.TemporaryDirectory() as tmp:
+        out = keep or tmp
         argv = ['--pdb_file', PDB, '--output_dir', out, '--model_config',
                 MODEL_CONFIG, '--seed', '0', '--bf16', '--device', 'cuda',
                 '--num_samples', str(NUM_SAMPLES), '--batch_samples',
@@ -1734,6 +1797,184 @@ def phase_seqres(torch, card):
     return launches, stats
 
 
+PLL_BATCH = 32      # phase 11: masked positions a batch (evaluation/pll.py)
+
+
+def non_cdr_coords(path):
+    """Coordinates of every present atom outside the CDRs of H and L, and of
+    the antigen S, in file order."""
+    import numpy as np
+    from abx_tpu_torch.common import residue_constants as rc
+    from abx_tpu_torch.data.pdb_io import parse_pdb
+    from abx_tpu_torch.preprocess.numbering import annotate_domain
+    chains = parse_pdb(path)
+    out = []
+    for cid in ('H', 'L', 'S'):
+        ch = chains[cid]
+        keep = np.ones(len(ch.str_seq), bool)
+        ann = annotate_domain(ch.str_seq, cid) if cid != 'S' else None
+        if ann is not None:
+            cdr = np.isin(ann.cdr_def, list(rc.cdr_str_to_enum.values()))
+            keep[ann.start:ann.end] = ~cdr
+        out.append(ch.coords[keep][ch.coord_mask[keep]])
+    return np.concatenate(out)
+
+
+def random_lm_checkpoint(torch, path, cfg):
+    """A fair-esm-style `.pt` of an ESM2 of shape `cfg` with its masked-LM
+    head (torch's default init from seed 0), the head's projection tied to
+    the token embedding as fair-esm saves it."""
+    from abx_tpu_torch.models.esm import ESM2, ESM2LMHead
+    torch.manual_seed(0)
+    enc, head = ESM2(cfg), ESM2LMHead(cfg)
+    sd = dict(enc.state_dict())
+    sd.update({f'lm_head.{k}': v for k, v in head.state_dict().items()})
+    sd['lm_head.weight'] = sd['embed_tokens.weight']
+    torch.save({'model': sd}, path)
+
+
+def phase_eval(torch, card, out):
+    """Phase 11: the evaluation path on phase 5's designs (`out/design`,
+    with `reference/`): relax, violations and metrics, ESM2-3B masked PLL
+    through the library, and the PLL CLI on a small checkpoint."""
+    import csv
+    import math
+    import numpy as np
+    from abx_tpu_torch.cli import (eval_metric, eval_pll, eval_violations,
+                                   relax_pdb)
+    from abx_tpu_torch.data.pdb_io import parse_pdb
+    from abx_tpu_torch.evaluation.pll import masked_pll
+    from abx_tpu_torch.models.esm import ESM2, ESM2Config, ESM2LMHead
+    design = os.path.join(out, 'design')
+    relaxed = os.path.join(out, 'relaxed')
+    names = [os.path.join(f'{i:04d}', '6ct7_H_L_S') for i in
+             range(NUM_SAMPLES)]
+    ws = wrappers()
+    stats, paths = {}, {}
+
+    # 1. The gradient relaxer on the card, on the 4 designs.
+    t0 = time.time()
+    done = relax_pdb.main(['--data_dir', design, '--output_dir', relaxed,
+                           '--device', 'cuda'])
+    torch.cuda.synchronize()
+    per = (time.time() - t0) / NUM_SAMPLES
+    if len(done) != NUM_SAMPLES:
+        fail(f'relax_pdb relaxed {len(done)} of {NUM_SAMPLES} designs')
+    for name in names:
+        src = os.path.join(design, name + '.pdb')
+        dst = os.path.join(relaxed, name + '_relaxed.pdb')
+        if not os.path.exists(dst):
+            fail(f'relax_pdb wrote no {dst}')
+        check_pdb(dst)
+        # The relaxer minimises 10 (bond + clash) + restraint, the restraint
+        # 0 before: energy and bond + clash must not rise.  A term alone
+        # may (the clash rose 4.79e-6 -> 5.46e-6 on one design as its
+        # energy fell 37.60 -> 32.84; as in the JAX package's relaxer).
+        m = done[src]
+        if not (m['energy_after'] <= m['energy_before']
+                and m['bond_after'] + m['clash_after']
+                <= m['bond_before'] + m['clash_before']):
+            fail(f'relax of {src}: {m}')
+        before, after = non_cdr_coords(src), non_cdr_coords(dst)
+        if before.shape != after.shape or not np.array_equal(before, after):
+            fail(f'relax of {src} moved atoms outside the CDRs')
+    energy = [(m['energy_before'], m['energy_after'],
+               m['clash_before'], m['clash_after']) for m in done.values()]
+    print(f'relax (200 Adam steps, f32) on {card}: {per:.2f} s per '
+          f'structure; (energy, clash) before -> after: '
+          + '; '.join(f'({a:.5g}, {c:.4g}) -> ({b:.5g}, {d:.4g})'
+                      for a, b, c, d in energy), flush=True)
+    stats['relax_s_per_structure'] = per
+    stats['relax_metrics'] = list(done.values())
+
+    # 2. Violations of the relaxed files, metrics of the designs.
+    vio_csv = os.path.join(out, 'violations.csv')
+    eval_violations.main(['--data_dir', relaxed, '--output_csv', vio_csv,
+                          '--device', 'cuda'])
+    with open(vio_csv, newline='') as f:
+        vio = list(csv.DictReader(f))
+    if len(vio) != NUM_SAMPLES or not all(
+            math.isfinite(float(r[k])) for r in vio
+            for k in ('total', 'bond', 'clash', 'within')):
+        fail(f'eval_violations: {vio}')
+    res_csv = os.path.join(out, 'results.csv')
+    eval_metric.main(['--data_dir', design, '--output_csv', res_csv])
+    with open(res_csv, newline='') as f:
+        res = list(csv.DictReader(f))
+    if len(res) != NUM_SAMPLES or not all(
+            math.isfinite(float(r['full_rmsd']))
+            and 0.0 <= float(r['h3_aar']) <= 1.0 for r in res):
+        fail(f'eval_metric: {res}')
+    stats['violations'] = vio
+    stats['metrics'] = [{k: r[k] for k in ('name', 'full_rmsd', 'h3_rmsd',
+                                           'h3_aar')} for r in res]
+    print(f'eval_violations and eval_metric: {len(vio)} and {len(res)} rows; '
+          f'full_rmsd {[round(float(r["full_rmsd"]), 3) for r in res]}, '
+          f'h3_aar {[round(float(r["h3_aar"]), 3) for r in res]}',
+          flush=True)
+
+    # 3. Full-width masked PLL: ESM2-t36-3B with its LM head in f32, random
+    # weights made on the card (0.02 N(0, 1), as runner._random_esm).
+    torch.cuda.empty_cache()
+    dev = torch.device('cuda')
+    cfg = ESM2Config.t36_3B()
+    esm = ESM2(cfg, torch.float32, device='meta').to_empty(device=dev)
+    head = ESM2LMHead(cfg, torch.float32, device='meta').to_empty(device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        for prm in [*esm.parameters(), *head.parameters()]:
+            prm.normal_(0.0, 0.02, generator=g)
+    esm.eval()
+    chains = [parse_pdb(os.path.join(design, n + '.pdb')) for n in names]
+    seqs = [c[cid].str_seq for c in chains for cid in ('H', 'L')]
+    batches = sum(-(-len(sq) // PLL_BATCH) for sq in seqs)
+    reset_counts(ws)
+    t0 = time.time()
+    plls = [masked_pll(esm, lambda f: head(f, esm.embed_tokens.weight), sq)
+            for sq in seqs]
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    paths['eval_pll'] = read_counts(ws)
+    check_launches(paths['eval_pll'],
+                   {'esm_attention': cfg.num_layers * batches},
+                   'eval_pll (ESM2-3B, f32)')
+    if not all(math.isfinite(x) and x <= 0.0 for x in plls):
+        fail(f'masked PLL: {plls}')
+    print(f'masked PLL, ESM2-t36-3B f32 on {card}: {len(seqs)} chains '
+          f'(lengths {[len(sq) for sq in seqs]}), {batches} batches, '
+          f'{wall:.2f} s, {wall / len(seqs):.3f} s per chain; PLL '
+          f'{[round(x, 4) for x in plls]}', flush=True)
+    stats['pll_s_per_chain'] = wall / len(seqs)
+    stats['pll'] = plls
+    del esm, head
+    torch.cuda.empty_cache()
+
+    # 4. The PLL CLI on a random t12_35M-shaped fair-esm checkpoint.
+    small = ESM2Config.t12_35M()
+    with tempfile.TemporaryDirectory() as d:
+        pt = os.path.join(d, 'esm2_t12_35M_random.pt')
+        random_lm_checkpoint(torch, pt, small)
+        pll_csv = os.path.join(out, 'pll.csv')
+        reset_counts(ws)
+        t0 = time.time()
+        rows = eval_pll.main(['--data_dir', design, '--esm_checkpoint', pt,
+                              '--num_layers', str(small.num_layers),
+                              '--embed_dim', str(small.embed_dim),
+                              '--output_csv', pll_csv, '--device', 'cuda'])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    paths['eval_pll_cli'] = read_counts(ws)
+    check_launches(paths['eval_pll_cli'],
+                   {'esm_attention': small.num_layers * batches},
+                   'eval_pll CLI (t12_35M shape, f32)')
+    if not os.path.exists(pll_csv) or len(rows) != len(seqs) or not all(
+            math.isfinite(r['pll']) and r['pll'] <= 0.0 for r in rows):
+        fail(f'eval_pll CLI: {rows}')
+    print(f'eval_pll CLI (t12_35M shape, f32): {len(rows)} rows in '
+          f'{wall:.2f} s incl. loading', flush=True)
+    return paths, stats
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, 'abx_tpu_torch')):
         fail('abx_tpu_torch/ not found beside chip_smoke.py: run it from a '
@@ -1766,7 +2007,9 @@ def main():
     flags = phase_flags(torch, dev)
     esm_flags = phase_esm_flags(torch, dev)
     paths, stats = {}, {}
-    paths['design_esm_off'], stats['design'] = phase_design(torch, card)
+    design_out = tempfile.mkdtemp(prefix='chip_smoke_design_')
+    paths['design_esm_off'], stats['design'] = phase_design(
+        torch, card, keep=design_out)
     paths['design_esm_on'], stats['design_esm'], rt_esm, complexes = \
         phase_design_esm(torch, card)
     paths['design_esm_reuse'], stats['design_esm_reuse'] = \
@@ -1784,6 +2027,9 @@ def main():
     paths['design_c_major'], stats['design_c_major'] = phase_design(
         torch, card, C_MAJOR, C_MAJOR_PER_PASS, 'design (ABX_TRIMULT_C_MAJOR)')
     paths['design_seqres'], stats['design_seqres'] = phase_seqres(torch, card)
+    eval_paths, stats['eval'] = phase_eval(torch, card, design_out)
+    paths.update(eval_paths)
+    shutil.rmtree(design_out)
 
     rows = []
     for name, (source, replaces) in KERNEL_META.items():

@@ -653,6 +653,23 @@ def test_esm_attention_kernel_matches_plain(cuda, shape, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b, l', [(32, 122), (8, 109)])
+def test_esm_attention_kernel_takes_the_pll_shapes(cuda, b, l, dtype):
+    """The masked-PLL batches (`evaluation/pll.py`) at ESM2-3B's heads: 32
+    masked copies of a 120-residue chain (L = n + 2) and a last batch of 8
+    of a 107-residue one, no key padded, in f32 (the PLL CLI's dtype) and
+    bf16."""
+    qkv, _ = _esm_case(15, b, 40, l, 64, True)
+    qkv = [a.to(cuda) for a in qkv]
+    pad = torch.zeros(b, l, dtype=torch.bool, device=cuda)
+    want = esm_op.esm_attention_plain(*qkv, pad)
+    got = esm_op.esm_attention(*[a.to(dtype) for a in qkv], pad)
+    torch.cuda.synchronize()
+    _close_on_card(got, want, dtype)
+
+
+@pytest.mark.gpu
 def test_esm_attention_launches_one_device_kernel(cuda):
     """With a bool padding mask the wrapper launches its kernel and nothing
     else: the key-pad bias is read by the kernel, not built per call."""

@@ -4,7 +4,8 @@ give the same results.
 
 The import check runs in a subprocess in which `abx_tpu`, `jax`, `flax`
 and `ml_collections` cannot be imported: every module under
-`abx_tpu_torch/` and `chip_smoke.py` are imported there, the design CLI
+`abx_tpu_torch/` (the evaluation subpackage and its CLIs included) and
+`chip_smoke.py` are imported there, the design CLI
 makes one tiny CPU sample, and the test-set CLI (`cli/inference.py`) one
 tiny CPU optimize sample from an npz the port writes itself.  The data
 check holds the port's `prepare_example` to the JAX package's on the
@@ -39,6 +40,8 @@ mods = [m.name for m in pkgutil.walk_packages(abx_tpu_torch.__path__,
                                                'abx_tpu_torch.')]
 for m in mods:
     importlib.import_module(m)
+assert {{'abx_tpu_torch.evaluation.relax', 'abx_tpu_torch.evaluation.pll',
+         'abx_tpu_torch.cli.eval_pll'}} <= set(mods), mods
 import chip_smoke
 import numpy as np
 from abx_tpu_torch.cli import design, inference
