@@ -41,7 +41,9 @@ def main(argv: Optional[List[str]] = None):
     p.add_argument('--mode', type=str, default='design',
                    choices=['design', 'optimize', 'trajectory'])
     p.add_argument('--model', type=str, default=None,
-                   help='flax msgpack checkpoint of the JAX package')
+                   help='trunk weights: a flax msgpack checkpoint of the '
+                        'JAX package, or the weights file the port\'s '
+                        'trainer writes (cli/train.py: params.pt)')
     p.add_argument('--model_config', type=str, default=None)
     p.add_argument('--num_samples', type=int, default=100)
     p.add_argument('--num_t', type=int, default=None)

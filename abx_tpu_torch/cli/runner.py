@@ -30,6 +30,7 @@ from abx_tpu_torch.sampling.output import (postprocess_reference,
                                            postprocess_trajectory)
 from abx_tpu_torch.sampling.sampler import (Sampler, SamplerConfig,
                                             to_device_batch)
+from abx_tpu_torch.utils import checkpoint as ckpt_lib
 from abx_tpu_torch.utils import params as params_lib
 
 logger = logging.getLogger(__name__)
@@ -64,7 +65,9 @@ def build_runtime(model_config_path: Optional[str] = None,
                   esm_random: bool = False,
                   esm_layers: Optional[int] = None,
                   esm_dim: Optional[int] = None) -> Runtime:
-    """`esm_checkpoint` (a msgpack of the JAX package's ESM2 tree, or a
+    """`checkpoint_path`: the trunk's weights, a flax msgpack of the JAX
+    package or a weights file of the port's trainer (`train/trainer.py`).
+    `esm_checkpoint` (a msgpack of the JAX package's ESM2 tree, or a
     fair-esm `.pt`) or `esm_random` (a full-shape ESM2 with random weights,
     for speed and memory studies) turns ESM conditioning on; `esm_layers`
     and `esm_dim` override the ESM2 shape."""
@@ -96,7 +99,12 @@ def build_runtime(model_config_path: Optional[str] = None,
     dtype = torch.bfloat16 if bf16 else torch.float32
     model = ScoreNetworkIteration(cfg.model, diffuser,
                                   cfg.data.max_antibody_len, dtype=dtype)
-    if checkpoint_path:
+    if checkpoint_path and ckpt_lib.is_torch_checkpoint(checkpoint_path):
+        # The weights file of the port's trainer (its EMA weights, or a
+        # `.raw`): a state dict by the port's names.
+        model.load_state_dict(ckpt_lib.load_params(checkpoint_path))
+        logger.info('loaded checkpoint %s', checkpoint_path)
+    elif checkpoint_path:
         params_lib.load_flax_params(model,
                                     params_lib.read_msgpack(checkpoint_path))
         logger.info('loaded checkpoint %s', checkpoint_path)

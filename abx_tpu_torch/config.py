@@ -148,6 +148,53 @@ def model_config() -> Cfg:
                 'metric': {},
             },
         },
+        'loss': {
+            'diffusion_rigids': {
+                'enabled': True,
+                'config': {
+                    'coordinate_scaling': 0.1,
+                    'trans_loss_weight': 1.0,
+                    'rot_loss_weight': 0.5,
+                    'rot_loss_t_threshold': 0.2,
+                    'separate_rot_loss': True,
+                    'trans_x0_t_threshold': 1.0,
+                },
+                'weight': 1.0,
+            },
+            'diffusion_seq': {
+                'enabled': True,
+                # exact_elbo: the exact tau-leaping CTMC ELBO
+                # (train/losses.py ctmc_elbo_terms) in place of the
+                # surrogate CE.
+                'config': {'ratio_eps': 1e-9, 'nll_weight': 1,
+                           'exact_elbo': False},
+                'weight': 0.2,
+            },
+            'folding': {
+                'enabled': True,
+                'config': {
+                    't_filter': 0.25,
+                    'backbone_fape_weight': 0.5,
+                    'fape': {
+                        'weight': 1.0, 'fape_min': 1e-6,
+                        'loss_unit_distance': 10.0, 'clamp_distance': 10.0,
+                        'unclamped_ratio': 0.1},
+                    'interface_fape': {
+                        'interface_weight': 0.5,
+                        'loss_unit_distance': 20.0, 'clamp_distance': 30.0},
+                    'violation_tolerance_factor': 12,
+                    'structural_violation_loss_weight': 0.03,
+                    'clash_overlap_tolerance': 1.5,
+                    'between_chain_factor': 0.2,
+                    'average_clashes': True,
+                },
+                'weight': 1.0,
+            },
+            'distogram': {
+                'enabled': True, 'config': {'t_filter': 0.25}, 'weight': 0.5},
+            'predicted_lddt': {
+                'enabled': True, 'config': {'t_filter': 0.25}, 'weight': 0.1},
+        },
         'diffuser': {
             'inference_step': 100,
             'diffuse': {

@@ -176,9 +176,12 @@ def make_diffuser_features(batch, diffuser=None, generate_area='H3',
                            is_training=False):
     """Fixed/diffused masks + the initial noisy state.
 
-    Modes: 'design' (the t=1 reference sample, fixed residues imputed) and
-    'optimize' (the forward marginal at t = t_value, fixed residues kept).
-    The training mode is not ported yet."""
+    Modes: 'train' (the forward marginal at t ~ U[0.01, 1) per example;
+    with `is_training`, the diffused CDRs are the jittered random subset
+    of `select_cdrs_mask`), 'design' (the t=1 reference sample, fixed
+    residues imputed) and 'optimize' (the forward marginal at t = t_value,
+    fixed residues kept).  All draws come from `generator`: in 'train' the
+    CDR subset first, then t, then the noise."""
     if diffuser is None or generator is None:
         raise ValueError('make_diffuser_features needs a diffuser and a '
                          'generator')
@@ -192,8 +195,9 @@ def make_diffuser_features(batch, diffuser=None, generate_area='H3',
         cdr_enums = list(rc.cdr_str_to_enum.values())
     else:
         cdr_enums = [rc.cdr_str_to_enum[generate_area]]
-    diffused_mask = select_cdrs_mask(anchor_flag, antibody_len, cdr_enums,
-                                     batch['mask'])
+    diffused_mask = select_cdrs_mask(
+        anchor_flag, antibody_len, cdr_enums, batch['mask'],
+        generator=generator if (is_training and mode == 'train') else None)
     diffused_mask = diffused_mask * batch['mask'].long()
     fixed_mask = 1 - diffused_mask
     d = diffused_mask[:, :antibody_len]
@@ -201,7 +205,11 @@ def make_diffuser_features(batch, diffuser=None, generate_area='H3',
         d + torch.roll(d, 1, dims=-1) + torch.roll(d, -1, dims=-1), 0, 1)
     struc_loss_mask = batch['mask'].long().clone()
     struc_loss_mask[:, :antibody_len] = dilated
-    if mode == 'design':
+    if mode == 'train':
+        t = 0.01 + 0.99 * torch.rand((b,), generator=generator, device=dev)
+        feats = diffuser.forward_marginal(generator, rigids_0, seq_0, t,
+                                          diffused_mask)
+    elif mode == 'design':
         t = torch.ones((b,), device=dev)
         feats = diffuser.sample_ref(generator, rigids_0.shape[:2],
                                     impute_rigids=rigids_0, impute_seq=seq_0,

@@ -114,8 +114,9 @@ class ESMLayerNorm(nn.Module):
                                              device=device))
         self.eps = eps
 
-    def forward(self, x):
-        return layer_norm(x, self.weight, self.bias, self.eps)
+    def forward(self, x, two_pass: bool = False):
+        return layer_norm(x, self.weight, self.bias, self.eps,
+                          two_pass=two_pass)
 
 
 class ESMSelfAttention(nn.Module):
@@ -168,11 +169,15 @@ class ESMLayer(nn.Module):
         self.fc2 = nn.Linear(4 * d, d, **kw)
 
     def forward(self, x, padding_mask, cos, sin):
+        # In training the two LNs take the two-pass variance, as the JAX
+        # trainer's `two_pass_layer_norm()` gives them (ESM's final LN is
+        # a flax LayerNorm there, which the context does not reach).
         dt = self.dtype
-        y = self.self_attn(self.self_attn_layer_norm(x).to(dt), padding_mask,
-                           cos, sin)
+        tp = self.training
+        y = self.self_attn(self.self_attn_layer_norm(x, tp).to(dt),
+                           padding_mask, cos, sin)
         x = x + y
-        y = F.gelu(self.fc1(self.final_layer_norm(x).to(dt)))
+        y = F.gelu(self.fc1(self.final_layer_norm(x, tp).to(dt)))
         return x + self.fc2(y)
 
 
@@ -224,13 +229,19 @@ class ESM2(nn.Module):
             acc = lw[0] * x.float()
         reprs = [x] if not (weighted or final_only) else None
         for i, layer in enumerate(self.layers):
-            x = layer(x, padding_mask, cos, sin)
+            # ESM is frozen: its layers never enter the autograd graph.
+            # Only the weighted sum does, so the gradient of layer weight
+            # i is the representation x_i (and that of the last, the
+            # post-LN final).
+            with torch.no_grad():
+                x = layer(x, padding_mask, cos, sin)
             if weighted:
                 acc = acc + lw[i + 1] * x.float()
             if reprs is not None:
                 reprs.append(x)
         # The final LN applies to the last layer's representation only.
-        final = self.emb_layer_norm_after(x).to(dt)
+        with torch.no_grad():
+            final = self.emb_layer_norm_after(x).to(dt)
         if weighted:
             # acc holds w[-1] * x_raw; swap in the post-LN final.
             return acc + lw[-1] * (final.float() - x.float())

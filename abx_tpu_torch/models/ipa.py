@@ -3,11 +3,15 @@
 Counterpart of abx_tpu/models/ipa.py: 8 shared-weight IPA layers over the
 noisy rigids, per-layer affine updates with fixed-residue snap-back, and
 rotation/translation scores through the diffuser's closed forms.  The point
-attention runs in f32.  On the card, with ABX_FUSED_IPA_ATTN on, the
-logits, softmax and the three attends run in the hand-written kernel
-(`ops/ipa_attention.py`); it masks keys only, the plain path also masks
-query rows.  With it off and ABX_IPA_ATTEND on, the attend over the pair
-track runs in its own kernel (`ops/ipa_attend.py`).
+attention runs in f32.  In eval mode on the card, with ABX_FUSED_IPA_ATTN
+on, the logits, softmax and the three attends run in the hand-written
+kernel (`ops/ipa_attention.py`); it masks keys only, the plain path also
+masks query rows.  With it off and ABX_IPA_ATTEND on, the attend over the
+pair track runs in its own kernel (`ops/ipa_attend.py`).  In train() mode
+both kernels are off, dropout follows the IPA and the transition, the
+rotations are detached between layers (the reference's no-grad rots;
+`delta_quat` keeps its gradient), and the output carries the per-layer
+frames (`traj`) that the FAPE loss reads.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ import torch.nn.functional as F
 
 from abx_tpu_torch.geometry import quat as quat_ops
 from abx_tpu_torch.geometry.rigid import Rigid
-from abx_tpu_torch.models.modules import LayerNorm, Linear, fused_dense
+from abx_tpu_torch.models.modules import (LayerNorm, Linear, fused_dense,
+                                          shared_dropout)
 from abx_tpu_torch.ops import registry
 from abx_tpu_torch.ops.ipa_attend import ipa_pair_attend
 from abx_tpu_torch.ops.ipa_attention import ipa_attention
@@ -91,7 +96,8 @@ class InvariantPointAttention(nn.Module):
         k_point = k_point - center
         pw = -0.5 * point_weights * F.softplus(self.trainable_point_weights)
 
-        if registry.on_device(inputs_1d) and registry.use_fused_ipa_attention():
+        kernels = registry.kernel_route(self, inputs_1d)
+        if kernels and registry.use_fused_ipa_attention():
             result_scalar, rp_global, result_2d = ipa_attention(
                 q_scalar * scalar_weights, k_scalar, v_scalar, q_point,
                 k_point, v_point, pw, pair_bias, mask, inputs_2d)
@@ -114,8 +120,7 @@ class InvariantPointAttention(nn.Module):
                                          v_scalar).reshape(b, l, h * nsv)
             result_point_global = torch.einsum(
                 'bhij,bjhnr->bihnr', attn, v_point).reshape(b, l, h * npv, 3)
-            if (registry.on_device(inputs_2d)
-                    and registry.use_ipa_attend_kernel()):
+            if kernels and registry.use_ipa_attend_kernel():
                 result_2d = ipa_pair_attend(attn, inputs_2d)
             else:
                 result_2d = torch.einsum(
@@ -187,7 +192,8 @@ class IpaScore(nn.Module):
         self.affine_update = Linear(nc, 6, 'final', dtype=dtype)
         self.torsion_module = TorsionModule(c.torsion, nc, dtype=dtype)
 
-    def forward(self, representations, batch):
+    def forward(self, representations, batch, generator=None):
+        """`generator` draws the dropout in train() mode."""
         c = self.config.IPA
         ps = c.position_scale
         b, l = batch['seq_t'].shape
@@ -216,17 +222,23 @@ class IpaScore(nn.Module):
             m = (1.0 - fixed_mask)[..., None]
             return m * diff + (1.0 - m) * fixed
 
+        def dropout(x):
+            if not self.training:
+                return x
+            return shared_dropout(x, c.dropout, generator)
+
+        traj = []
         for it in range(c.num_layer):
             rig = Rigid(curr_rots, curr_trans)
             seq_act = seq_act + self.ipa(seq_act, pair_act, node_mask, rig,
                                          pair_bias)
-            seq_act = self.attention_norm(seq_act)
+            seq_act = self.attention_norm(dropout(seq_act))
             res = seq_act
             for k, layer in enumerate(transition):
                 res = layer(res)
                 if k < len(transition) - 1:
                     res = torch.relu(res)
-            seq_act = self.transition_norm(seq_act + res)
+            seq_act = self.transition_norm(dropout(seq_act + res))
 
             update = self.affine_update(seq_act).float()
             quat_update, trans_update = update[..., :3], update[..., 3:]
@@ -236,6 +248,10 @@ class IpaScore(nn.Module):
             curr_quats = apply_mask(curr_quats, init_quats)
             curr_trans = apply_mask(curr_trans, init_trans / ps)
             curr_rots = quat_ops.quat_to_rot(curr_quats)
+            traj.append(Rigid(curr_rots, curr_trans * ps))
+            if it < c.num_layer - 1:
+                curr_rots = curr_rots.detach()
+                curr_quats = curr_quats.detach()
 
         unnorm_angles = self.torsion_module(seq_act, initial_seq_act).float()
         angles = unnorm_angles / torch.sqrt(torch.sum(
@@ -253,6 +269,7 @@ class IpaScore(nn.Module):
         trans_score = self.diffuser.calc_trans_score(init_trans,
                                                      curr_trans * ps, t)
         return {
+            'traj': traj,
             'angles_sin_cos': angles,
             'unnormalized_angles_sin_cos': unnorm_angles,
             'trans_score': trans_score,

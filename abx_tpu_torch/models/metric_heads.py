@@ -4,9 +4,8 @@ Counterpart of `abx_tpu/models/metric_heads.py`.  Parity surface: the
 reference's abx/model/head.py:82-141 (MetricDictHead, TMscoreHead) backed
 by abx/utils.py (Kabsch :412, TMscore :562, contact_precision :765).  Both
 are parameter-free observability heads run only on `compute_loss=True`
-passes; their outputs land in the trainer's metrics dict.  They are
-functions here; wiring them into the network's loss pass waits for the
-training port.
+passes (`models/network.py`); their outputs land in the trainer's
+metrics dict.
 
 As in the JAX package: the per-example Kabsch is batched (one batched 3x3
 SVD with the determinant sign fix, in place of the JAX `vmap`), and the

@@ -70,12 +70,21 @@ class Linear(nn.Linear):
 
 
 def layer_norm(x, scale, bias, eps: float = 1e-5,
-               dtype: torch.dtype = torch.float32):
-    """LayerNorm in f32 with one-pass moments and a max(var, 0) clamp."""
+               dtype: torch.dtype = torch.float32, two_pass: bool = False):
+    """LayerNorm in f32.
+
+    One-pass moments (E[x^2] - E[x]^2, clamped at 0) by default: one read
+    of x, the inference form.  `two_pass` takes the variance as
+    E[(x - mean)^2], which keeps its precision where |mean| >> std; the
+    modules ask for it in training (`self.training`), as the JAX trainer
+    traces its loss under `two_pass_layer_norm()`."""
     x32 = x.float()
     mean = x32.mean(dim=-1, keepdim=True)
-    meansq = torch.square(x32).mean(dim=-1, keepdim=True)
-    var = torch.clamp(meansq - torch.square(mean), min=0.0)
+    if two_pass:
+        var = torch.square(x32 - mean).mean(dim=-1, keepdim=True)
+    else:
+        meansq = torch.square(x32).mean(dim=-1, keepdim=True)
+        var = torch.clamp(meansq - torch.square(mean), min=0.0)
     out = (x32 - mean) * torch.rsqrt(var + eps)
     return (out * scale + bias).to(dtype)
 
@@ -98,7 +107,8 @@ class LayerNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x):
-        return layer_norm(x, self.scale, self.bias, self.eps, self.dtype)
+        return layer_norm(x, self.scale, self.bias, self.eps, self.dtype,
+                          two_pass=self.training)
 
 
 class MLP(nn.Module):
@@ -160,6 +170,24 @@ def fused_dense(x, linears: Sequence[Linear], dtype):
         b = None
     y = F.linear(x.to(dtype), w, b)
     return torch.split(y, [m.out_features for m in linears], dim=-1)
+
+
+def shared_dropout(x, rate: float, generator: Optional[torch.Generator],
+                   broadcast_dim: Optional[int] = None):
+    """Dropout whose keep mask is drawn from `generator` (on x's device)
+    and, with `broadcast_dim`, shared along that axis (AF2 row / column
+    dropout): kept values scaled by 1 / (1 - rate).  The callers apply it
+    in training only; rate 0 returns x and draws nothing."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError('dropout in training needs a torch.Generator')
+    shape = list(x.shape)
+    if broadcast_dim is not None:
+        shape[broadcast_dim] = 1
+    keep = torch.rand(shape, generator=generator, device=x.device) \
+        < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def get_timestep_embedding(timesteps, embedding_dim: int,

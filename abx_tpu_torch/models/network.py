@@ -1,9 +1,10 @@
 """Top-level score network with recycling.
 
 Counterpart of abx_tpu/models/network.py: `ScoreNetworkIteration` (trunk +
-ordered heads) and `forward_with_recycling`, which runs `num_recycle`
+ordered heads, and with `compute_loss` the distogram and metric heads of
+the loss pass) and `forward_with_recycling`, which runs `num_recycle`
 no-grad passes feeding back prev_pos / prev_seq / prev_pair and the
-predicted sequence, then the final pass.
+predicted sequence, then the final pass in the caller's grad mode.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 import torch.nn as nn
 
 from abx_tpu_torch.geometry import frames as frame_ops
+from abx_tpu_torch.models import metric_heads
 from abx_tpu_torch.models.heads import (DistogramHead, PredictedLDDTHead,
                                         SequenceHead, rebuild_atoms)
 from abx_tpu_torch.models.ipa import IpaScore
@@ -81,43 +83,56 @@ class ScoreNetworkIteration(nn.Module):
     def esm_layer_weights(self):
         return self.seqformer.esm_layer_weights()
 
-    def forward(self, batch, static_acts=None, esm_fn=None):
+    def forward(self, batch, static_acts=None, esm_fn=None,
+                compute_loss: bool = False, generator=None):
+        """One pass.  `compute_loss` adds the distogram head, the contact
+        metrics (when the batch has `pseudo_beta`) and the TM-score;
+        `generator` draws the dropout in train() mode."""
         seq_act, pair_act = self.seqformer(batch, static_acts=static_acts,
-                                           esm_fn=esm_fn)
+                                           esm_fn=esm_fn, generator=generator)
         representations = {'seq': seq_act, 'pair': pair_act}
-        folding = self.diffusion_module(representations, batch)
+        folding = self.diffusion_module(representations, batch, generator)
         seq_out = self.sequence_module(folding['structure_act'], batch)
         folding.update(rebuild_atoms(seq_out['seq_0'], folding['rigids'],
                                      folding['angles_sin_cos'], batch))
-        return {
-            'representations': representations,
-            'heads': {
-                'folding': folding,
-                'sequence_module': seq_out,
-                'predicted_lddt': self.predicted_lddt(
-                    folding['structure_act']),
-            },
+        heads = {
+            'folding': folding,
+            'sequence_module': seq_out,
+            'predicted_lddt': self.predicted_lddt(folding['structure_act']),
         }
+        if compute_loss:
+            heads['distogram'] = self.distogram(pair_act)
+            if 'pseudo_beta' in batch:
+                heads['metric'] = metric_heads.metric_dict_head(
+                    heads['distogram'], batch,
+                    self.config.heads.get('metric', None))
+            heads['tmscore'] = metric_heads.tmscore_head(folding, batch)
+        return {'representations': representations, 'heads': heads}
 
 
-@torch.no_grad()
 def forward_with_recycling(apply_single, batch, num_recycle: int,
-                           prev_pos_cfg):
-    """`num_recycle` recycle passes, then the final pass.
+                           prev_pos_cfg, compute_loss: bool = False):
+    """`num_recycle` recycle passes without grad (the JAX package's
+    stop_gradients on prev_* and seq_t), then the final pass in the
+    caller's grad mode, the only one given `compute_loss`.
 
-    apply_single: fn(batch) -> outputs of ONE pass.  The returned dict
-    carries `recycled_seq_t`, the seq_t the final pass consumed (the last
-    recycle pass's predicted seq_0): the reference mutates seq_t in place
-    during recycling and its sampler reads the mutated value.
+    apply_single: fn(batch, compute_loss=...) -> outputs of ONE pass.  The
+    trainer's closure shares one `static_acts` across the passes (so they
+    get gradient from the final pass only) and one dropout generator,
+    whose draws differ from pass to pass.  The returned dict carries
+    `recycled_seq_t`, the seq_t the final pass consumed (the last recycle
+    pass's predicted seq_0): the reference mutates seq_t in place during
+    recycling and its sampler reads the mutated value.
     """
     if 'prev_seq' not in batch:
         raise ValueError('caller must seed prev_* (use zero_prev)')
     mb = dict(batch)
     mb['seq_t'] = batch['seq_t'].long()
-    for _ in range(num_recycle):
-        out = apply_single(mb)
-        mb.update(get_prev(mb, out, prev_pos_cfg))
-        mb['seq_t'] = out['heads']['sequence_module']['seq_0']
-    out = apply_single(mb)
+    with torch.no_grad():
+        for _ in range(num_recycle):
+            out = apply_single(mb, compute_loss=False)
+            mb.update(get_prev(mb, out, prev_pos_cfg))
+            mb['seq_t'] = out['heads']['sequence_module']['seq_0']
+    out = apply_single(mb, compute_loss=compute_loss)
     out['recycled_seq_t'] = mb['seq_t']
     return out

@@ -1,22 +1,31 @@
 """Seqformer trunk: single + pair representation evolution.
 
-Counterpart of abx_tpu/models/seqformer.py on the deterministic (inference)
-path.  On tensors that live on the card, and with the registry flags on
-(their defaults), the recycled pair-input assembly, the seq-attention
-pair bias, the seq attention, the triangle-multiplication blocks around
-the contraction, both triangle attentions and the pair transition run
-through the hand-written kernels in `abx_tpu_torch/ops`; the opt-in flags
-route as in the JAX package (the triangle contraction kernel under
-`ABX_PALLAS_TRIANGLE`, the channel-major triangle multiplication under
-`ABX_TRIMULT_C_MAJOR` without it, the gate-fold triangle multiplication
-under `ABX_TRIMULT_GATEFOLD`, the triangle-attention epilogue kernel under
-`ABX_GATE_PROJ_KERNEL` without the LN-fold).  Elsewhere the modules take
-the same plain path as the JAX package off the TPU.
+Counterpart of abx_tpu/models/seqformer.py.  In eval mode (the JAX
+package's `deterministic=True`), on tensors that live on the card, and
+with the registry flags on (their defaults), the recycled pair-input
+assembly, the seq-attention pair bias, the seq attention, the
+triangle-multiplication blocks around the contraction, both triangle
+attentions and the pair transition run through the hand-written kernels
+in `abx_tpu_torch/ops`; the opt-in flags route as in the JAX package (the
+triangle contraction kernel under `ABX_PALLAS_TRIANGLE`, the
+channel-major triangle multiplication under `ABX_TRIMULT_C_MAJOR` without
+it, the gate-fold triangle multiplication under `ABX_TRIMULT_GATEFOLD`,
+the triangle-attention epilogue kernel under `ABX_GATE_PROJ_KERNEL`
+without the LN-fold).  Elsewhere the modules take the same plain path as
+the JAX package off the TPU.
+
+In train() mode (`deterministic=False`) no kernel route is taken, on the
+card either: the kernels have no backward, as the Pallas kernels have
+none.  The block then runs in the delta form with dropout after the seq
+attention, both triangle multiplications and both triangle attentions,
+drawn from the `generator` the caller passes, and every LayerNorm takes
+the two-pass variance.  `SpatialDepthWiseInception` (`inp_kernels`) sits
+between the projections and the attention or the contraction, and turns
+the seq attention's, the triangle attention's and the triangle
+multiplication's kernel routes off.
 With `esm.enabled`, `EmbeddingAndSeqformer` adds the projected, learned
 layer-weighted ESM2 embedding of the pass's noisy antibody sequence to the
-antibody track (`models/esm.py`).  `SpatialDepthWiseInception`
-(`inp_kernels`) is off in the released config and not ported yet: it
-raises NotImplementedError.
+antibody track (`models/esm.py`).
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ from abx_tpu_torch.common import residue_constants as rc
 from abx_tpu_torch.models.encoder import PairEmbedding, ResidueEmbedding
 from abx_tpu_torch.models.modules import (MLP, Embedding, LayerNorm, Linear,
                                           fused_dense, get_timestep_embedding,
-                                          layer_norm)
+                                          layer_norm, shared_dropout)
 from abx_tpu_torch.ops import registry
 from abx_tpu_torch.ops.gate_proj import gate_proj_residual
 from abx_tpu_torch.ops.pair_bias import pack_pair_bias, pair_bias_proj
@@ -47,10 +56,8 @@ from abx_tpu_torch.ops.triangle import (triangle_multiply,
 BIG_NEG = -1e9
 
 
-def _no_inception(cfg) -> None:
-    if tuple(cfg.get('inp_kernels', ()) or ()):
-        raise NotImplementedError(
-            'SpatialDepthWiseInception (inp_kernels) is not ported yet')
+def _inp_kernels(cfg):
+    return tuple(int(k) for k in (cfg.get('inp_kernels', ()) or ()))
 
 
 def pair_concat(pair_1, pair_2):
@@ -62,13 +69,97 @@ def pair_concat(pair_1, pair_2):
     return torch.cat([top, bottom], dim=1)
 
 
+class SpatialDepthWiseInception(nn.Module):
+    """Grouped depthwise 1-D convolution over the sequence axis.
+
+    Input (B, N, L, D): N is split into len(kernels) equal groups; group 0
+    (kernels[0] == 1) passes through, group i gets a depthwise convolution
+    of odd width kernels[i] over L (zero padded, shape kept), with weights
+    per D-channel shared by the group's N slots.  Params `conv{i}_weight`
+    (k, D) and `conv{i}_bias` (D,), the flax names and layout, so the
+    weight bridge maps them by name."""
+
+    def __init__(self, head_dim: int, kernels):
+        super().__init__()
+        ks = tuple(int(k) for k in kernels)
+        if len(ks) < 2 or ks[0] != 1:
+            raise ValueError(f'inp_kernels {ks}: kernels[0] must be 1')
+        for i, k in enumerate(ks[1:]):
+            if k % 2 != 1:
+                raise ValueError(f'inp kernel {k} must be odd')
+            self.register_parameter(f'conv{i}_weight',
+                                    nn.Parameter(torch.zeros(k, head_dim)))
+            self.register_parameter(f'conv{i}_bias',
+                                    nn.Parameter(torch.zeros(head_dim)))
+        self.kernels = ks
+
+    def reset(self, generator) -> None:
+        """torch Conv1d(D, D, k, groups=D)'s init: U(+-1/sqrt(k)), bias 0."""
+        with torch.no_grad():
+            for i, k in enumerate(self.kernels[1:]):
+                w = getattr(self, f'conv{i}_weight')
+                lim = k ** -0.5
+                w.copy_(torch.rand(w.shape, generator=generator) * 2 * lim
+                        - lim)
+                getattr(self, f'conv{i}_bias').zero_()
+
+    def forward(self, x):
+        n, l = x.shape[1], x.shape[2]
+        if n % len(self.kernels):
+            raise ValueError(f'SDWI: {n} rows do not split into '
+                             f'{len(self.kernels)} groups')
+        g = n // len(self.kernels)
+        outs = [x[:, :g]]
+        for i, k in enumerate(self.kernels[1:]):
+            w = getattr(self, f'conv{i}_weight').to(x.dtype)
+            xg = x[:, g * (i + 1):g * (i + 2)]
+            xp = F.pad(xg, (0, 0, k // 2, k // 2))
+            y = getattr(self, f'conv{i}_bias').to(x.dtype)
+            for t in range(k):
+                y = y + xp[:, :, t:t + l] * w[t]
+            outs.append(y)
+        return torch.cat(outs, dim=1)
+
+
+def _sdwi_heads(sdwi, t):
+    """SDWI on a heads-minor (B, ..., L, h, d) tensor, its leading (rows,
+    heads) axes flattened rows-major, as the reference's
+    `rearrange(t, 'b s h l d -> b (s h) l d')`."""
+    shape = t.shape
+    b, l, h, d = shape[0], shape[-3], shape[-2], shape[-1]
+    x = t.reshape(b, -1, l, h, d)
+    rows = x.shape[1]
+    x = x.transpose(2, 3).reshape(b, rows * h, l, d)
+    x = sdwi(x).reshape(b, rows, h, l, d).transpose(2, 3)
+    return x.reshape(shape)
+
+
+def _sdwi_pair(sdwi, t, num_head: int, per_row: bool):
+    """SDWI on a pair-track projection (B, I, J, h*d) in the reference's
+    orientation: per_row convolves over j with groups over (i, h);
+    per_column over i with groups over (j, h)."""
+    b, i, j, hd = t.shape
+    d = hd // num_head
+    x = t.reshape(b, i, j, num_head, d)
+    if per_row:
+        x = x.transpose(2, 3).reshape(b, i * num_head, j, d)
+        x = sdwi(x).reshape(b, i, num_head, j, d).transpose(2, 3)
+    else:
+        x = x.permute(0, 2, 3, 1, 4).reshape(b, j * num_head, i, d)
+        x = sdwi(x).reshape(b, j, num_head, i, d).permute(0, 3, 1, 2, 4)
+    return x.reshape(b, i, j, hd)
+
+
 class GatedAttention(nn.Module):
     """Multi-head self-attention with pair bias, gating and key mask, on
-    (B, S, Q, C) with a broadcast rows axis S."""
+    (B, S, Q, C) with a broadcast rows axis S; `inp_kernels` convolves
+    q, k and v (SDWI modules `inp_q`, `inp_k`, `inp_v`) before the
+    attention."""
 
     def __init__(self, c_in: int, key_dim: int, value_dim: int,
                  output_dim: int, num_head: int, gating: bool = True,
-                 split_first: bool = True, dtype=torch.float32):
+                 split_first: bool = True, dtype=torch.float32,
+                 inp_kernels=()):
         super().__init__()
         self.num_head = num_head
         self.key_dim, self.value_dim = key_dim, value_dim
@@ -88,6 +179,14 @@ class GatedAttention(nn.Module):
         if gating:
             self.gate = Linear(c_in, value_dim, 'gate', dtype=dtype)
         self.proj_out = Linear(value_dim, output_dim, 'final', dtype=dtype)
+        if inp_kernels:
+            self.inp_q = SpatialDepthWiseInception(key_dim // num_head,
+                                                   inp_kernels)
+            self.inp_k = SpatialDepthWiseInception(key_dim // num_head,
+                                                   inp_kernels)
+            self.inp_v = SpatialDepthWiseInception(value_dim // num_head,
+                                                   inp_kernels)
+        self.inp = bool(inp_kernels)
         # The kernel route's packed weights: with the LN-fold, and without.
         self._packs = {True: WeightCache(), False: WeightCache()}
 
@@ -178,6 +277,10 @@ class GatedAttention(nn.Module):
                 (qkv,) = fused_dense(q_data, [self.proj_in], dt)
             qkv = qkv.reshape(qkv.shape[:-1] + (h, 3 * key_dim))
             q, k, v = torch.split(qkv, key_dim, dim=-1)
+        if self.inp:
+            q = _sdwi_heads(self.inp_q, q)
+            k = _sdwi_heads(self.inp_k, k)
+            v = _sdwi_heads(self.inp_v, v)
         q = q * (key_dim ** -0.5)
         logits = torch.einsum('...qhd,...khd->...hqk', q, k)
         logits = logits + bias[:, None].to(logits.dtype)
@@ -203,7 +306,7 @@ def _bias_packed(cache, norm, proj, dtype):
 class SeqAttentionWithPairBias(nn.Module):
     def __init__(self, config, seq_c: int, pair_c: int, dtype=torch.float32):
         super().__init__()
-        _no_inception(config)
+        self.inp = bool(_inp_kernels(config))
         self.dtype = dtype
         self.seq_norm = LayerNorm(seq_c, dtype=dtype)
         self.pair_norm = LayerNorm(pair_c, dtype=dtype)
@@ -211,14 +314,16 @@ class SeqAttentionWithPairBias(nn.Module):
                                 dtype=dtype)
         self.attn = GatedAttention(seq_c, seq_c, seq_c, seq_c,
                                    config.num_head, split_first=False,
-                                   dtype=dtype)
+                                   dtype=dtype,
+                                   inp_kernels=_inp_kernels(config))
         self._bias_pack = WeightCache()   # pair_bias_proj's weights
 
     def forward(self, seq_act, pair_act, mask, residual: bool = False):
         """`residual=True` returns seq_act + attention(seq_act)."""
         dt = self.dtype
         res_in = seq_act
-        if registry.on_device(pair_act) and registry.use_fused_pair_bias():
+        if (registry.kernel_route(self, pair_act)
+                and registry.use_fused_pair_bias()):
             bias = pair_bias_proj(
                 pair_act, self.pair_norm.scale, self.pair_norm.bias,
                 self.proj_pair.weight, packed=_bias_packed(
@@ -228,7 +333,8 @@ class SeqAttentionWithPairBias(nn.Module):
             ln = self.pair_norm(pair_act)
             bias = F.linear(ln, self.proj_pair.weight.to(dt))
             bias = bias.permute(0, 3, 1, 2)
-        if (residual and registry.on_device(seq_act)
+        if (residual and not self.inp
+                and registry.kernel_route(self, seq_act)
                 and registry.use_packed_seq_attn()):
             out = self.attn(seq_act[:, None], bias, mask[:, None],
                             kernel=True,
@@ -253,7 +359,7 @@ class Transition(nn.Module):
     def forward(self, act, residual: bool = False):
         """LN -> C*factor -> relu -> C [+ act when residual]; the 4-D pair
         track goes through the fused kernel on the card."""
-        if (residual and act.dim() == 4 and registry.on_device(act)
+        if (residual and act.dim() == 4 and registry.kernel_route(self, act)
                 and registry.use_fused_transition()):
             params = (self.norm.scale, self.norm.bias, self.in_proj.weight,
                       self.in_proj.bias, self.out_proj.weight,
@@ -302,10 +408,19 @@ class TriangleMultiplication(nn.Module):
 
     def __init__(self, config, num_in: int, dtype=torch.float32):
         super().__init__()
-        _no_inception(config)
         nc = config.num_intermediate_channel
+        inp = _inp_kernels(config)
         self.per_row = config.orientation == 'per_row'
         self.gating = config.gating
+        self.inp = bool(inp)
+        if inp:
+            # The reference's left/right inception over (num_head) groups
+            # of the nc channels.
+            self.num_head = config.num_head
+            self.inp_left = SpatialDepthWiseInception(nc // config.num_head,
+                                                      inp)
+            self.inp_right = SpatialDepthWiseInception(nc // config.num_head,
+                                                       inp)
         self.dtype = dtype
         self.norm = LayerNorm(num_in, dtype=dtype)
         self.left_proj = Linear(num_in, nc, 'linear', dtype=dtype)
@@ -362,9 +477,10 @@ class TriangleMultiplication(nn.Module):
 
     def forward(self, act, mask, residual: bool = False):
         dt = self.dtype
-        use_pallas = registry.use_pallas_triangle()
-        if (residual and self.gating and act.dim() == 4
-                and registry.on_device(act) and registry.use_fused_trimult()):
+        use_pallas = registry.use_pallas_triangle() and not self.training
+        if (residual and self.gating and act.dim() == 4 and not self.inp
+                and registry.kernel_route(self, act)
+                and registry.use_fused_trimult()):
             # Channel-major is checked first, as in the JAX package: no
             # layout copies around the contraction's matrix product.
             c_major = registry.use_trimult_c_major() and not use_pallas
@@ -398,10 +514,18 @@ class TriangleMultiplication(nn.Module):
             left, right, lg, rg, fg = fused_dense(
                 x, branches + [self.left_gate, self.right_gate,
                                self.final_gate], dt)
-            left = left * torch.sigmoid(lg)
-            right = right * torch.sigmoid(rg)
         else:
             left, right = fused_dense(x, branches, dt)
+        if self.inp:
+            # Reference order: projection -> inception -> mask and gate
+            # (elementwise, so gating after the convolution is the same).
+            left = _sdwi_pair(self.inp_left, left, self.num_head,
+                              self.per_row)
+            right = _sdwi_pair(self.inp_right, right, self.num_head,
+                               self.per_row)
+        if self.gating:
+            left = left * torch.sigmoid(lg)
+            right = right * torch.sigmoid(rg)
         left = left * pair_mask
         right = right * pair_mask
         out = triangle_multiply(left, right, per_row=self.per_row,
@@ -415,7 +539,7 @@ class TriangleMultiplication(nn.Module):
 class TriangleAttention(nn.Module):
     def __init__(self, config, c_in: int, dtype=torch.float32):
         super().__init__()
-        _no_inception(config)
+        self.inp = bool(_inp_kernels(config))
         self.per_column = config.orientation == 'per_column'
         self.gating = config.gating
         self.dtype = dtype
@@ -423,13 +547,14 @@ class TriangleAttention(nn.Module):
         self.proj_pair = Linear(c_in, config.num_head, 'linear', bias=False,
                                 dtype=dtype)
         self.attn = GatedAttention(c_in, c_in, c_in, c_in, config.num_head,
-                                   gating=config.gating, dtype=dtype)
+                                   gating=config.gating, dtype=dtype,
+                                   inp_kernels=_inp_kernels(config))
         self._bias_pack = WeightCache()   # pair_bias_proj's weights
 
     def forward(self, pair_act, seq_mask, residual: bool = False):
         """`residual=True` adds the input in this module's epilogue (inside
         the packed kernel on the card)."""
-        kernel = (registry.on_device(pair_act)
+        kernel = (not self.inp and registry.kernel_route(self, pair_act)
                   and registry.use_fused_tri_attention())
         x = pair_act
         if self.per_column:
@@ -460,6 +585,7 @@ class SeqformerIteration(nn.Module):
     def __init__(self, config, seq_c: int, pair_c: int, dtype=torch.float32):
         super().__init__()
         c = config
+        self.config = c
         self.seq_attn = SeqAttentionWithPairBias(
             c.seq_attention_with_pair_bias, seq_c, pair_c, dtype)
         self.seq_transition = Transition(c.seq_transition, seq_c, dtype)
@@ -475,14 +601,38 @@ class SeqformerIteration(nn.Module):
             c.triangle_attention_ending_node, pair_c, dtype)
         self.pair_transition = Transition(c.pair_transition, pair_c, dtype)
 
-    def forward(self, seq_act, pair_act, seq_mask):
-        seq_act = self.seq_attn(seq_act, pair_act, seq_mask, residual=True)
+    def _dropout(self, value, cfg, generator):
+        """The reference's `apply_dropout`: shared along the rows
+        (per_row) or the columns (per_column) where `shared_dropout`."""
+        dim = None
+        if cfg.shared_dropout:
+            dim = 1 if cfg.orientation == 'per_row' else 2
+        return shared_dropout(value, cfg.dropout_rate, generator, dim)
+
+    def forward(self, seq_act, pair_act, seq_mask, generator=None):
+        """In eval mode the residual adds fold into the modules' kernel
+        epilogues; in train() mode each residual branch is a delta with
+        dropout drawn from `generator`."""
+        c = self.config
+        if not self.training:
+            seq_act = self.seq_attn(seq_act, pair_act, seq_mask,
+                                    residual=True)
+        else:
+            seq_act = seq_act + self._dropout(
+                self.seq_attn(seq_act, pair_act, seq_mask),
+                c.seq_attention_with_pair_bias, generator)
         seq_act = seq_act + self.seq_transition(seq_act)
         pair_act = pair_act + self.outer_product_mean(seq_act, seq_mask)
-        pair_act = self.tri_mul_out(pair_act, seq_mask, residual=True)
-        pair_act = self.tri_mul_in(pair_act, seq_mask, residual=True)
-        pair_act = self.tri_attn_start(pair_act, seq_mask, residual=True)
-        pair_act = self.tri_attn_end(pair_act, seq_mask, residual=True)
+        blocks = ((self.tri_mul_out, c.triangle_multiplication_outgoing),
+                  (self.tri_mul_in, c.triangle_multiplication_incoming),
+                  (self.tri_attn_start, c.triangle_attention_starting_node),
+                  (self.tri_attn_end, c.triangle_attention_ending_node))
+        for module, cfg in blocks:
+            if not self.training:
+                pair_act = module(pair_act, seq_mask, residual=True)
+            else:
+                pair_act = pair_act + self._dropout(
+                    module(pair_act, seq_mask), cfg, generator)
         return seq_act, self.pair_transition(pair_act, residual=True)
 
 
@@ -494,10 +644,10 @@ class Seqformer(nn.Module):
             self.add_module(f'block_{i}', SeqformerIteration(
                 config.seqformer, seq_c, pair_c, dtype))
 
-    def forward(self, seq_act, pair_act, mask):
+    def forward(self, seq_act, pair_act, mask, generator=None):
         for i in range(self.num_block):
-            seq_act, pair_act = getattr(self, f'block_{i}')(seq_act,
-                                                            pair_act, mask)
+            seq_act, pair_act = getattr(self, f'block_{i}')(
+                seq_act, pair_act, mask, generator)
         return seq_act, pair_act
 
 
@@ -583,11 +733,12 @@ class EmbeddingAndSeqformer(nn.Module):
         static_pair = static_pair + self.encode_pair_emb(batch)
         return {'static_seq': static_seq, 'static_pair': static_pair}
 
-    def forward(self, batch, static_acts=None, esm_fn=None):
+    def forward(self, batch, static_acts=None, esm_fn=None, generator=None):
         """`esm_fn(ab_aatype, heavy_len, light_len, layer_weights)` (an
         `AntibodyESM`) is required when `esm.enabled` and the batch holds no
         `esm_weighted`: it runs on this pass's noisy antibody sequence and
-        returns the weighted (B, L_ab, D) embedding."""
+        returns the weighted (B, L_ab, D) embedding.  `generator` draws the
+        trunk's dropout in train() mode."""
         c = self.config
         dt = self.dtype
         seq_t = batch['seq_t'].long()
@@ -624,7 +775,8 @@ class EmbeddingAndSeqformer(nn.Module):
             seq_act = seq_act + self.prev_seq_norm(batch['prev_seq'])
         static_pair = static_acts['static_pair']
         if (c.recycle_features and c.recycle_pos and 'prev_pair' in batch
-                and 'prev_pos' in batch and registry.on_device(static_pair)
+                and 'prev_pos' in batch
+                and registry.kernel_route(self, static_pair)
                 and registry.use_fused_recycle_embed()):
             pair_act = self._recycled_pair(static_pair, t_embed, batch)
             return self.seqformer(seq_act, pair_act, mask)
@@ -633,8 +785,8 @@ class EmbeddingAndSeqformer(nn.Module):
         if c.recycle_features and 'prev_pair' in batch:
             pair_act = pair_act + layer_norm(
                 batch['prev_pair'], self.prev_pair_norm.scale,
-                self.prev_pair_norm.bias, dtype=dt)
+                self.prev_pair_norm.bias, dtype=dt, two_pass=self.training)
         if c.recycle_pos and 'prev_pos' in batch:
             pair_act = pair_act + self.proj_prev_pos.embedding[
                 batch['prev_pos'].long()].to(dt)
-        return self.seqformer(seq_act, pair_act, mask)
+        return self.seqformer(seq_act, pair_act, mask, generator)

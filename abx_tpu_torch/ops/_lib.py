@@ -159,6 +159,20 @@ def check(err: int, name: str) -> None:
                            f'{err}')
 
 
+def refuse_autograd(name: str, *tensors) -> None:
+    """A hand-written kernel has no backward: launched on an input that
+    requires grad, with grad enabled, it would return a result that stops
+    the gradient without a word.  The wrappers call this before a launch
+    and raise instead (they never fall back to the plain version); the
+    models take no kernel route in train() mode."""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f'{name}: the hand-written kernel has no backward, and an input '
+            'requires grad; run it under torch.no_grad() or take the plain '
+            'route (a model in train() mode takes no kernel route)')
+
+
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)

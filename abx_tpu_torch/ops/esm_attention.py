@@ -82,6 +82,7 @@ def esm_attention(q, k, v, padding_mask):
     """
     if not registry.on_device(q):
         return esm_attention_plain(q, k, v, padding_mask)
+    _lib.refuse_autograd('esm_attention', q, k, v)
     if not _takes(q, k, v, padding_mask):
         _reject(q, k, v, padding_mask)
     b, h, l, d = q.shape

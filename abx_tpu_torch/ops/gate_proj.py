@@ -40,6 +40,7 @@ def gate_proj_residual(y, gate_pre, w, wb, res):
     """
     if not registry.on_device(y):
         return gate_proj_residual_plain(y, gate_pre, w, wb, res)
+    _lib.refuse_autograd('gate_proj_residual', y, gate_pre, w, wb, res)
     b, r, l, hd = y.shape
     c = w.shape[0]
     dt = y.dtype

@@ -82,6 +82,7 @@ def ipa_pair_attend(attn, pair):
     """
     if not registry.on_device(pair):
         return ipa_pair_attend_plain(attn, pair)
+    _lib.refuse_autograd('ipa_pair_attend', attn, pair)
     return split_pair_attend(attn.float(), pair, _launch)
 
 

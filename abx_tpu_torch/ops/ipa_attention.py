@@ -60,6 +60,8 @@ def ipa_attention(qs, ks, vs, qp, kp, vp, pw, bias, mask, pair):
     if not registry.on_device(pair):
         return ipa_attention_plain(qs, ks, vs, qp, kp, vp, pw, bias, mask,
                                    pair)
+    _lib.refuse_autograd('ipa_attention', qs, ks, vs, qp, kp, vp, pw, bias,
+                         pair)
     b, l, h, ds = qs.shape
     pq, pv = qp.shape[-2], vp.shape[-2]
     c = pair.shape[-1]

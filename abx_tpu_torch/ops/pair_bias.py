@@ -69,6 +69,7 @@ def pair_bias_proj(pair, scale, bias, w, packed: PairBiasPack | None = None):
     """
     if not registry.on_device(pair):
         return pair_bias_proj_plain(pair, scale, bias, w)
+    _lib.refuse_autograd('pair_bias_proj', pair, scale, bias, w)
     b, r, l, c = pair.shape
     h = w.shape[0]
     dt = pair.dtype

@@ -70,6 +70,8 @@ def recycle_embed(static_pair, t_vec, prev_pair, ln_scale, ln_bias, table,
     if not registry.on_device(prev_pair):
         return recycle_embed_plain(static_pair, t_vec, prev_pair, ln_scale,
                                    ln_bias, table, bins)
+    _lib.refuse_autograd('recycle_embed', static_pair, t_vec, prev_pair,
+                         ln_scale, ln_bias, table)
     b, l, _, c = prev_pair.shape
     c0 = static_pair.shape[-1]
     n_bins = table.shape[0]

@@ -18,11 +18,19 @@ import torch
 def on_device(t: torch.Tensor) -> bool:
     """True when `t` lives on the card, i.e. the hand-written kernels apply.
 
-    The one predicate behind both decisions: a module takes its kernel
-    route, and a kernel wrapper launches its kernel rather than its plain
-    version.  Tests force the module routes on the CPU by patching it and
-    swapping the wrappers for their plain versions."""
+    The predicate behind both decisions: a module takes its kernel route
+    (`kernel_route`, in eval mode), and a kernel wrapper launches its
+    kernel rather than its plain version.  Tests force the module routes
+    on the CPU by patching it and swapping the wrappers for their plain
+    versions."""
     return t.is_cuda
+
+
+def kernel_route(module: torch.nn.Module, t: torch.Tensor) -> bool:
+    """A model module may take its kernel route: in eval mode (the JAX
+    package's `deterministic=True`; the kernels have no backward) and on
+    the card."""
+    return not module.training and on_device(t)
 
 
 def use_fused_tri_attention() -> bool:

@@ -76,6 +76,7 @@ def fused_transition(x, scale, bias, w1, b1, w2, b2,
     """
     if not registry.on_device(x):
         return fused_transition_plain(x, scale, bias, w1, b1, w2, b2)
+    _lib.refuse_autograd('fused_transition', x, scale, bias, w1, b1, w2, b2)
     c = x.shape[-1]
     n = w1.shape[0]
     dt = x.dtype

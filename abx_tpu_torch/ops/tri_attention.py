@@ -132,6 +132,7 @@ def tri_attention_core(y, shape, bias, mask, gate: bool,
     if not registry.on_device(y):
         return tri_attention_core_plain(y, shape, bias, mask, gate,
                                         bf16_exp, columns)
+    _lib.refuse_autograd('tri_attention_core', y, bias)
     b, r, l, h, d = shape
     dt = y.dtype
     n = y.shape[1]
@@ -258,6 +259,9 @@ def triangle_attention_packed(x, wq, wk, wv, bias, mask, ln=None, gate=None,
         return triangle_attention_packed_plain(x, wq, wk, wv, bias, mask, ln,
                                                gate, out_proj, residual,
                                                bf16_exp)
+    _lib.refuse_autograd('triangle_attention_packed', x, wq, wk, wv, bias,
+                         residual, *(ln or ()), *(gate or ()),
+                         *(out_proj or ()))
     b, r, l, c = x.shape
     hd = wq.shape[0]
     dt = x.dtype
@@ -330,6 +334,8 @@ def triangle_attention_packed_cols(x, ln_scale, ln_bias, wq, wk, wv, wg, bg,
     if not registry.on_device(x):
         return triangle_attention_packed_cols_plain(
             x, ln_scale, ln_bias, wq, wk, wv, wg, bg, bias, mask, bf16_exp)
+    _lib.refuse_autograd('triangle_attention_packed_cols', x, ln_scale,
+                         ln_bias, wq, wk, wv, wg, bg, bias)
     b, l, _, c = x.shape
     att = _project_and_attend('triangle_attention_packed_cols', x, wq, wk,
                               wv, bias, mask, (ln_scale, ln_bias), (wg, bg),
@@ -368,6 +374,7 @@ def triangle_attention_fused(q, k, v, bias, mask):
     """
     if not registry.on_device(q):
         return triangle_attention_fused_plain(q, k, v, bias, mask)
+    _lib.refuse_autograd('triangle_attention_fused', q, k, v, bias)
     b, r, h, l, d = q.shape
     dt = q.dtype
     bias_f = bias.float().contiguous()

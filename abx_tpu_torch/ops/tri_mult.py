@@ -133,6 +133,7 @@ def tri_mult_pre(x, scale, bias, w, wb, mask, emit_fgate: bool = True,
     if not registry.on_device(x):
         return tri_mult_pre_plain(x, scale, bias, w, wb, mask,
                                   emit_fgate=emit_fgate, c_major=c_major)
+    _lib.refuse_autograd('tri_mult_pre', x, scale, bias, w, wb)
     b, r, l, c = x.shape
     nc = _nc(w, c, emit_fgate)
     n_fg = c if emit_fgate else 0
@@ -240,6 +241,7 @@ def tri_mult_post(y, scale, bias, w, wb, fg, res, y_c_major: bool = False,
     if not registry.on_device(y):
         return tri_mult_post_plain(y, scale, bias, w, wb, fg, res,
                                    y_c_major=y_c_major)
+    _lib.refuse_autograd('tri_mult_post', y, scale, bias, w, wb, fg, res)
     if y_c_major:
         b, nc, r, l = y.shape
     else:
@@ -353,6 +355,8 @@ def tri_mult_post_gatefold(y, scale, bias, w, wb, x_scale, x_bias, wg, wgb,
     if not registry.on_device(y):
         return tri_mult_post_gatefold_plain(y, scale, bias, w, wb, x_scale,
                                             x_bias, wg, wgb, res)
+    _lib.refuse_autograd('tri_mult_post_gatefold', y, scale, bias, w, wb,
+                         x_scale, x_bias, wg, wgb, res)
     b, r, l, nc = y.shape
     c = w.shape[0]
     dt = y.dtype

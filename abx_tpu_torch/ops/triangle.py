@@ -59,6 +59,7 @@ def triangle_multiply_kernel(left, right, per_row: bool = True):
     """
     if not registry.on_device(left):
         return triangle_multiply_einsum(left, right, per_row)
+    _lib.refuse_autograd('triangle_multiply', left, right)
     b, l, l2, c = left.shape
     dt = left.dtype
     left, right = left.contiguous(), right.contiguous()

@@ -98,21 +98,28 @@ class SamplerConfig:
     corrector_scale: float = 1.0
 
 
-def to_device_batch(feats: Dict, device) -> Dict[str, torch.Tensor]:
+def to_device_batch(feats: Dict, device, non_blocking: bool = False
+                    ) -> Dict[str, torch.Tensor]:
     """numpy feature dict -> tensors on `device` (floats as f32, ints as
-    int64); non-array entries are dropped."""
+    int64); non-array entries are dropped.  With `non_blocking`, a copy
+    to a CUDA device goes from pinned host memory without blocking (the
+    training prefetch's producer thread)."""
+    dev = torch.device(device)
+    pin = non_blocking and dev.type == 'cuda'
     out = {}
     for k, v in feats.items():
         if isinstance(v, torch.Tensor):
-            out[k] = v.to(device)
+            out[k] = v.to(dev, non_blocking=non_blocking)
             continue
         if isinstance(v, tuple):  # e.g. a Rigid from the JAX pipeline
             continue
         a = np.asarray(v)
-        if a.dtype.kind == 'f':
-            out[k] = torch.tensor(a, dtype=torch.float32, device=device)
-        elif a.dtype.kind in 'iub':
-            out[k] = torch.tensor(a.astype(np.int64), device=device)
+        if a.dtype.kind not in 'fiub':
+            continue
+        h = torch.tensor(a, dtype=(torch.float32 if a.dtype.kind == 'f'
+                                   else torch.int64))
+        out[k] = (h.pin_memory() if pin else h).to(dev,
+                                                  non_blocking=non_blocking)
     return out
 
 
@@ -309,8 +316,9 @@ class Sampler:
         ts, ts_model, is_prime, refresh = self.step_grids()
         n = len(ts)
 
-        def single(mb):
-            return model(mb, static_acts=traj.static_acts, esm_fn=esm_fn)
+        def single(mb, compute_loss=False):
+            return model(mb, static_acts=traj.static_acts, esm_fn=esm_fn,
+                         compute_loss=compute_loss)
 
         for s in range(start, end):
             t, prime = float(ts[s]), bool(is_prime[s])

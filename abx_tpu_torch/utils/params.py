@@ -4,8 +4,11 @@ The port's modules carry the flax names (`params/impl/<path>`), so the map
 is by name: drop the leading `params` / `impl` levels, join the path with
 dots, and turn each flax `kernel` (in, out) into the nn.Linear `weight`
 (out, in) by a transpose.  Every other leaf (LayerNorm `scale` / `bias`,
-`embedding` tables, `trainable_point_weights`, `aapair_to_distcoef`) keeps
-its name and layout.  This module is the only place where layouts change.
+`embedding` tables, `trainable_point_weights`, `aapair_to_distcoef`, and
+SpatialDepthWiseInception's `conv{i}_weight` (k, D) / `conv{i}_bias`
+under `inp_q`, `inp_k`, `inp_v`, `inp_left`, `inp_right`, which the port
+keeps in the flax layout) keeps its name and layout.  This module is the
+only place where layouts change.
 
 Sources: the tree from `abx_tpu.cli.runner._random_init` (as numpy arrays)
 or a `.msgpack` written by `abx_tpu/utils/checkpoint.py` (flax msgpack

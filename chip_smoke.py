@@ -116,10 +116,29 @@ fatal on failure:
      every PLL finite and <= 0, esm_attention launched 36 x the batches of
      32 masked copies (the `eval_pll` path; every trunk kernel 0); then
      cli/eval_pll.py on a random t12_35M-shaped fair-esm checkpoint with
-     its LM head: the CSV, esm_attention launched 12 x the same batches.
-Each main path (phases 5, 6, 6b, 7, 8, 9, 10, 11 and the trajectory run) is
-driven with the launch counts set to 0 just before it and read just
-after.  The lines
+     its LM head: the CSV, esm_attention launched 12 x the same batches;
+  12. the training path in f32 at full width (B=4, L=288) on an npz
+     directory of both test complexes written as in phase 7: ESM off
+     through abx_tpu_torch.cli.train (random weights from seed 0), 4 steps
+     with checkpoints every 2 and one metrics row a step, then --resume to
+     a total of 6: rows 1-6 with finite `total` and `grad_norm` > 0, the
+     raw weights moved from the initial ones and the EMA weights apart
+     from the raw ones, params.pt{,.raw,.train} and no `.tmp`, no kernel
+     launched (training takes the plain route); seconds per step (median
+     of the steps that follow neither a run's first step nor a
+     checkpoint save: steps 2, 4 and 6) and peak memory.  ESM2-3B on
+     (random weights made on the card, frozen; runner + Trainer.fit, 3
+     steps): esm_attention launched 36 x the trunk passes the steps drew,
+     no ESM parameter with a gradient, the learned layer weights'
+     gradient finite and nonzero; seconds per step (median of steps 2
+     and 3), peak memory, and the last step's gradient norm with its
+     largest leaves.  Then a bf16
+     design (4 samples, num_t 8) through the design CLI from the EMA
+     weights of the ESM-off run: 4 PDBs, the trunk kernels as in phase 5.
+Each main path (phases 5, 6, 6b, 7, 8, 9, 10, 11, 12 and the trajectory
+run) is driven with the launch counts set to 0 just before it and read
+just after; phase 12's are `train_esm_off` (both runs), `train_esm_on`
+and `design_trained` in `launches_by_path`.  The lines
 before the last are the nvidia-smi card line and the kernels JSON (each
 kernel's launches on each main path in `launches_by_path`, and in
 `launches` the largest of them, its error, its time, its plain
@@ -1167,7 +1186,10 @@ def phase_flags(torch, dev):
     static = model.static_embeddings(prepared)
 
     def one_pass(mb):
-        out = model(mb, static_acts=static)
+        # The kernels have no backward: a call with grad enabled on the
+        # model's parameters is refused by the wrappers.
+        with torch.no_grad():
+            out = model(mb, static_acts=static)
         torch.cuda.synchronize()
         return out
 
@@ -1180,7 +1202,7 @@ def phase_flags(torch, dev):
     set_flags({k: '0' for k in ALL_FLAGS})
     inputs, ref = [], []
 
-    def recorded(mb):
+    def recorded(mb, compute_loss=False):
         inputs.append(dict(mb))
         out = one_pass(mb)
         ref.append(picked(out))
@@ -1289,7 +1311,7 @@ def phase_esm_flags(torch, dev):
                 p.mul_(0.1)
                 if key.endswith('norm.weight') or 'norm_after.weight' in key:
                     p.add_(1.0)
-    esm.requires_grad_(False)
+    esm.requires_grad_(False).eval()
     ex = ds.complex_from_pdb(PDB, 'H', 'L', ['S'])
     feats, _ = ds.prepare_example(ex, ds.DataConfig(
         l_ab, cfg.data.max_antigen_len, cfg.data.patch_radius,
@@ -1975,6 +1997,207 @@ def phase_eval(torch, card, out):
     return paths, stats
 
 
+TRAIN_STEPS, TRAIN_RESUME_TO, TRAIN_BATCH, TRAIN_ESM_STEPS = 4, 6, 4, 3
+TRAIN_CKPT_EVERY = 2
+
+
+def read_metrics(path):
+    import csv
+    with open(path, newline='') as f:
+        return list(csv.DictReader(f))
+
+
+def check_train_rows(rows, steps, what):
+    import math
+    if [int(r['step']) for r in rows] != steps:
+        fail(f'{what}: metrics.csv steps {[r["step"] for r in rows]}, '
+             f'expected {steps}')
+    for r in rows:
+        total, g = float(r['total']), float(r['grad_norm'])
+        if not (math.isfinite(total) and math.isfinite(g) and g > 0):
+            fail(f'{what}: step {r["step"]} total {total}, grad_norm {g}')
+
+
+def train_argv(data, index, out, steps):
+    return ['--data_dir', data, '--name_idx', index, '--output_dir', out,
+            '--model_config', MODEL_CONFIG, '--seed', '0', '--device',
+            'cuda', '--batch_size', str(TRAIN_BATCH), '--log_every', '1',
+            '--checkpoint_every', str(TRAIN_CKPT_EVERY), '--num_steps',
+            str(steps)]
+
+
+def step_seconds(rows, first_steps, save_every=0):
+    """Median seconds per step from the CLI's steps_per_sec (the host time
+    between rows), over the steps that carry neither a run's warm-up (the
+    steps in `first_steps`) nor a checkpoint save (the step after each
+    `save_every`-th of its run); with each kept step's (recycle passes
+    drawn, seconds)."""
+    steps, start = [], 0
+    for r in rows:
+        step = int(r['step'])
+        if step in first_steps:
+            start = step - 1
+            continue
+        if save_every and (step - 1 - start) % save_every == 0:
+            continue
+        steps.append((int(float(r['num_recycle'])),
+                      1.0 / float(r['steps_per_sec'])))
+    return statistics.median(s for _, s in steps), steps
+
+
+def top_gradients(model, k=3):
+    """The global gradient norm and the `k` parameters with the largest
+    gradient norms, from the gradients the model holds."""
+    import math
+    norms = {name: float(p.grad.norm()) for name, p in
+             model.named_parameters() if p.grad is not None}
+    top = sorted(norms, key=norms.get, reverse=True)[:k]
+    return (math.sqrt(sum(v * v for v in norms.values())),
+            [(name, norms[name]) for name in top])
+
+
+def phase_train(torch, card):
+    """Phase 12: the training path.  ESM off through the training CLI (f32,
+    full width, B=4, random weights from seed 0): 4 steps with checkpoints
+    every 2, then --resume to a total of 6; the trunk kernels never launch.
+    ESM2-3B on (random weights made on the card, frozen) through the
+    runner and the Trainer: esm_attention 36 x the trunk passes the steps
+    drew.  Then a design from the EMA weights the ESM-off run wrote."""
+    import math
+    from abx_tpu_torch.cli import design, runner, train
+    from abx_tpu_torch.data.pipeline import prefetch
+    from abx_tpu_torch.train.trainer import TrainConfig, Trainer
+    from abx_tpu_torch.utils import checkpoint as ckpt_lib
+    ws = wrappers()
+    paths, stats = {}, {}
+    with tempfile.TemporaryDirectory() as data, \
+            tempfile.TemporaryDirectory() as tmp:
+        names, index = write_test_set(torch, data)
+        out = os.path.join(tmp, 'run')
+        ckpt = os.path.join(out, train.CHECKPOINT)
+
+        # ESM off: 4 steps, then the resume to 6.
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(ws)
+        t0 = time.time()
+        state = train.main(train_argv(data, index, out, TRAIN_STEPS))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        first = read_metrics(os.path.join(out, 'metrics.csv'))
+        check_train_rows(first, list(range(1, TRAIN_STEPS + 1)),
+                         'train (ESM off)')
+        state = train.main(train_argv(data, index, out, TRAIN_RESUME_TO)
+                           + ['--resume'])
+        torch.cuda.synchronize()
+        launches = read_counts(ws)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        rows = read_metrics(os.path.join(out, 'metrics.csv'))
+        check_train_rows(rows, list(range(1, TRAIN_RESUME_TO + 1)),
+                         'train (ESM off, resumed)')
+        if state.step != TRAIN_RESUME_TO:
+            fail(f'train: resumed run ended at step {state.step}')
+        check_launches(launches, {}, 'train (ESM off, f32)')
+        files = sorted(os.listdir(out))
+        want = ['metrics.csv', train.CHECKPOINT, train.CHECKPOINT + '.raw',
+                train.CHECKPOINT + '.train']
+        if files != want:
+            fail(f'train: output files {files}, expected {want}')
+        init = runner.build_runtime(MODEL_CONFIG, seed=0, device='cpu')
+        init_sd = init.model.state_dict()
+        raw = ckpt_lib.load_params(ckpt + '.raw')
+        ema = ckpt_lib.load_params(ckpt)
+        if all(torch.equal(raw[k], init_sd[k]) for k in init_sd):
+            fail('train: the raw weights equal the initial ones')
+        if all(torch.equal(raw[k], ema[k]) for k in raw):
+            fail('train: the EMA weights equal the raw ones')
+        del init, init_sd
+        s_step, steps = step_seconds(rows, {1, TRAIN_STEPS + 1},
+                                     TRAIN_CKPT_EVERY)
+        recycles = [int(float(r['num_recycle'])) for r in rows]
+        print(f'train, ESM off (f32, B={TRAIN_BATCH}, L=288, full width) on '
+              f'{card}: {s_step:.3f} s per step (median of the steps after '
+              f'neither a run\'s first nor a save; (recycle passes, s) of '
+              f'those steps: '
+              f'{[(n, round(t, 3)) for n, t in steps]}; recycles drawn '
+              f'{recycles}), first run {wall:.2f} s wall incl. model build '
+              f'for {TRAIN_STEPS} steps, peak memory allocated {peak:.2f} '
+              f'GB', flush=True)
+        stats['train_esm_off'] = {
+            's_per_step': s_step, 'steps': steps, 'wall_s': wall,
+            'peak_gb': peak, 'num_recycle': recycles,
+            'total': [float(r['total']) for r in rows],
+            'grad_norm': [float(r['grad_norm']) for r in rows]}
+        paths['train_esm_off'] = launches
+
+        # ESM2-3B on, through the runner and the Trainer.
+        torch.cuda.reset_peak_memory_stats()
+        rt = runner.build_runtime(MODEL_CONFIG, seed=0, device='cuda',
+                                  esm_random=True)
+        trainer = Trainer(rt.model, rt.diffuser, rt.config.model,
+                          rt.config.loss, TrainConfig(log_every=1),
+                          esm=rt.esm)
+        it = prefetch(train.batch_iterator(data, names, rt.data_config,
+                                           TRAIN_BATCH, False, 0),
+                      size=2, device_put_ahead=True, device=rt.device)
+        metrics_path = os.path.join(tmp, 'esm_metrics.csv')
+        reset_counts(ws)
+        trainer.fit(trainer.init_state(), it, TRAIN_ESM_STEPS,
+                    torch.Generator(device=rt.device).manual_seed(0),
+                    metrics_path=metrics_path)
+        torch.cuda.synchronize()
+        launches = read_counts(ws)
+        peak_esm = torch.cuda.max_memory_allocated() / 1e9
+        rows = read_metrics(metrics_path)
+        check_train_rows(rows, list(range(1, TRAIN_ESM_STEPS + 1)),
+                         'train (ESM2-3B)')
+        passes = sum(int(float(r['num_recycle'])) + 1 for r in rows)
+        check_launches(launches, {'esm_attention': ESM_LAYERS * passes},
+                       'train (ESM2-3B, f32)')
+        if any(p.grad is not None for p in rt.esm.parameters()):
+            fail('train (ESM2-3B): an ESM parameter has a gradient')
+        lw = rt.model.seqformer.esm_embed_weights.grad
+        if lw is None or not torch.isfinite(lw).all() or \
+                float(lw.abs().sum()) == 0.0:
+            fail(f'train (ESM2-3B): layer-weight gradient {lw}')
+        s_esm, steps = step_seconds(rows, {1})
+        g_last, g_top = top_gradients(rt.model)
+        print(f'train, ESM2-3B on (f32, B={TRAIN_BATCH}, L=288, frozen '
+              f'random ESM) on {card}: {s_esm:.3f} s per step after the '
+              f'first ((recycle passes, s): '
+              f'{[(n, round(t, 3)) for n, t in steps]}; {passes} trunk '
+              f'passes in {TRAIN_ESM_STEPS} steps), peak memory allocated '
+              f'{peak_esm:.2f} GB; the last step\'s gradient norm '
+              f'{g_last:.4g}, largest leaves {g_top}', flush=True)
+        stats['train_esm_on'] = {
+            's_per_step': s_esm, 'steps': steps, 'peak_gb': peak_esm,
+            'passes': passes,
+            'total': [float(r['total']) for r in rows],
+            'grad_norm': [float(r['grad_norm']) for r in rows],
+            'layer_weight_grad_abs_sum': float(lw.abs().sum()),
+            'last_grad_norm': g_last, 'last_grad_top_leaves': g_top}
+        paths['train_esm_on'] = launches
+        del rt, trainer, it
+        torch.cuda.empty_cache()
+
+        # Design from the EMA weights the ESM-off run wrote.
+        dout = os.path.join(tmp, 'design_out')
+        reset_counts(ws)
+        design.main(['--pdb_file', PDB, '--output_dir', dout,
+                     '--model_config', MODEL_CONFIG, '--model', ckpt,
+                     '--seed', '0', '--bf16', '--device', 'cuda',
+                     '--num_samples', str(NUM_SAMPLES), '--batch_samples',
+                     str(NUM_SAMPLES), '--num_t', str(NUM_T)])
+        torch.cuda.synchronize()
+        launches = read_counts(ws)
+        check_design(dout, launches,
+                     {k: n * PASSES for k, n in PER_PASS.items()},
+                     'design from the trained weights')
+        paths['design_trained'] = launches
+    if not math.isfinite(s_step) or not math.isfinite(s_esm):
+        fail('train: step time not finite')
+    return paths, stats
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, 'abx_tpu_torch')):
         fail('abx_tpu_torch/ not found beside chip_smoke.py: run it from a '
@@ -2030,6 +2253,8 @@ def main():
     eval_paths, stats['eval'] = phase_eval(torch, card, design_out)
     paths.update(eval_paths)
     shutil.rmtree(design_out)
+    train_paths, stats['train'] = phase_train(torch, card)
+    paths.update(train_paths)
 
     rows = []
     for name, (source, replaces) in KERNEL_META.items():

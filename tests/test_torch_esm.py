@@ -88,7 +88,7 @@ def _port_esm2(tree):
     m = port_esm.ESM2(ESM_CFG, dtype=torch.float32, device='meta')
     params_lib.load_esm_params(m, params_lib.esm_flax_to_state_dict(tree),
                                'cpu', torch.float32)
-    return m
+    return m.eval()
 
 
 def _tokens(seed):
@@ -236,7 +236,7 @@ def test_fair_esm_checkpoint_loads_and_matches_its_model(tmp_path):
     torch.save({'model': mini.state_dict()}, path)
     sd = params_lib.fair_esm_state_dict(path)
     assert not any('rot_emb' in k or 'contact_head' in k for k in sd)
-    pm = port_esm.ESM2(port_esm.ESM2Config(3, 64, 4), device='meta')
+    pm = port_esm.ESM2(port_esm.ESM2Config(3, 64, 4), device='meta').eval()
     params_lib.load_esm_params(pm, sd, 'cpu', torch.float32)
     tokens = _tokens(8)
     with torch.no_grad():
@@ -308,7 +308,7 @@ def _esm_pair(l_ab, seed, sep=48):
                                dtype=jnp.float32, scan_layers=True)
     tree = jax_esm.stack_layer_params(_jax_esm_tree(seed))
     pesm = port_esm.AntibodyESM(ESM_CFG, l_ab, sep_pad_num=sep,
-                                dtype=torch.float32, device='meta')
+                                dtype=torch.float32, device='meta').eval()
     params_lib.load_esm_params(pesm.module,
                                params_lib.esm_flax_to_state_dict(tree),
                                'cpu', torch.float32)
@@ -364,7 +364,8 @@ def test_embedding_and_seqformer_with_esm_matches_jax():
         scale=0.5)
     want = jax.jit(lambda p, bt: jm.apply(p, bt, esm_fn=jfn))(
         jax.tree.map(jnp.asarray, tree), batch)
-    pm = EmbeddingAndSeqformer(pcfg.model.embeddings_and_seqformer, l_ab)
+    pm = EmbeddingAndSeqformer(pcfg.model.embeddings_and_seqformer,
+                               l_ab).eval()
     params_lib.load_flax_params(pm, tree)
     pb = to_device_batch({k: np.asarray(v) for k, v in batch.items()
                           if not isinstance(v, tuple)}, 'cpu')
@@ -411,7 +412,7 @@ def test_esm_design_sampler_matches_jax_under_shared_noise():
                            noise={k: jnp.asarray(v) for k, v in noise.items()})
 
     pdiff = JointDiffuser(JointConfig.from_dict(pcfg.diffuser.to_dict()))
-    pm = ScoreNetworkIteration(pcfg.model, pdiff, l_ab)
+    pm = ScoreNetworkIteration(pcfg.model, pdiff, l_ab).eval()
     params_lib.load_flax_params(pm, tree)
     calls = []
     pesm.register_forward_hook(lambda *_: calls.append(1))

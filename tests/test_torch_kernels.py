@@ -1432,7 +1432,8 @@ def test_tri_mult_module_cache_follows_an_in_place_change(cuda):
         .triangle_multiplication_outgoing
     torch.manual_seed(0)
     c = 32
-    mod = TriangleMultiplication(tm_cfg, c, dtype=torch.bfloat16).to(cuda)
+    mod = TriangleMultiplication(tm_cfg, c, dtype=torch.bfloat16).to(
+        cuda).eval()
     with torch.no_grad():
         for p in mod.parameters():
             p.normal_(0.0, 0.3)
@@ -1614,6 +1615,7 @@ def test_module_caches_the_packed_weights(monkeypatch, kind):
     from abx_tpu_torch.models import seqformer as sf
     from abx_tpu_torch.ops import registry, tri_attention
     mod, call, cache, wrapper, proj, attr, packed_of = _module_case(kind)
+    mod.eval()
     plain = {'fused_transition': transition_op.fused_transition_plain,
              'pair_bias_proj': pair_bias_op.pair_bias_proj_plain,
              'tri_mult_post_gatefold':
@@ -1769,7 +1771,7 @@ def test_module_launches_the_hopper_kernel_once(cuda, kind):
     from torch.profiler import ProfilerActivity, profile
     from abx_tpu_torch.models.seqformer import _bias_packed
     mod, _, cache, wrapper, proj, _, _ = _module_case(kind)
-    mod = mod.to(cuda).to(torch.bfloat16)
+    mod = mod.to(cuda).to(torch.bfloat16).eval()
     with torch.no_grad():
         for p in mod.parameters():
             p.normal_(0.0, 0.3)
@@ -1818,7 +1820,7 @@ def test_module_launches_its_kernel_once(cuda, kind):
     weight."""
     from torch.profiler import ProfilerActivity, profile
     mod, _, cache, _, proj, attr, _ = _module_case(kind)
-    mod = mod.to(cuda).to(torch.bfloat16)
+    mod = mod.to(cuda).to(torch.bfloat16).eval()
     with torch.no_grad():
         for p in mod.parameters():
             p.normal_(0.0, 0.3)
@@ -1883,3 +1885,28 @@ def test_module_launches_its_kernel_once(cuda, kind):
         torch.cuda.synchronize()
         err, share = bf16_agree(got, plain())
     assert err <= BF16_STEPS and share <= BF16_SHARE, (err, share)
+
+
+@pytest.mark.gpu
+def test_kernel_wrapper_raises_on_an_input_that_requires_grad(cuda):
+    """On the card a wrapper launched with grad enabled on an input that
+    requires grad raises, naming the kernel, where it would return a
+    result with no grad_fn; under no_grad it launches."""
+    from abx_tpu_torch.ops import transition
+    dev = cuda
+    g = torch.Generator().manual_seed(0)
+    c = 16
+    x = torch.randn(1, 5, 5, c, generator=g).to(dev)
+    args = [torch.ones(c), torch.zeros(c),
+            0.1 * torch.randn(4 * c, c, generator=g), torch.zeros(4 * c),
+            0.1 * torch.randn(c, 4 * c, generator=g), torch.zeros(c)]
+    args = [a.to(dev).requires_grad_() for a in args]
+    with pytest.raises(RuntimeError, match='fused_transition'):
+        transition.fused_transition(x, *args)
+    with pytest.raises(RuntimeError, match='fused_transition'):
+        transition.fused_transition(x.requires_grad_(), *args)
+    before = transition.fused_transition.launches
+    with torch.no_grad():
+        out = transition.fused_transition(x, *args)
+    assert transition.fused_transition.launches == before + 1
+    assert out.shape == x.shape

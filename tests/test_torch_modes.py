@@ -219,7 +219,7 @@ def test_optimize_sampler_matches_jax_under_shared_noise(jax_optimize, route,
     pcfg = port_config.tiny_model_config()
     pcfg.model.num_recycle = 2
     pdiff = JointDiffuser(JointConfig.from_dict(pcfg.diffuser.to_dict()))
-    pm = ScoreNetworkIteration(pcfg.model, pdiff, L_AB)
+    pm = ScoreNetworkIteration(pcfg.model, pdiff, L_AB).eval()
     params_lib.load_flax_params(pm, tree)
     psampler = Sampler(pm, pdiff, pcfg.model, SamplerConfig(
         num_t=NUM_T, mode='optimize', opt_step=OPT_STEP,

@@ -340,7 +340,7 @@ def block(setup):
     want = jm.apply(_jtree(tree), jnp.asarray(seq), jnp.asarray(pair),
                     jnp.asarray(mask))
     pm = SeqformerIteration(pcfg.model.embeddings_and_seqformer.seqformer,
-                            seq.shape[-1], pair.shape[-1])
+                            seq.shape[-1], pair.shape[-1]).eval()
     params_lib.load_flax_params(pm, tree)
     return pm, (t(seq), t(pair), t(mask)), [np.asarray(w) for w in want]
 
@@ -374,7 +374,7 @@ def ipa(setup):
     tree = _dense(jm, 10, reps, jb)
     want = jm.apply(_jtree(tree), reps, jb)
     pm = IpaScore(pcfg.model.heads.diffusion_module, pdiff, seq.shape[-1],
-                  pair.shape[-1])
+                  pair.shape[-1]).eval()
     params_lib.load_flax_params(pm, tree)
     pb = {k: t(v) for k, v in batch.items()}
     return pm, {'seq': t(seq), 'pair': t(pair)}, pb, want
@@ -443,7 +443,7 @@ def network(setup):
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     tree = _dense(jm, 13, jb, compute_loss=True)
     want = jm.apply(_jtree(tree), jb, num_recycle=cfg.model.num_recycle)
-    pm = ScoreNetworkIteration(pcfg.model, pdiff, L_AB)
+    pm = ScoreNetworkIteration(pcfg.model, pdiff, L_AB).eval()
     params_lib.load_flax_params(pm, tree)
     pb = {k: t(v) for k, v in batch.items()}
     pb.update(zero_prev(2, L_AB + L_AG, pcfg.model))
@@ -516,7 +516,7 @@ def test_trunk_with_recycled_inputs_kernel_route_matches_plain(setup,
     prev_pos bins): the kernel routes, the recycled pair-input assembly
     included, equal the plain path."""
     _, _, pcfg, pdiff, batch = setup
-    pm = ScoreNetworkIteration(pcfg.model, pdiff, L_AB)
+    pm = ScoreNetworkIteration(pcfg.model, pdiff, L_AB).eval()
     params_lib.load_flax_params(pm, params_lib.dense_random_tree(
         params_lib.state_dict_tree(pm), seed=14, scale=0.5))
     pb = {k: t(v) for k, v in batch.items()}

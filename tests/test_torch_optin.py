@@ -219,7 +219,7 @@ def setup():
     prepared batch, at L = 14 + 5."""
     pcfg = port_config.tiny_model_config()
     pdiff = JointDiffuser(JointConfig.from_dict(pcfg.diffuser.to_dict()))
-    pm = ScoreNetworkIteration(pcfg.model, pdiff, L_AB)
+    pm = ScoreNetworkIteration(pcfg.model, pdiff, L_AB).eval()
     params_lib.load_flax_params(pm, params_lib.dense_random_tree(
         params_lib.state_dict_tree(pm), seed=31, scale=0.5))
     pb = port_features.FeatureBuilder()(

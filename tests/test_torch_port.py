@@ -2,12 +2,13 @@
 own copies of the JAX package's framework-free data and output modules
 give the same results.
 
-The import check runs in a subprocess in which `abx_tpu`, `jax`, `flax`
-and `ml_collections` cannot be imported: every module under
-`abx_tpu_torch/` (the evaluation subpackage and its CLIs included) and
-`chip_smoke.py` are imported there, the design CLI
-makes one tiny CPU sample, and the test-set CLI (`cli/inference.py`) one
-tiny CPU optimize sample from an npz the port writes itself.  The data
+The import check runs in a subprocess in which `abx_tpu`, `jax`, `flax`,
+`optax`, `ml_collections`, `msgpack` and `orbax` cannot be imported: every
+module under `abx_tpu_torch/` (the evaluation and training subpackages and
+their CLIs included) and `chip_smoke.py` are imported there, the design
+CLI makes one tiny CPU sample, the test-set CLI (`cli/inference.py`) one
+tiny CPU optimize sample from an npz the port writes itself, and the
+training CLI one tiny CPU step on that npz.  The data
 check holds the port's `prepare_example` to the JAX package's on the
 repository's test complexes (integers exact, floats to 1e-6) and compares
 the PDB text both packages write.
@@ -25,7 +26,8 @@ from abx_tpu_torch import config as port_config
 from abx_tpu_torch.data import dataset as port_ds
 from abx_tpu_torch.sampling import output as port_output
 
-BLOCKED = ('abx_tpu', 'jax', 'flax', 'ml_collections')
+BLOCKED = ('abx_tpu', 'jax', 'flax', 'optax', 'ml_collections', 'msgpack',
+           'orbax')
 PDBS = ['testdata/6ct7_H_L_S.pdb', 'testdata/6qd7_X_Z_F|E.pdb']
 
 
@@ -41,10 +43,13 @@ mods = [m.name for m in pkgutil.walk_packages(abx_tpu_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 assert {{'abx_tpu_torch.evaluation.relax', 'abx_tpu_torch.evaluation.pll',
-         'abx_tpu_torch.cli.eval_pll'}} <= set(mods), mods
+         'abx_tpu_torch.cli.eval_pll', 'abx_tpu_torch.train.losses',
+         'abx_tpu_torch.train.trainer', 'abx_tpu_torch.utils.checkpoint',
+         'abx_tpu_torch.data.pipeline', 'abx_tpu_torch.cli.train'}} <= set(
+    mods), mods
 import chip_smoke
 import numpy as np
-from abx_tpu_torch.cli import design, inference
+from abx_tpu_torch.cli import design, inference, train
 from abx_tpu_torch.data import dataset
 design.main(['--pdb_file', {PDBS[0]!r}, '--output_dir', {str(out)!r},
              '--tiny', '--device', 'cpu', '--num_t', '2'])
@@ -57,6 +62,10 @@ inference.main(['--data_dir', {str(tmp_path)!r}, '--name_idx',
                 {str(out)!r}, '--tiny', '--device', 'cpu', '--mode',
                 'optimize', '--optimize_steps', '1', '--num_t', '2',
                 '--num_samples', '1'])
+train.main(['--data_dir', {str(tmp_path)!r}, '--name_idx',
+            {str(tmp_path / 'names.txt')!r}, '--output_dir',
+            {str(out / 'train')!r}, '--tiny', '--device', 'cpu',
+            '--batch_size', '1', '--num_steps', '1', '--prefetch', '0'])
 print(len(mods))
 """
     proc = subprocess.run([sys.executable, '-c', code], capture_output=True,
@@ -67,6 +76,7 @@ print(len(mods))
         assert (out / 'design' / sub / '6ct7_H_L_S.pdb').exists(), sub
     for sub in ('reference', 'OPT-1/0000'):
         assert (out / 'optimize' / sub / '6ct7_H_L_S.pdb').exists(), sub
+    assert (out / 'train' / 'params.pt.train').exists()
 
 
 def _prepare(ds, path):

@@ -79,7 +79,7 @@ def test_design_sampler_matches_jax_under_shared_noise():
                            noise={k: jnp.asarray(v) for k, v in noise.items()})
 
     pdiff = JointDiffuser(JointConfig.from_dict(pcfg.diffuser.to_dict()))
-    pm = ScoreNetworkIteration(pcfg.model, pdiff, l_ab)
+    pm = ScoreNetworkIteration(pcfg.model, pdiff, l_ab).eval()
     params_lib.load_flax_params(pm, tree)
     psampler = Sampler(pm, pdiff, pcfg.model,
                        SamplerConfig(num_t=NUM_T, collect_trajectory=True))

@@ -198,7 +198,7 @@ def trunk_pair():
         jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes),
         seed=1, scale=0.5)
     pdiff = JointDiffuser(JointConfig.from_dict(pcfg.diffuser.to_dict()))
-    pm = ScoreNetworkIteration(pcfg.model, pdiff, l_ab)
+    pm = ScoreNetworkIteration(pcfg.model, pdiff, l_ab).eval()
     params_lib.load_flax_params(pm, tree)
     return cfg, pcfg, jm, jdiff, tree, prepared, jfeats, pm, pdiff
 
@@ -254,7 +254,7 @@ def esm_pair():
         jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes),
         seed=13, scale=0.5)
     pdiff = JointDiffuser(JointConfig.from_dict(pcfg.diffuser.to_dict()))
-    pm = ScoreNetworkIteration(pcfg.model, pdiff, l_ab)
+    pm = ScoreNetworkIteration(pcfg.model, pdiff, l_ab).eval()
     params_lib.load_flax_params(pm, tree)
     return (cfg, pcfg, jm, jdiff, jesm, jesm_params, tree, prepared, jfeats,
             pm, pdiff, pesm)
@@ -328,9 +328,9 @@ def _port_model(esm=False, num_recycle=None, dtype=torch.float32, l_ab=24):
         es.embed_channel = port_esm.ESM2Config.tiny().embed_dim
         pesm = port_esm.AntibodyESM(port_esm.ESM2Config.tiny(), l_ab,
                                     sep_pad_num=4, dtype=dtype,
-                                    device='cpu')
+                                    device='cpu').eval()
     pdiff = JointDiffuser(JointConfig.from_dict(pcfg.diffuser.to_dict()))
-    pm = ScoreNetworkIteration(pcfg.model, pdiff, l_ab, dtype=dtype)
+    pm = ScoreNetworkIteration(pcfg.model, pdiff, l_ab, dtype=dtype).eval()
     g = torch.Generator().manual_seed(3)
     with torch.no_grad():
         for mod in (pm, pesm):
