@@ -1,5 +1,4 @@
-"""Test-set design / optimize / trajectory CLI on one device (reference
-inference.py).
+"""Test-set design / optimize / trajectory CLI (reference inference.py).
 
 Iterates a name index over a directory of per-complex npz files (the
 reference preprocessing schema; `data/dataset.py::complex_from_pdb` writes
@@ -16,6 +15,13 @@ two re-noising strengths:
 `--esm_reuse_recycles`, `--esm_refresh_every` and `--seq_corrector_steps`
 are the sampler's opt-in, output-changing options.
 
+Multi-host: `--coordinator host:port --num_hosts N --host_id i` on each
+of N processes (one card each, e.g. `--device cuda:i` on one machine)
+joins a `tcp://` gloo process group (the hosts exchange nothing but a
+barrier at the end) and shards the name list
+round-robin over the processes (`data/dataset.py::shard_names`); each
+process samples its complexes on its own card.
+
 `--device` defaults to cuda and never falls back: without a card it
 raises.  `--device cpu` must be asked for (with `--tiny` it is the CPU
 smoke run).  Without `--model` the weights are random, from `--seed`.
@@ -28,7 +34,11 @@ import logging
 import os
 from typing import List, Optional
 
+import torch.distributed as dist
+
 from abx_tpu_torch.cli import runner
+from abx_tpu_torch.data.dataset import shard_names
+from abx_tpu_torch.parallel import mesh as mesh_lib
 
 
 def main(argv: Optional[List[str]] = None):
@@ -76,15 +86,41 @@ def main(argv: Optional[List[str]] = None):
     p.add_argument('--bf16', action='store_true',
                    help='bfloat16 trunk compute')
     p.add_argument('--device', type=str, default='cuda',
-                   help="'cuda' (default; raises without a card) or 'cpu'")
+                   help="'cuda' (default; raises without a card), 'cuda:<i>' "
+                        "or 'cpu'")
+    p.add_argument('--coordinator', type=str, default=None,
+                   help='multi-host: host:port of process 0 (a tcp:// '
+                        'process group); requires --num_hosts/--host_id')
+    p.add_argument('--num_hosts', type=int, default=None)
+    p.add_argument('--host_id', type=int, default=None)
     p.add_argument('--verbose', action='store_true')
     args = p.parse_args(argv)
+    if args.coordinator and (args.num_hosts is None or args.host_id is None):
+        p.error('--coordinator requires --num_hosts and --host_id')
 
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format='%(asctime)-15s [%(levelname)s] %(message)s')
     with open(args.name_idx, encoding='utf-8') as f:
         name_idx = [x.strip() for x in f if x.strip()]
+    if args.coordinator:
+        # gloo: the hosts exchange nothing but the final barrier.
+        mesh_lib.init_process_group('gloo', args.coordinator,
+                                    args.num_hosts, args.host_id)
+        # Complexes over hosts; each host samples its own on its device.
+        name_idx = shard_names(name_idx, dist.get_rank(),
+                               dist.get_world_size())
+    try:
+        log = _run(args, name_idx)
+        if args.coordinator:
+            dist.barrier()  # no host leaves while another still samples
+        return log
+    finally:
+        if args.coordinator:
+            dist.destroy_process_group()
+
+
+def _run(args, name_idx):
     rt = runner.build_runtime(args.model_config, args.model, tiny=args.tiny,
                               seed=args.seed, bf16=args.bf16,
                               device=args.device,

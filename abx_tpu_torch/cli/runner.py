@@ -1,7 +1,12 @@
-"""Shared CLI runtime on one device: model/diffuser construction, complex
-loading (one PDB, or a name index over a directory of npz files) and the
-sampling loop of the design, optimize and trajectory modes
-(counterpart of abx_tpu/cli/runner.py, without the mesh).
+"""Shared CLI runtime: model/diffuser construction, complex loading (one
+PDB, or a name index over a directory of npz files) and the sampling loop
+of the design, optimize and trajectory modes (counterpart of
+abx_tpu/cli/runner.py).
+
+One process runs on one device.  Complexes are spread over hosts by the
+caller (`data/dataset.py::shard_names`, cli/inference.py); within a host,
+the ranks of a `mesh` (parallel/mesh.py) share each chunk's samples, as the
+JAX runner shards a chunk over a host's local devices.
 """
 
 from __future__ import annotations
@@ -25,9 +30,11 @@ from abx_tpu_torch.models.esm import AntibodyESM, ESM2Config, esm2_num_heads
 from abx_tpu_torch.models.modules import reset_parameters
 from abx_tpu_torch.models.network import ScoreNetworkIteration
 from abx_tpu_torch.ops import _lib
+from abx_tpu_torch.parallel import mesh as mesh_lib
 from abx_tpu_torch.sampling.output import (postprocess_reference,
                                            postprocess_sample,
                                            postprocess_trajectory)
+from abx_tpu_torch.sampling.picard import draw_noise
 from abx_tpu_torch.sampling.sampler import (Sampler, SamplerConfig,
                                             to_device_batch)
 from abx_tpu_torch.utils import checkpoint as ckpt_lib
@@ -186,6 +193,31 @@ def sample_generator(device: torch.device, seed: int, name: str,
     return torch.Generator(device=device).manual_seed(key % (2**63))
 
 
+def sample_chunk(sampler: Sampler, feats, generator: torch.Generator,
+                 mesh: mesh_lib.Mesh, check: bool = False):
+    """One chunk of samples (a device batch of them), this rank's rows of it:
+    every rank draws the chunk's initial noise and its per-step draws for
+    the whole chunk from `generator` (seeded alike on every rank) and keeps
+    its rows, so the chunk's samples do not depend on how many ranks share
+    it.  `check` runs the exact-match check of the sharding.  Returns
+    (the rows' sampler result, the rows: a slice of the chunk)."""
+    c = sampler.config
+    prepared = sampler.prepare(feats, generator)
+    b, l = prepared['seq'].shape
+    k_corr = (c.seq_corrector_steps
+              if sampler.diffuser.config.diffuse_seq else 0)
+    noise = draw_noise(generator, len(sampler.step_grids()[0]), b, l,
+                       sampler.diffuser.seq.num_states, k_corr,
+                       device=prepared['seq'].device)
+    rows = mesh_lib.batch_sharding(mesh).rows(b, mesh.rank)
+    mine = mesh_lib.shard_batch(mesh, prepared)
+    if check:
+        mesh_lib.check_shards(mesh, prepared, mine)
+    noise = {k: v[:, :, rows] if k == 'corr_u' else v[:, rows]
+             for k, v in noise.items()}
+    return sampler.sample_prepared(mine, generator, noise), rows
+
+
 def _to_host(result):
     """Sampler result -> numpy; a collected trajectory becomes a dict of
     arrays with a leading step axis."""
@@ -225,7 +257,8 @@ def run_sampling(runtime: Runtime, output_dir: str, complexes,
                  batch_samples: Optional[int] = None, mode: str = 'design',
                  opt_steps: Sequence[int] = (), resume: bool = False,
                  esm_reuse_recycles: bool = False,
-                 esm_refresh_every: int = 1, seq_corrector_steps: int = 0
+                 esm_refresh_every: int = 1, seq_corrector_steps: int = 0,
+                 mesh: Optional[mesh_lib.Mesh] = None
                  ) -> List[Tuple[str, int, float]]:
     """Sample `num_samples` samples of each complex, `batch_samples` at a
     time in the batch axis; writes reference/<name>.pdb and
@@ -234,10 +267,16 @@ def run_sampling(runtime: Runtime, output_dir: str, complexes,
     <name>@<t>.pdb per step in trajectory mode.  `resume` skips the samples
     whose output exists.  `esm_reuse_recycles`, `esm_refresh_every` and
     `seq_corrector_steps` are the sampler's opt-in, output-changing options
-    (SamplerConfig).  Returns (name, n, seconds) per batch."""
+    (SamplerConfig).  `mesh`: the ranks of this host that share each
+    chunk (`sample_chunk`; default this process alone): a rank writes the
+    samples of its rows, rank 0 the reference and a chunk the mesh size
+    does not divide; `batch_samples` defaults to the mesh size.  Returns
+    (name, n, seconds) per chunk, n this rank's samples."""
     cfg = runtime.config
     num_t = num_t or cfg.diffuser.inference_step
-    batch_samples = batch_samples or 1
+    mesh = mesh or mesh_lib.local_mesh(runtime.device)
+    batch_samples = batch_samples or mesh.size
+    checked = False
     ref_dir = os.path.join(output_dir, 'reference')
     os.makedirs(ref_dir, exist_ok=True)
     opt_list = list(opt_steps) if mode == 'optimize' else [None]
@@ -259,9 +298,12 @@ def run_sampling(runtime: Runtime, output_dir: str, complexes,
         for feats, meta in complexes:
             name = meta['name']
             batch = ds.stack_batch([feats])
-            postprocess_reference(ref_dir, meta, batch)
+            if mesh.rank == 0:
+                postprocess_reference(ref_dir, meta, batch)
             sample_idx = (_first_unfinished(sub_dir, name, num_samples,
                                             batch_samples) if resume else 0)
+            # The ranks start together (another rank may already write).
+            sample_idx = mesh_lib.min_over_ranks(mesh, sample_idx)
             if sample_idx:
                 logger.info('%s: resuming at sample %d', name, sample_idx)
             while sample_idx < num_samples:
@@ -270,19 +312,26 @@ def run_sampling(runtime: Runtime, output_dir: str, complexes,
                 gen = sample_generator(runtime.device, seed, name, sample_idx)
                 t0 = time.time()
                 try:
-                    result = _to_host(sampler.sample(
-                        to_device_batch(tiled, runtime.device), gen))
+                    result, rows = sample_chunk(
+                        sampler, to_device_batch(tiled, runtime.device),
+                        gen, mesh, check=not checked)
+                    result = _to_host(result)
+                    checked = True
                 except Exception:
                     # Per-complex resilience, as the JAX runner: log, go on.
                     logger.exception('sampling failed for %s; skipping',
                                      name)
                     break
                 elapsed = time.time() - t0
+                mine = rows.stop - rows.start
                 logger.info('%s: %d samples in %.2fs (%.2f samples/s)', name,
-                            n, elapsed, n / elapsed)
-                results_log.append((name, n, elapsed))
-                for i in range(n):
-                    sdir = os.path.join(sub_dir, f'{sample_idx + i:04d}')
+                            mine, elapsed, mine / elapsed)
+                results_log.append((name, mine, elapsed))
+                if mine == n and mesh.rank:
+                    mine = 0  # a replicated chunk: rank 0 writes it
+                for i in range(mine):
+                    sdir = os.path.join(sub_dir,
+                                        f'{sample_idx + rows.start + i:04d}')
                     os.makedirs(sdir, exist_ok=True)
                     if mode == 'trajectory':
                         postprocess_trajectory(sdir, meta, result, i)

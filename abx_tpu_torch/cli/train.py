@@ -1,11 +1,19 @@
-"""Training CLI on one device.
+"""Training CLI, on one device or data-parallel over processes.
 
 Counterpart of abx_tpu/cli/train.py: cluster-based sampling (one random
 member per cluster per epoch, reference dataset.py:46-73), the train-mode
 forward noising and the loss stack of `train/losses.py`, with the JAX
-CLI's flags.  Runs are single-process on one device: the JAX CLI's
-multi-host sharding of the name list waits for the port's parallelism.
-Training runs in f32, as the JAX CLI builds its runtime.
+CLI's flags.  Training runs in f32, as the JAX CLI builds its runtime.
+
+Data parallel: under an initialised process group (the caller's, or the
+one this CLI joins from torchrun's environment, `--dist_backend` nccl with
+one card a rank), the name list is sharded round-robin over the ranks,
+each rank loads its `--batch_size / world` rows of the global batch and
+its prefetch puts them on its own card, and the Trainer's step is the
+one-process step on the global batch (train/trainer.py).  Rank 0 writes
+the checkpoints and the metrics.  Example (one host, 4 cards):
+    torchrun --nproc_per_node 4 -m abx_tpu_torch.cli.train \
+        --dist_backend nccl --batch_size 16 --data_dir data/npz ...
 
 Example (one H100):
     python -m abx_tpu_torch.cli.train --data_dir data/npz \
@@ -28,9 +36,11 @@ import random
 from typing import Iterator, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from abx_tpu_torch.cli import runner
 from abx_tpu_torch.data import dataset as ds
+from abx_tpu_torch.parallel import mesh as mesh_lib
 from abx_tpu_torch.train.trainer import TrainConfig, Trainer
 
 logger = logging.getLogger(__name__)
@@ -141,7 +151,12 @@ def main(argv: Optional[List[str]] = None):
     p.add_argument('--esm_dim', type=int, default=None)
     p.add_argument('--tiny', action='store_true')
     p.add_argument('--device', type=str, default='cuda',
-                   help="'cuda' (default; raises without a card) or 'cpu'")
+                   help="'cuda' (default; raises without a card; under "
+                        "torchrun the card LOCAL_RANK names) or 'cpu'")
+    p.add_argument('--dist_backend', type=str, default=None,
+                   choices=['gloo', 'nccl'],
+                   help='the process group\'s backend when this CLI joins '
+                        'one from torchrun\'s environment (WORLD_SIZE > 1)')
     p.add_argument('--verbose', action='store_true')
     args = p.parse_args(argv)
     if args.use_orbax:
@@ -150,10 +165,29 @@ def main(argv: Optional[List[str]] = None):
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format='%(asctime)-15s [%(levelname)s] %(message)s')
+    joined = False
+    if not dist.is_initialized() and int(os.environ.get('WORLD_SIZE',
+                                                        '1')) > 1:
+        if args.dist_backend is None:
+            p.error('WORLD_SIZE > 1: give --dist_backend (nccl with one '
+                    'card a rank, gloo on the CPU)')
+        dist.init_process_group(args.dist_backend, init_method='env://')
+        joined = True
+    try:
+        return _train(args, p)
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
+
+def _train(args, p):
+    device = args.device
+    if (dist.is_initialized() and device == 'cuda'
+            and 'LOCAL_RANK' in os.environ):
+        device = f'cuda:{os.environ["LOCAL_RANK"]}'
     rt = runner.build_runtime(args.model_config, args.init_checkpoint,
                               tiny=args.tiny, seed=args.seed,
-                              device=args.device,
+                              device=device,
                               esm_checkpoint=args.esm_checkpoint,
                               esm_random=args.esm_random,
                               esm_layers=args.esm_layers,
@@ -163,6 +197,13 @@ def main(argv: Optional[List[str]] = None):
     else:
         with open(args.name_idx, encoding='utf-8') as f:
             names = [x.strip() for x in f if x.strip()]
+    mesh = (mesh_lib.make_mesh(device=rt.device) if dist.is_initialized()
+            else mesh_lib.local_mesh(rt.device))
+    if args.batch_size % mesh.size:
+        p.error(f'--batch_size {args.batch_size} not divisible by the '
+                f'{mesh.size} ranks')
+    # Each rank loads its own rows of the global batch.
+    names = ds.shard_names(names, mesh.rank, mesh.size)
 
     os.makedirs(args.output_dir, exist_ok=True)
     trainer = Trainer(
@@ -173,7 +214,7 @@ def main(argv: Optional[List[str]] = None):
                     ema_decay=args.ema_decay,
                     log_every=args.log_every,
                     checkpoint_every=args.checkpoint_every),
-        esm=rt.esm)
+        esm=rt.esm, mesh=mesh)
     ckpt = os.path.join(args.output_dir, CHECKPOINT)
     if args.resume and os.path.exists(ckpt + '.train'):
         state = trainer.load_train_state(ckpt)
@@ -186,7 +227,8 @@ def main(argv: Optional[List[str]] = None):
                 'step and EMA are fresh (use --resume with a .train '
                 'checkpoint to continue training exactly)')
     data_iter = batch_iterator(args.data_dir, names, rt.data_config,
-                               args.batch_size, args.is_cluster_idx,
+                               args.batch_size // mesh.size,
+                               args.is_cluster_idx,
                                args.seed, reduce_num=args.reduce_num)
     if args.prefetch > 0:
         from abx_tpu_torch.data.pipeline import prefetch

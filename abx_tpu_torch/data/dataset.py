@@ -436,3 +436,10 @@ def _npz_to_example(raw: Dict) -> Dict:
             f'{prefix}_residx', np.arange(n, dtype=np.int32))
     return out
 
+
+
+def shard_names(name_idx: Sequence[str], process_index: int,
+                process_count: int) -> List[str]:
+    """Host-level round-robin sharding (reference DistributedDataset)."""
+    return [n for i, n in enumerate(name_idx)
+            if i % process_count == process_index]

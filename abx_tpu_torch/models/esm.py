@@ -23,6 +23,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -119,22 +120,43 @@ class ESMLayerNorm(nn.Module):
                           two_pass=two_pass)
 
 
+def _row_parallel(linear: nn.Linear, x, tp_group):
+    """`linear(x)`; under a tensor-parallel group (`linear` holds this
+    rank's input rows of the weight) the partial products are summed over
+    the group first and the bias is added once, after the reduction."""
+    if tp_group is None:
+        return linear(x)
+    y = F.linear(x, linear.weight)
+    dist.all_reduce(y, group=tp_group)
+    return y + linear.bias
+
+
 class ESMSelfAttention(nn.Module):
-    def __init__(self, config: ESM2Config, dtype, device=None):
+    """Under tensor parallelism (`tp_size` ranks of `tp_group`, see
+    parallel/esm_tp.py) q / k / v hold this rank's output columns, so it
+    runs heads / tp_size heads, and out_proj its input rows."""
+
+    def __init__(self, config: ESM2Config, dtype, device=None,
+                 tp_size: int = 1, tp_group=None):
         super().__init__()
         d = config.embed_dim
-        self.num_heads = config.attention_heads
+        d_loc = d // tp_size
+        self.head_dim = d // config.attention_heads
+        self.tp_group = tp_group
         kw = dict(dtype=dtype, device=device)
-        self.q_proj = nn.Linear(d, d, **kw)
-        self.k_proj = nn.Linear(d, d, **kw)
-        self.v_proj = nn.Linear(d, d, **kw)
-        self.out_proj = nn.Linear(d, d, **kw)
+        self.q_proj = nn.Linear(d, d_loc, **kw)
+        self.k_proj = nn.Linear(d, d_loc, **kw)
+        self.v_proj = nn.Linear(d, d_loc, **kw)
+        self.out_proj = nn.Linear(d_loc, d, **kw)
 
     def forward(self, x, padding_mask, cos, sin):
         """x (B, L, D) in the compute dtype; padding_mask (B, L) bool."""
-        b, l, d = x.shape
-        h = self.num_heads
-        dh = d // h
+        b, l, _ = x.shape
+        dh = self.head_dim
+        # The head count comes from the local projection width: all heads
+        # on one rank, heads / tp under tensor parallelism.
+        h = self.q_proj.out_features // dh
+        d = h * dh
         q = self.q_proj(x).view(b, l, h, dh)
         k = self.k_proj(x).view(b, l, h, dh)
         v = self.v_proj(x).view(b, l, h, dh)
@@ -150,23 +172,30 @@ class ESMSelfAttention(nn.Module):
                 q, k, v, attn_mask=~padding_mask[:, None, None, :], scale=1.0)
         else:
             out = esm_attention_plain(q, k, v, padding_mask)
-        return self.out_proj(out.transpose(1, 2).reshape(b, l, d))
+        return _row_parallel(self.out_proj,
+                             out.transpose(1, 2).reshape(b, l, d),
+                             self.tp_group)
 
 
 class ESMLayer(nn.Module):
     """Pre-LN transformer layer: LN -> attention -> +res, LN -> fc1 ->
-    exact GELU -> fc2 -> +res.  The two LNs are one-pass f32, eps 1e-5."""
+    exact GELU -> fc2 -> +res.  The two LNs are one-pass f32, eps 1e-5.
+    Under tensor parallelism fc1 holds this rank's (4 D) / tp_size output
+    columns and fc2 their input rows."""
 
-    def __init__(self, config: ESM2Config, dtype, device=None):
+    def __init__(self, config: ESM2Config, dtype, device=None,
+                 tp_size: int = 1, tp_group=None):
         super().__init__()
         d = config.embed_dim
         kw = dict(dtype=dtype, device=device)
         self.dtype = dtype
+        self.tp_group = tp_group
         self.self_attn_layer_norm = ESMLayerNorm(d, 1e-5, **kw)
-        self.self_attn = ESMSelfAttention(config, **kw)
+        self.self_attn = ESMSelfAttention(config, tp_size=tp_size,
+                                          tp_group=tp_group, **kw)
         self.final_layer_norm = ESMLayerNorm(d, 1e-5, **kw)
-        self.fc1 = nn.Linear(d, 4 * d, **kw)
-        self.fc2 = nn.Linear(4 * d, d, **kw)
+        self.fc1 = nn.Linear(d, 4 * d // tp_size, **kw)
+        self.fc2 = nn.Linear(4 * d // tp_size, d, **kw)
 
     def forward(self, x, padding_mask, cos, sin):
         # In training the two LNs take the two-pass variance, as the JAX
@@ -178,23 +207,27 @@ class ESMLayer(nn.Module):
                            padding_mask, cos, sin)
         x = x + y
         y = F.gelu(self.fc1(self.final_layer_norm(x, tp).to(dt)))
-        return x + self.fc2(y)
+        return x + _row_parallel(self.fc2, y, self.tp_group)
 
 
 class ESM2(nn.Module):
     """ESM2 encoder.  For the 3B model, build it on the 'meta' device and
     give it weights with `utils/params.load_esm_params` or
-    `cli/runner._random_esm`: nothing is allocated on the host."""
+    `cli/runner._random_esm`: nothing is allocated on the host.
+    `tp_size` / `tp_group`: the layers' tensor-parallel shards
+    (parallel/esm_tp.py)."""
 
-    def __init__(self, config: ESM2Config, dtype=torch.float32, device=None):
+    def __init__(self, config: ESM2Config, dtype=torch.float32, device=None,
+                 tp_size: int = 1, tp_group=None):
         super().__init__()
         c = config
         self.config = c
         self.dtype = dtype
         kw = dict(dtype=dtype, device=device)
         self.embed_tokens = nn.Embedding(c.alphabet_size, c.embed_dim, **kw)
-        self.layers = nn.ModuleList(ESMLayer(c, **kw)
-                                    for _ in range(c.num_layers))
+        self.layers = nn.ModuleList(
+            ESMLayer(c, tp_size=tp_size, tp_group=tp_group, **kw)
+            for _ in range(c.num_layers))
         # A flax nn.LayerNorm in the JAX package: eps 1e-6.
         self.emb_layer_norm_after = ESMLayerNorm(c.embed_dim, 1e-6, **kw)
 

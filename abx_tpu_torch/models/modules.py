@@ -9,6 +9,7 @@ onto the other by name.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
@@ -172,12 +173,24 @@ def fused_dense(x, linears: Sequence[Linear], dtype):
     return torch.split(y, [m.out_features for m in linears], dim=-1)
 
 
-def shared_dropout(x, rate: float, generator: Optional[torch.Generator],
+@dataclasses.dataclass(frozen=True)
+class RowShard:
+    """A generator whose draws are made for the whole batch of `total`
+    rows, of which the caller holds rows [start, stop): a data-parallel
+    rank draws the one-process step's dropout masks and keeps its rows."""
+    generator: torch.Generator
+    start: int
+    stop: int
+    total: int
+
+
+def shared_dropout(x, rate: float, generator,
                    broadcast_dim: Optional[int] = None):
-    """Dropout whose keep mask is drawn from `generator` (on x's device)
-    and, with `broadcast_dim`, shared along that axis (AF2 row / column
-    dropout): kept values scaled by 1 / (1 - rate).  The callers apply it
-    in training only; rate 0 returns x and draws nothing."""
+    """Dropout whose keep mask is drawn from `generator` (a
+    `torch.Generator`, or a `RowShard` of one; on x's device) and, with
+    `broadcast_dim`, shared along that axis (AF2 row / column dropout):
+    kept values scaled by 1 / (1 - rate).  The callers apply it in
+    training only; rate 0 returns x and draws nothing."""
     if rate == 0.0:
         return x
     if generator is None:
@@ -185,8 +198,17 @@ def shared_dropout(x, rate: float, generator: Optional[torch.Generator],
     shape = list(x.shape)
     if broadcast_dim is not None:
         shape[broadcast_dim] = 1
-    keep = torch.rand(shape, generator=generator, device=x.device) \
-        < 1.0 - rate
+    if isinstance(generator, RowShard):
+        if broadcast_dim == 0 or shape[0] != generator.stop - generator.start:
+            raise ValueError(f'RowShard rows [{generator.start}, '
+                             f'{generator.stop}) for a batch of {shape[0]}')
+        keep = torch.rand([generator.total] + shape[1:],
+                          generator=generator.generator,
+                          device=x.device)[generator.start:generator.stop] \
+            < 1.0 - rate
+    else:
+        keep = torch.rand(shape, generator=generator, device=x.device) \
+            < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

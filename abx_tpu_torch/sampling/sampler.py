@@ -220,8 +220,10 @@ class Sampler:
 
         `noise` optionally injects the per-step primitive draws: arrays
         with a leading axis over the step grid (its steps + 1 with the prime
-        step), keys as in `JointDiffuser.reverse`.  Without it, draws come
-        from `generator`; the corrector's always do."""
+        step), keys as in `JointDiffuser.reverse`, and optionally
+        'corr_u' (grid, k, B, L, S) uniforms for the corrector's k jumps
+        (`sampling/picard.py::draw_noise` draws them all).  The draws it
+        lacks come from `generator`."""
         traj, state = self._start(batch)
         outs: List[Dict] = []
         state = self._run_steps(traj, state, 0, len(self.step_grids()[0]),
@@ -306,89 +308,114 @@ class Sampler:
         """Grid positions [start, end); the kept step outputs are appended
         to `outs`.  Returns the state after them."""
         c = self.config
+        b = traj.diffuse_mask.shape[0]
+        grids = self.step_grids()
+        n = len(grids[0])
+        for s in range(start, end):
+            rows = np.full(b, s)
+            step_noise = ({k: v[s] for k, v in noise.items()}
+                          if noise else None)
+            state, out = self.step(traj, state, rows, generator, step_noise)
+            if grids[2][s] or not (c.collect_trajectory or s == n - 1):
+                continue
+            outs.append({**out, 't': float(grids[0][s])})
+        return state
+
+    def step(self, traj: _Trajectory, state, positions: np.ndarray,
+             generator, noise: Optional[Dict[str, torch.Tensor]] = None):
+        """One reverse step on every row of `state`, row i at grid position
+        `positions[i]` (its own t, t_model, prime and ESM-refresh flag):
+        the sequential sampler passes one position for all rows, the Picard
+        sampler (`sampling/picard.py`) every position at once.  The prime,
+        final and ordinary updates are chosen per row; where all rows agree
+        only that update is computed, so the sequential sampler's bits and
+        draws are those of a step at one position.  `noise` holds this
+        step's per-row draws (keys of `JointDiffuser.reverse`, and
+        'corr_u' (k, R, L, S) uniforms for the corrector's jumps); the
+        draws it lacks come from `generator`.  Returns (next state, the
+        step's outputs: atom14, seq, plddt)."""
+        c = self.config
         cfg = self.model_config
         model, diffuser = self.model, self.diffuser
         prev_pos_cfg = cfg.embeddings_and_seqformer.prev_pos
         static, mask = traj.static, traj.diffuse_mask
-        b = mask.shape[0]
         dev = mask.device
         esm_fn = None if self.esm_reuse else self.esm_fn
         ts, ts_model, is_prime, refresh = self.step_grids()
-        n = len(ts)
+        prime = is_prime[positions]
+        last = ts[positions].astype(np.float64) <= c.min_t + 1e-8
+        t = torch.from_numpy(ts[positions]).to(dev)
+        t_model = torch.from_numpy(ts_model[positions]).to(dev)
 
         def single(mb, compute_loss=False):
             return model(mb, static_acts=traj.static_acts, esm_fn=esm_fn,
                          compute_loss=compute_loss)
 
-        for s in range(start, end):
-            t, prime = float(ts[s]), bool(is_prime[s])
-            mb = dict(static)
-            mb.update({k: v for k, v in state.items() if k != 'esm_cache'})
-            t_vec = torch.full((b,), float(ts_model[s]), device=dev)
-            rot_s, trans_s = diffuser.score_scaling(t_vec)
-            mb.update(t=t_vec, rot_score_scaling=rot_s,
-                      trans_score_scaling=trans_s)
-            esm_w = None
-            if self.esm_reuse:
-                esm_w = (self._esm_weighted(state['seq_t'], static)
-                         if refresh[s] else state['esm_cache'])
-                mb['esm_weighted'] = esm_w
-            out = forward_with_recycling(single, mb, cfg.num_recycle,
-                                         prev_pos_cfg)
-            folding = out['heads']['folding']
-            seq_head = out['heads']['sequence_module']
-            # The reverse transition reads the recycled sequence (the
-            # reference mutates seq_t in place during recycling).
-            seq_cur = out['recycled_seq_t']
-            prev = get_prev(mb, out, prev_pos_cfg)
-            step_noise = ({k: v[s] for k, v in noise.items()}
-                          if noise else None)
-            rigids_rev, seq_rev = diffuser.reverse(
-                generator, state['rigids_t'], seq_cur, folding['rot_score'],
-                folding['trans_score'], seq_head['logits'],
-                torch.full((b,), t, device=dev), self.dt,
-                diffuse_mask=mask, center=c.center,
-                noise_scale=c.noise_scale, noise=step_noise)
-            last = t <= c.min_t + 1e-8
-            if prime:  # prime step: rigids unchanged, seq_t recycled
-                rigids_next, seq_next = state['rigids_t'], seq_cur
-            elif last:  # final step: the denoised output
-                rigids_next, seq_next = folding['rigids'], seq_head['seq_0']
-            else:
-                if c.seq_corrector_steps and diffuser.config.diffuse_seq:
-                    seq_rev = self._correct(generator, seq_rev,
-                                            seq_head['logits'], t, mask)
-                rigids_next, seq_next = rigids_rev, seq_rev
-            state = {'rigids_t': rigids_next, 'seq_t': seq_next.long(),
+        mb = dict(static)
+        mb.update({k: v for k, v in state.items() if k != 'esm_cache'})
+        rot_s, trans_s = diffuser.score_scaling(t_model)
+        mb.update(t=t_model, rot_score_scaling=rot_s,
+                  trans_score_scaling=trans_s)
+        esm_w = None
+        if self.esm_reuse:
+            fresh = refresh[positions]
+            esm_w = _pick(fresh, lambda: self._esm_weighted(state['seq_t'],
+                                                            static),
+                          lambda: state['esm_cache'])
+            mb['esm_weighted'] = esm_w
+        out = forward_with_recycling(single, mb, cfg.num_recycle,
+                                     prev_pos_cfg)
+        folding = out['heads']['folding']
+        seq_head = out['heads']['sequence_module']
+        # The reverse transition reads the recycled sequence (the
+        # reference mutates seq_t in place during recycling).
+        seq_cur = out['recycled_seq_t']
+        prev = get_prev(mb, out, prev_pos_cfg)
+        rigids_rev, seq_rev = diffuser.reverse(
+            generator, state['rigids_t'], seq_cur, folding['rot_score'],
+            folding['trans_score'], seq_head['logits'], t, self.dt,
+            diffuse_mask=mask, center=c.center, noise_scale=c.noise_scale,
+            noise=noise)
+        ordinary = ~(prime | last)
+        if (ordinary.any() and c.seq_corrector_steps
+                and diffuser.config.diffuse_seq):
+            seq_rev = self._correct(generator, seq_rev, seq_head['logits'],
+                                    ts[positions], mask,
+                                    (noise or {}).get('corr_u'))
+        # Final step: the denoised output; prime step: rigids unchanged,
+        # seq_t recycled (the prime flag wins, as in the JAX program).
+        rigids_next = _pick(last, lambda: folding['rigids'],
+                            lambda: rigids_rev)
+        seq_next = _pick(last, lambda: seq_head['seq_0'], lambda: seq_rev)
+        rigids_next = _pick(prime, lambda: state['rigids_t'],
+                            lambda: rigids_next)
+        seq_next = _pick(prime, lambda: seq_cur, lambda: seq_next)
+        new_state = {'rigids_t': rigids_next, 'seq_t': seq_next.long(),
                      **prev}
-            if esm_w is not None and c.esm_refresh_every > 1:
-                state['esm_cache'] = esm_w
-            if prime or not (c.collect_trajectory or s == n - 1):
-                continue
-            plddt = out['heads']['predicted_lddt']['pLDDT']
-            outs.append({
-                'atom14': folding['final_atom14_positions'],
-                'seq': seq_next.clamp(0, 19),
-                'plddt': torch.sum(plddt * mask, dim=1)
-                / (torch.sum(mask, dim=1) + 1e-8),
-                't': t,
-            })
-        return state
+        if esm_w is not None and c.esm_refresh_every > 1:
+            new_state['esm_cache'] = esm_w
+        plddt = out['heads']['predicted_lddt']['pLDDT']
+        return new_state, {
+            'atom14': folding['final_atom14_positions'],
+            'seq': seq_next.clamp(0, 19),
+            'plddt': torch.sum(plddt * mask, dim=1)
+            / (torch.sum(mask, dim=1) + 1e-8),
+        }
 
-    def _correct(self, generator, seq, logits, t, mask):
+    def _correct(self, generator, seq, logits, t, mask, u=None):
         """`seq_corrector_steps` Gibbs-corrector jumps at t_next = max(t -
-        dt, min_t) (f32, as the JAX program takes it), fixed sites mixed
-        back through `mask`.  The prime and final steps discard the
+        dt, min_t) (f32 per row, t the rows' grid times, as the JAX program
+        takes it), fixed sites mixed back through `mask`; `u` (k, R, L, S)
+        injects the jumps' uniforms.  The prime and final steps discard the
         predictor's sequence, so they run none."""
         c = self.config
-        t_next = torch.full(
-            (seq.shape[0],),
-            float(np.maximum(np.float32(t) - np.float32(self.dt),
-                             np.float32(c.min_t))),
-            device=seq.device)
-        for _ in range(c.seq_corrector_steps):
+        t_next = torch.from_numpy(np.maximum(
+            t.astype(np.float32) - np.float32(self.dt),
+            np.float32(c.min_t))).to(seq.device)
+        for i in range(c.seq_corrector_steps):
             seq_c = self.diffuser.seq.corrector(
-                generator, seq, logits, t_next, self.dt * c.corrector_scale)
+                generator, seq, logits, t_next, self.dt * c.corrector_scale,
+                u=None if u is None else u[i])
             seq = (mask * seq_c + (1 - mask) * seq).long()
         return seq
 
@@ -403,6 +430,18 @@ class Sampler:
         if self.config.collect_trajectory:
             result['trajectory'] = outs
         return result
+
+
+def _pick(flags: np.ndarray, when, otherwise):
+    """Per-row choice: `when()` where `flags` (R,) holds, else
+    `otherwise()`; only the one needed is computed when all rows agree."""
+    if flags.all():
+        return when()
+    if not flags.any():
+        return otherwise()
+    a, b = when(), otherwise()
+    keep = torch.from_numpy(flags).to(a.device)
+    return torch.where(keep.view((-1,) + (1,) * (a.dim() - 1)), a, b)
 
 
 def _stack_steps(outs: List[Dict]) -> Dict[str, torch.Tensor]:

@@ -8,6 +8,16 @@ the functions from it and the FrameDiff / AF2 conventions, and these are
 those functions written on tensors.  Each is a plain function of
 (batch, model outputs) -> dict of scalars, masked means, differentiable
 with autograd.
+
+Data-parallel training (train/trainer.py) keeps the global-batch loss: each
+function takes an optional process `group`, and every reduction over the
+batch -- a masked mean over all sites, a ratio of sums, a mean over the
+examples -- sums its numerator and its denominator over the group's ranks
+(`_sum_over_ranks`) before dividing, so every rank computes the loss of the
+whole batch.  The sum passes its gradient through unchanged: a rank's
+backward gives its rows' share of the gradient, and the sum of the ranks'
+gradients is the whole batch's.  The TM-score and contact metrics stay
+this rank's own.
 """
 
 from __future__ import annotations
@@ -15,6 +25,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from abx_tpu_torch.common import residue_constants as rc
@@ -22,9 +33,41 @@ from abx_tpu_torch.geometry.quat import safe_norm
 from abx_tpu_torch.geometry.rigid import Rigid
 
 
-def masked_mean(mask, value, dim=None, eps: float = 1e-10):
+class _SumOverRanks(torch.autograd.Function):
+    """all_reduce(SUM) forward; the gradient passes through unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _sum_over_ranks(x, group):
+    """`x` summed over the ranks of `group` (None: x itself)."""
+    return x if group is None else _SumOverRanks.apply(x, group)
+
+
+def _ratio(num, den, eps, group):
+    """num / (den + eps), num and den summed over the ranks first."""
+    return _sum_over_ranks(num, group) / (_sum_over_ranks(den, group) + eps)
+
+
+def _batch_mean(x, group=None):
+    """Mean over the examples (every rank's)."""
+    if group is None:
+        return torch.mean(x)
+    count = torch.tensor(float(x.numel()), device=x.device)
+    return _ratio(torch.sum(x), count, 0.0, group)
+
+
+def masked_mean(mask, value, dim=None, eps: float = 1e-10, group=None):
     if dim is None:
-        return torch.sum(mask * value) / (torch.sum(mask) + eps)
+        return _ratio(torch.sum(mask * value), torch.sum(mask), eps, group)
     return torch.sum(mask * value, dim=dim) / (torch.sum(mask, dim=dim) + eps)
 
 
@@ -37,7 +80,8 @@ def _take_last(x, idx):
     return torch.gather(x, -1, idx[..., None])[..., 0]
 
 
-def diffusion_rigids_loss(batch: Dict, folding: Dict, cfg: Any) -> Dict:
+def diffusion_rigids_loss(batch: Dict, folding: Dict, cfg: Any,
+                          group=None) -> Dict:
     """Score-matching loss on translations and rotations (FrameDiff):
     translation-score MSE, or the x0 translation loss at t <
     trans_x0_t_threshold; rotation-score axis + angle terms (the angle only
@@ -80,12 +124,13 @@ def diffusion_rigids_loss(batch: Dict, folding: Dict, cfg: Any) -> Dict:
             (gt_rot_score - pred_rot_score) / rot_scale), dim=-1)
         rot_loss = _mse(rot_err2, diffuse_mask, dim=-1) * cfg.rot_loss_weight
 
-    return {'loss': torch.mean(trans_total + rot_loss),
-            'trans_loss': torch.mean(trans_total),
-            'rot_loss': torch.mean(rot_loss)}
+    return {'loss': _batch_mean(trans_total + rot_loss, group),
+            'trans_loss': _batch_mean(trans_total, group),
+            'rot_loss': _batch_mean(rot_loss, group)}
 
 
-def diffusion_seq_loss(batch: Dict, seq_head: Dict, cfg: Any) -> Dict:
+def diffusion_seq_loss(batch: Dict, seq_head: Dict, cfg: Any,
+                       group=None) -> Dict:
     """CTMC sequence loss: the posterior-weighted CE surrogate plus
     `nll_weight` x CE, or with `exact_elbo` the tau-leaping ELBO
     (`ctmc_elbo_terms`) plus `nll_weight` x CE."""
@@ -96,12 +141,14 @@ def diffusion_seq_loss(batch: Dict, seq_head: Dict, cfg: Any) -> Dict:
     log_p = F.log_softmax(logits.float(), dim=-1)
     nll = -_take_last(log_p, seq_0)
     aar = masked_mean(diffuse_mask,
-                      (torch.argmax(logits, -1) == seq_0).float())
+                      (torch.argmax(logits, -1) == seq_0).float(),
+                      group=group)
 
     if (cfg.get('exact_elbo', False) and 'rate_t' in batch
             and 'seq_xt' in batch):
-        elbo = ctmc_elbo_terms(batch, log_p, cfg.ratio_eps)
-        loss = elbo['elbo'] + cfg.nll_weight * masked_mean(diffuse_mask, nll)
+        elbo = ctmc_elbo_terms(batch, log_p, cfg.ratio_eps, group)
+        loss = elbo['elbo'] + cfg.nll_weight * masked_mean(
+            diffuse_mask, nll, group=group)
         return {'loss': loss, 'aar': aar, 'elbo': elbo['elbo'],
                 'elbo_norm': elbo['normalizer'], 'elbo_jump': elbo['jump']}
 
@@ -111,11 +158,12 @@ def diffusion_seq_loss(batch: Dict, seq_head: Dict, cfg: Any) -> Dict:
     bi = torch.arange(q_t0.shape[0], device=q_t0.device)[:, None]
     keep_prob = q_t0[bi, seq_0, seq_t]
     elbo_weight = (1.0 - keep_prob + cfg.ratio_eps).detach()
-    loss = masked_mean(diffuse_mask, elbo_weight * nll + cfg.nll_weight * nll)
+    loss = masked_mean(diffuse_mask, elbo_weight * nll + cfg.nll_weight * nll,
+                       group=group)
     return {'loss': loss, 'aar': aar}
 
 
-def ctmc_elbo_terms(batch: Dict, log_p, eps: float) -> Dict:
+def ctmc_elbo_terms(batch: Dict, log_p, eps: float, group=None) -> Dict:
     """Exact tau-leaping CTMC negative-ELBO terms (Campbell et al. 2022):
     the normaliser sum_y Rhat(x_tilde -> y) per diffused site, and the jump
     term Z(x_t) log Rhat(x_tilde -> x_t) at the one corrupted site (zero
@@ -134,7 +182,8 @@ def ctmc_elbo_terms(batch: Dict, log_p, eps: float) -> Dict:
     forward_rates = torch.gather(rate, 2, idx).transpose(1, 2)
     inner = torch.einsum('bds,bsy->bdy', p0t / qt0_denom, qt0)
     rhat = forward_rates * inner * (1.0 - F.one_hot(x_tilde, s).float())
-    normalizer = masked_mean(diffuse_mask, torch.sum(rhat, dim=-1))
+    normalizer = masked_mean(diffuse_mask, torch.sum(rhat, dim=-1),
+                             group=group)
 
     differs = (x_tilde != x_t).float() * diffuse_mask
     has_jump = torch.max(differs, dim=-1).values
@@ -153,7 +202,7 @@ def ctmc_elbo_terms(batch: Dict, log_p, eps: float) -> Dict:
     rate_out = rate_out * (1.0 - F.one_hot(x_t, s).float())
     z_total = torch.sum(torch.sum(rate_out, -1) * diffuse_mask, dim=-1)
     n_sites = torch.sum(diffuse_mask, dim=-1) + 1e-6
-    jump = torch.mean(has_jump * z_total * log_rev / n_sites)
+    jump = _batch_mean(has_jump * z_total * log_rev / n_sites, group)
     return {'elbo': normalizer - jump, 'normalizer': normalizer,
             'jump': jump}
 
@@ -179,7 +228,7 @@ def backbone_fape(pred_frames: Rigid, gt_frames: Rigid, frames_mask,
 
 
 def folding_loss(batch: Dict, folding: Dict, cfg: Any,
-                 antibody_len: int) -> Dict:
+                 antibody_len: int, group=None) -> Dict:
     """Backbone FAPE over the IPA trajectory, interface FAPE on the last
     frames, and structural violations; each example gated by its own
     t < t_filter."""
@@ -214,16 +263,17 @@ def folding_loss(batch: Dict, folding: Dict, cfg: Any,
         length_scale=icfg.loss_unit_distance,
         pair_weight=cross.expand(b, l, l))
 
-    viol = violation_loss(batch, folding, cfg)
-    loss = (torch.mean(gate * (bb_loss + iface_loss))
-            + torch.mean(gate) * cfg.structural_violation_loss_weight
+    viol = violation_loss(batch, folding, cfg, group)
+    loss = (_batch_mean(gate * (bb_loss + iface_loss), group)
+            + _batch_mean(gate, group) * cfg.structural_violation_loss_weight
             * viol['loss'])
-    return {'loss': loss, 'bb_fape': torch.mean(bb_loss),
-            'interface_fape': torch.mean(iface_loss),
+    return {'loss': loss, 'bb_fape': _batch_mean(bb_loss, group),
+            'interface_fape': _batch_mean(iface_loss, group),
             'violation': viol['loss']}
 
 
-def violation_loss(batch: Dict, folding: Dict, cfg: Any) -> Dict:
+def violation_loss(batch: Dict, folding: Dict, cfg: Any,
+                   group=None) -> Dict:
     """AF2-style structural violations: the C(i)-N(i+1) bond length and
     the CA-C-N / C-N-CA angles within chains, between-residue clashes over
     all atom14 pairs, and within-residue distance bounds."""
@@ -252,8 +302,8 @@ def violation_loss(batch: Dict, folding: Dict, cfg: Any) -> Dict:
     tol = cfg.violation_tolerance_factor
     bond_err = torch.clamp(torch.abs(c_n_len - gt_len) - tol * gt_std,
                            min=0.0)
-    bond_loss = torch.sum(bond_err * bond_mask) / (torch.sum(bond_mask)
-                                                   + 1e-6)
+    bond_loss = _ratio(torch.sum(bond_err * bond_mask), torch.sum(bond_mask),
+                       1e-6, group)
 
     def cos_angle(a, b, c):
         v1 = a - b
@@ -272,8 +322,8 @@ def violation_loss(batch: Dict, folding: Dict, cfg: Any) -> Dict:
     ang2_err = torch.clamp(
         torch.abs(c_n_ca - rc.between_res_cos_angles_c_n_ca[0])
         - tol * rc.between_res_cos_angles_c_n_ca[1], min=0.0)
-    angle_loss = torch.sum((ang1_err + ang2_err) * bond_mask) / (
-        torch.sum(bond_mask) + 1e-6)
+    angle_loss = _ratio(torch.sum((ang1_err + ang2_err) * bond_mask),
+                        torch.sum(bond_mask), 1e-6, group)
 
     radii = torch.as_tensor(rc.atom14_element_radii(), device=dev)[seq]
     b, l = seq.shape
@@ -293,10 +343,12 @@ def violation_loss(batch: Dict, folding: Dict, cfg: Any) -> Dict:
     clash = torch.clamp(allowed - d, min=0.0)
     clash_mask = pair_exist * res_pair * (1 - same_res) * (1 - neighbor)
     if cfg.get('average_clashes', True):
-        clash_loss = torch.sum(clash * clash_mask) / (torch.sum(clash_mask)
-                                                      + 1e-6)
+        clash_loss = _ratio(torch.sum(clash * clash_mask),
+                            torch.sum(clash_mask), 1e-6, group)
     else:
-        clash_loss = torch.sum(clash * clash_mask) / (b * l)
+        clash_loss = _ratio(torch.sum(clash * clash_mask),
+                            torch.tensor(float(b * l), device=dev), 0.0,
+                            group)
 
     bounds = rc.make_atom14_dists_bounds(
         overlap_tolerance=cfg.clash_overlap_tolerance,
@@ -312,15 +364,15 @@ def violation_loss(batch: Dict, folding: Dict, cfg: Any) -> Dict:
                   + torch.clamp(dw - torch.where(hi > 0, hi,
                                                  torch.full_like(hi, 1e10)),
                                 min=0.0))
-    within_loss = torch.sum(within_err * within_mask) / (
-        torch.sum(within_mask) + 1e-6)
+    within_loss = _ratio(torch.sum(within_err * within_mask),
+                         torch.sum(within_mask), 1e-6, group)
 
     loss = bond_loss + angle_loss + clash_loss + within_loss
     return {'loss': loss, 'bond': bond_loss, 'angle': angle_loss,
             'clash': clash_loss, 'within': within_loss}
 
 
-def distogram_loss(batch: Dict, disto: Dict, cfg: Any) -> Dict:
+def distogram_loss(batch: Dict, disto: Dict, cfg: Any, group=None) -> Dict:
     """Binned pseudo-beta distance cross entropy, t-gated."""
     logits = disto['logits'].float()
     breaks = disto['breaks']
@@ -332,13 +384,13 @@ def distogram_loss(batch: Dict, disto: Dict, cfg: Any) -> Dict:
     ce = -_take_last(F.log_softmax(logits, dim=-1), true_bins)
     pair_mask = pb_mask[:, :, None] * pb_mask[:, None, :]
     gate = (batch['t'] < cfg.t_filter).float()
-    loss = torch.mean(gate * torch.sum(ce * pair_mask, (-1, -2))
-                      / (torch.sum(pair_mask, (-1, -2)) + 1e-10))
+    loss = _batch_mean(gate * torch.sum(ce * pair_mask, (-1, -2))
+                       / (torch.sum(pair_mask, (-1, -2)) + 1e-10), group)
     return {'loss': loss}
 
 
 def predicted_lddt_loss(batch: Dict, plddt_head: Dict, folding: Dict,
-                        cfg: Any) -> Dict:
+                        cfg: Any, group=None) -> Dict:
     """Cross entropy between the predicted lDDT bins and the true
     per-residue CA lDDT (inclusion radius 15 A), t-gated."""
     logits = plddt_head['logits'].float()
@@ -360,11 +412,12 @@ def predicted_lddt_loss(batch: Dict, plddt_head: Dict, folding: Dict,
     bins = torch.clamp((true_lddt * num_bins).long(), 0, num_bins - 1)
     ce = -_take_last(F.log_softmax(logits, dim=-1), bins)
     gate = (batch['t'] < cfg.t_filter).float()
-    return {'loss': torch.mean(gate * masked_mean(ca_mask, ce, dim=-1))}
+    return {'loss': _batch_mean(gate * masked_mean(ca_mask, ce, dim=-1),
+                                group)}
 
 
 def total_loss(batch: Dict, outputs: Dict, loss_config: Any,
-               antibody_len: int) -> Dict:
+               antibody_len: int, group=None) -> Dict:
     """Weighted sum of the enabled losses, and the metrics (each loss's
     terms under its prefix, the TM-score and the contact precisions)."""
     heads = outputs['heads']
@@ -378,22 +431,23 @@ def total_loss(batch: Dict, outputs: Dict, loss_config: Any,
 
     if loss_config.diffusion_rigids.enabled:
         add('diffusion_rigids', 'rigids', diffusion_rigids_loss(
-            batch, heads['folding'], loss_config.diffusion_rigids.config))
+            batch, heads['folding'], loss_config.diffusion_rigids.config, group))
     if loss_config.diffusion_seq.enabled:
         add('diffusion_seq', 'seq', diffusion_seq_loss(
             batch, heads['sequence_module'],
-            loss_config.diffusion_seq.config))
+            loss_config.diffusion_seq.config, group))
     if loss_config.folding.enabled:
         add('folding', 'folding', folding_loss(
             batch, heads['folding'], loss_config.folding.config,
-            antibody_len))
+            antibody_len, group))
     if loss_config.distogram.enabled and 'distogram' in heads:
         add('distogram', 'distogram', distogram_loss(
-            batch, heads['distogram'], loss_config.distogram.config))
+            batch, heads['distogram'], loss_config.distogram.config,
+            group))
     if loss_config.predicted_lddt.enabled:
         add('predicted_lddt', 'plddt', predicted_lddt_loss(
             batch, heads['predicted_lddt'], heads['folding'],
-            loss_config.predicted_lddt.config))
+            loss_config.predicted_lddt.config, group))
     # Observability heads (no loss term): TM-score and contact precision.
     for head_name in ('tmscore', 'metric'):
         metrics.update(heads.get(head_name, {}))

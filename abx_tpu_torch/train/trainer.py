@@ -1,4 +1,4 @@
-"""Training loop on one device.
+"""Training loop, on one device or data-parallel over processes.
 
 Counterpart of abx_tpu/train/trainer.py: the same `TrainConfig`, the same
 optimizer (global-norm clipping, then AdamW with its weight decay scaled by
@@ -19,6 +19,17 @@ launches on the card, and only the learned layer weights take gradient.
 The step is split so that a test can feed an already-noised batch and a
 fixed recycle count: `prepare_batch` (the train-mode features),
 `draw_recycles`, `loss_and_grads` and `apply_update`.
+
+Data parallelism (a `mesh` of several ranks, parallel/mesh.py, one device
+each): a rank is given its rows of the global batch, and its step is the
+one-process step on the whole batch.  It gathers the rows, draws the
+noise and the recycle depth for the whole batch from the step's generator
+(seeded alike on every rank) and keeps its rows, draws the dropout masks
+for the whole batch and keeps its rows (`modules.RowShard`), computes the
+global-batch loss (`train/losses.py` sums each reduction's numerator and
+denominator over the ranks) and its rows' share of the gradient, sums the
+gradients over the ranks with one all_reduce, and applies the same update
+on every rank.  Rank 0 writes the checkpoints and the metrics.
 """
 
 from __future__ import annotations
@@ -32,11 +43,14 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from abx_tpu_torch.data.features import (FeatureBuilder,
                                          make_diffuser_features,
                                          make_static_pair_features)
+from abx_tpu_torch.models.modules import RowShard
 from abx_tpu_torch.models.network import forward_with_recycling, zero_prev
+from abx_tpu_torch.parallel import mesh as mesh_lib
 from abx_tpu_torch.sampling.sampler import to_device_batch
 from abx_tpu_torch.train.losses import total_loss
 from abx_tpu_torch.utils import checkpoint as ckpt_lib
@@ -97,9 +111,11 @@ def global_norm(tensors) -> torch.Tensor:
 
 class Trainer:
     def __init__(self, model, diffuser, model_config, loss_config,
-                 train_config: TrainConfig = TrainConfig(), esm=None):
+                 train_config: TrainConfig = TrainConfig(), esm=None,
+                 mesh: Optional[mesh_lib.Mesh] = None):
         """`model` a ScoreNetworkIteration (f32); `esm` the frozen
-        AntibodyESM when the trunk is ESM-conditioned."""
+        AntibodyESM when the trunk is ESM-conditioned; `mesh` the
+        data-parallel ranks (default: this process alone)."""
         self.model = model
         self.diffuser = diffuser
         self.model_config = model_config
@@ -108,6 +124,8 @@ class Trainer:
         self.esm = esm
         self.feature_builder = FeatureBuilder(is_training=True)
         self.device = next(model.parameters()).device
+        self.mesh = mesh or mesh_lib.local_mesh(self.device)
+        self._checked = False
 
     def _params(self) -> Dict[str, torch.nn.Parameter]:
         return {k: p for k, p in self.model.named_parameters()
@@ -168,7 +186,8 @@ class Trainer:
             self.model_config.embeddings_and_seqformer.prev_pos,
             compute_loss=True)
         out = total_loss(batch, outputs, self.loss_config,
-                         model.antibody_len)
+                         model.antibody_len,
+                         self.mesh.group if self.mesh.size > 1 else None)
         out['loss'].backward()
         metrics = {k: v.detach() if torch.is_tensor(v) else v
                    for k, v in out['metrics'].items()}
@@ -211,13 +230,49 @@ class Trainer:
     def step(self, state: TrainState, batch: Dict,
              generator: torch.Generator) -> Dict:
         """One training step on a stacked batch: noise it, draw the recycle
-        depth, forward and backward, update.  Returns the metrics (the
-        losses, `grad_norm` before clipping, `num_recycle`)."""
-        b = self.prepare_batch(batch, generator)
-        n_rec = self.draw_recycles(generator)
-        metrics = self.loss_and_grads(b, n_rec, generator)
+        depth, forward and backward, update.  With a mesh of several ranks
+        `batch` is this rank's rows of the global batch (see the module
+        note).  Returns the metrics (the losses, `grad_norm` before
+        clipping, `num_recycle`)."""
+        mesh = self.mesh
+        if mesh.size == 1:
+            b = self.prepare_batch(batch, generator)
+            n_rec = self.draw_recycles(generator)
+            metrics = self.loss_and_grads(b, n_rec, generator)
+        else:
+            local = to_device_batch(batch, self.device)
+            b = self.prepare_batch(
+                {k: mesh_lib.all_gather_rows(mesh, v)
+                 for k, v in local.items()}, generator)
+            n_rec = self.draw_recycles(generator)
+            n = b['seq'].shape[0]
+            rows = mesh_lib.batch_sharding(mesh).rows(n, mesh.rank)
+            mine = mesh_lib.shard_batch(mesh, b)
+            if not self._checked:  # once a run
+                mesh_lib.check_shards(mesh, b, mine)
+                if not mesh_lib.all_ranks_agree(
+                        mesh, mesh_lib.min_over_ranks(mesh, n_rec) == n_rec):
+                    raise RuntimeError('the ranks drew different recycle '
+                                       'depths')
+                self._checked = True
+            metrics = self.loss_and_grads(
+                mine, n_rec, RowShard(generator, rows.start, rows.stop, n))
+            self._sum_grads()
         metrics['grad_norm'] = self.apply_update(state)
         return metrics
+
+    def _sum_grads(self) -> None:
+        """Sum the gradients over the mesh's ranks (one all_reduce of
+        every gradient, flattened)."""
+        params = list(self._params().values())
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self.mesh.group)
+        offset = 0
+        for p in params:
+            p.grad = flat[offset:offset + p.numel()].view_as(p)
+            offset += p.numel()
 
     # --- the loop ----------------------------------------------------------
 
@@ -245,7 +300,7 @@ class Trainer:
                     logger.info('step %d: loss=%.4f aar=%.3f (%.2f steps/s)',
                                 gstep, metrics['total'],
                                 metrics.get('seq/aar', -1), rate)
-                    if metrics_path:
+                    if metrics_path and self.mesh.rank == 0:
                         row = dict(step=gstep, steps_per_sec=rate, **metrics)
                         if metrics_writer is None:
                             metrics_writer, metrics_file = \
@@ -296,7 +351,10 @@ class Trainer:
     def save(self, checkpoint_path: str, state: TrainState) -> None:
         """Three files, each written atomically: the inference weights (the
         EMA when kept) at `checkpoint_path`, the raw weights at `.raw`, and
-        the whole training state at `.train`."""
+        the whole training state at `.train`.  Only rank 0 writes (every
+        rank holds the same state)."""
+        if self.mesh.rank:
+            return
         raw = {k: p.detach() for k, p in self._params().items()}
         ckpt_lib.save_params(checkpoint_path, self._weights(
             state.ema if state.ema is not None else raw))

@@ -135,10 +135,39 @@ fatal on failure:
      largest leaves.  Then a bf16
      design (4 samples, num_t 8) through the design CLI from the EMA
      weights of the ESM-off run: 4 PDBs, the trunk kernels as in phase 5.
-Each main path (phases 5, 6, 6b, 7, 8, 9, 10, 11, 12 and the trajectory
-run) is driven with the launch counts set to 0 just before it and read
-just after; phase 12's are `train_esm_off` (both runs), `train_esm_on`
-and `design_trained` in `launches_by_path`.  The lines
+  13. the paths over processes and the Picard sampler (`picard_*`,
+     `tp_esm`, `multihost_inference`, `dp_train`, `trace` in
+     `launches_by_path`; several ranks share the one card as child
+     processes of this script over gloo, each printing its launch counts
+     on a result line, which the parent adds up):
+     13a. picard_sample_prepared against Sampler.sample_prepared under the
+       same injected noise: f32 (TF32 off, B=2, num_t 4) reaches delta 0
+       within grid + 1 sweeps, sequences equal, backbone within 0.1 A,
+       each trunk kernel per pass x 3 x sweeps; the bf16 flagship (B=4,
+       num_t 8: 36 rows a sweep) prints its sweeps, deltas, seconds and
+       agreement (not fatal), its launches as f32's;
+     13b. tensor-parallel ESM2-3B over 2 ranks: the f32 weighted embedding
+       (dense random weights from seed 0, phase 4b's inputs) within 1e-4
+       x max|ref| of one process's AntibodyESM, esm_attention 36 a forward
+       a rank; a bf16 ESM-conditioned design (num_t 2, 4 samples) with
+       TensorParallelAntibodyESM as esm_fn through runner.sample_chunk:
+       both ranks' bits identical, rank 0 writes 4 PDBs;
+     13c. two cli/inference.py processes with --coordinator / --num_hosts
+       / --host_id over the npz directory of both test complexes (bf16,
+       num_t 4, 2 samples): disjoint cover, every output written once,
+       one complex's launches a process;
+     13d. two data-parallel Trainer steps over 2 ranks (f32, full width,
+       dense random trunk weights, frozen ESM2-3B, global batch 4) against
+       one process's step on the whole batch: loss within 1e-5 relative,
+       summed gradients within 1e-4 of their max, weights after the update
+       within 1e-4 x max|update| where the two runs' gradients determine
+       Adam's first update to a tenth of that; seconds a step;
+     13e. utils/prof.py's trace around one bf16 trunk pass under an
+       annotate span: rows 1-7's device kernels inside the span.
+Each main path (phases 5, 6, 6b, 7, 8, 9, 10, 11, 12, 13 and the
+trajectory run) is driven with the launch counts set to 0 just before it
+and read just after; phase 12's are `train_esm_off` (both runs),
+`train_esm_on` and `design_trained` in `launches_by_path`.  The lines
 before the last are the nvidia-smi card line and the kernels JSON (each
 kernel's launches on each main path in `launches_by_path`, and in
 `launches` the largest of them, its error, its time, its plain
@@ -1286,11 +1315,11 @@ def check_pdb(path, want=('H', 'L', 'S')):
         fail(f'{path}: empty or non-finite coordinates')
 
 
-def phase_esm_flags(torch, dev):
-    """Full-width f32 ESM2-3B forward of AntibodyESM on the 6ct7 antibody
-    (four samples, three with re-drawn residues, as noisy sequences), dense
-    random weights made on the card, with the ESM attention kernel on and
-    off (plain f32 version)."""
+def dense_esm(torch, dev):
+    """ESM2-3B's AntibodyESM with dense random weights made on `dev` from
+    seed 0, and the 6ct7 antibody as four noisy sequences (three with
+    re-drawn residues) with learned-layer weights: (esm, (ab, hl, ll, lw),
+    l_ab)."""
     import numpy as np
     from abx_tpu_torch import config as config_lib
     from abx_tpu_torch.data import dataset as ds
@@ -1324,6 +1353,15 @@ def phase_esm_flags(torch, dev):
     hl = torch.tensor([int(feats['heavy_len'])] * 4, device=dev)
     ll = torch.tensor([int(feats['light_len'])] * 4, device=dev)
     lw = torch.softmax(torch.randn(37, generator=g, device=dev), dim=0)
+    return esm, (ab, hl, ll, lw), l_ab
+
+
+def phase_esm_flags(torch, dev):
+    """Full-width f32 ESM2-3B forward of AntibodyESM on the 6ct7 antibody
+    (four samples, three with re-drawn residues, as noisy sequences), dense
+    random weights made on the card, with the ESM attention kernel on and
+    off (plain f32 version)."""
+    esm, (ab, hl, ll, lw), l_ab = dense_esm(torch, dev)
     outs = {}
     for value in ('1', '0'):
         os.environ['ABX_FUSED_ESM_ATTN'] = value
@@ -1543,14 +1581,14 @@ def phase_design_esm_reuse(torch, card, rt, complexes):
                                   'reuse')
 
 
-def design_batch(rt):
-    """The 6ct7 complex as a device batch of NUM_SAMPLES samples."""
+def design_batch(rt, n=NUM_SAMPLES):
+    """The 6ct7 complex as a device batch of `n` samples."""
     import numpy as np
     from abx_tpu_torch.cli import runner
     from abx_tpu_torch.data import dataset as ds
     from abx_tpu_torch.sampling.sampler import to_device_batch
     feats, _ = next(runner.load_complexes(None, None, PDB, rt))
-    return to_device_batch({k: np.repeat(v, NUM_SAMPLES, axis=0)
+    return to_device_batch({k: np.repeat(v, n, axis=0)
                             for k, v in ds.stack_batch([feats]).items()},
                            rt.device)
 
@@ -2198,6 +2236,595 @@ def phase_train(torch, card):
     return paths, stats
 
 
+# --- phase 13: Picard, tensor-parallel ESM2, multi-host inference, data-
+# parallel training, tracing -------------------------------------------------
+
+PICARD_F32 = (2, 4)      # (B, num_t): grid 5, 10 rows a sweep
+PICARD_BF16 = (4, 8)     # the flagship: grid 9, 36 rows a sweep
+TP, TP_NUM_T = 2, 2      # tensor-parallel ranks; the TP design's num_t
+MH_HOSTS, MH_NUM_T, MH_SAMPLES = 2, 4, 2
+DP_RANKS, DP_BATCH = 2, 4
+DP_LOSS_TOL, DP_GRAD_TOL, DP_WEIGHT_TOL = 1e-5, 1e-4, 1e-4
+# Adam's first update of an element is g / (|g| + 1e-8) of the clipped
+# gradient: where |g| is near the two runs' gradient difference or near
+# Adam's eps, it magnifies that difference past any bar on the weights.
+# The weights are held where the two runs' own gradients move that update
+# by at most a tenth of the bar.
+ADAM_EPS, HELD_SHARE_OF_BAR = 1e-8, 0.1
+CHILD_TIMEOUT = 600
+CHILD_TAG = 'chip_smoke child result: '
+TRACE_SPAN = 'abx_trunk_pass'
+# Device kernel names of rows 1-7 (the row-linear core runs rows 6 and 7,
+# and row 1's projections).
+TRACE_KERNELS = {'triangle_attention_packed': ('flash_kernel',),
+                 'pair_bias_proj': ('pair_bias_kernel',),
+                 'fused_transition': ('transition_sm90_kernel',
+                                      'transition_kernel'),
+                 'ipa_attention': ('ipa_kernel',),
+                 'recycle_embed': ('recycle_kernel',),
+                 'tri_mult_pre / tri_mult_post': ('linear_sm90_kernel',
+                                                  'linear_kernel')}
+
+
+def passes_launches(per_pass, passes):
+    return {k: n * passes for k, n in per_pass.items()}
+
+
+def add_counts(counts):
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def picard_run(torch, rt, b, num_t, seed=0):
+    """Sampler.sample_prepared and picard_sample_prepared on the same
+    prepared 6ct7 batch of `b` samples and the same per-step noise; the
+    Picard run's launches, and both runs' seconds."""
+    from abx_tpu_torch.sampling.picard import (draw_noise,
+                                               picard_sample_prepared)
+    from abx_tpu_torch.sampling.sampler import Sampler, SamplerConfig
+    ws = wrappers()
+    sampler = Sampler(rt.model, rt.diffuser, rt.config.model,
+                      SamplerConfig(num_t=num_t))
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    prepared = sampler.prepare(design_batch(rt, b), gen)
+    grid = len(sampler.step_grids()[0])
+    noise = draw_noise(gen, grid, b, prepared['seq'].shape[1],
+                       device=rt.device)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    want = sampler.sample_prepared(prepared, None, noise)
+    torch.cuda.synchronize()
+    seq_s = time.time() - t0
+    reset_counts(ws)
+    t0 = time.time()
+    got = picard_sample_prepared(sampler, prepared, None, noise, tol=0.0)
+    torch.cuda.synchronize()
+    pic_s = time.time() - t0
+    launches = read_counts(ws)
+    dev = (got['atom14'][..., :4, :] - want['atom14'][..., :4, :]
+           ).abs().max().item()
+    finite = bool(torch.isfinite(got['atom14']).all())
+    return {'grid': grid, 'rows': grid * b, 'sweeps': got['picard']['sweeps'],
+            'deltas': got['picard']['deltas'], 'picard_s': pic_s,
+            'sequential_s': seq_s, 'seq_equal':
+            bool(torch.equal(got['seq'], want['seq'])),
+            'seq_sites_differ': int((got['seq'] != want['seq']).sum()),
+            'max_backbone_dev_A': dev, 'finite': finite}, launches
+
+
+def phase_picard(torch, card):
+    """13a: Picard in f32 (fatal bars) and at the bf16 flagship (reported)."""
+    from abx_tpu_torch.cli import runner
+    paths, stats = {}, {}
+    for what, bf16, (b, num_t) in (('picard_f32', False, PICARD_F32),
+                                   ('picard_bf16', True, PICARD_BF16)):
+        rt = runner.build_runtime(MODEL_CONFIG, seed=0, bf16=bf16,
+                                  device='cuda')
+        st, launches = picard_run(torch, rt, b, num_t)
+        del rt
+        torch.cuda.empty_cache()
+        check_launches(launches, passes_launches(
+            PER_PASS, (NUM_RECYCLE + 1) * st['sweeps']), what)
+        print(f'{what} (B={b}, num_t {num_t}: {st["rows"]} rows a sweep, '
+              f'L=288) on {card}: {st["sweeps"]} sweeps in '
+              f'{st["picard_s"]:.2f} s (sequential {st["sequential_s"]:.2f}'
+              f' s), deltas {st["deltas"]}, sequences equal to the '
+              f'sequential run: {st["seq_equal"]} ({st["seq_sites_differ"]} '
+              f'sites differ), backbone {st["max_backbone_dev_A"]:.3g} A',
+              flush=True)
+        if not st['finite']:
+            fail(f'{what}: non-finite coordinates')
+        if not bf16:
+            if st['deltas'][-1] != 0.0 or st['sweeps'] > st['grid'] + 1:
+                fail(f'picard f32: no bitwise fixpoint within grid + 1 '
+                     f'sweeps: {st["deltas"]}')
+            if not st['seq_equal'] or st['max_backbone_dev_A'] > BB_TOL:
+                fail(f'picard f32 vs sequential: sequences equal '
+                     f'{st["seq_equal"]}, backbone '
+                     f'{st["max_backbone_dev_A"]:.3g} A')
+        paths[what], stats[what] = launches, st
+    return paths, stats
+
+
+def trace_events_under(trace, span):
+    """Names of the device kernels whose interval lies inside the host
+    span `span` of a Chrome trace (the span synchronises at both ends), or
+    inside its device-side annotation."""
+    ev = trace['traceEvents']
+    spans = [(e['ts'], e['ts'] + e.get('dur', 0)) for e in ev
+             if e.get('name') == span and e.get('ph') == 'X']
+    return [e['name'] for e in ev if e.get('cat') == 'kernel' and any(
+        a <= e['ts'] and e['ts'] + e.get('dur', 0) <= b for a, b in spans)]
+
+
+def phase_trace(torch, card):
+    """13e: prof.trace around one bf16 trunk pass under an annotate span;
+    the trace holds rows 1-7's device kernels inside the span."""
+    from abx_tpu_torch.cli import runner
+    from abx_tpu_torch.sampling.sampler import Sampler, SamplerConfig
+    from abx_tpu_torch.utils import prof
+    ws = wrappers()
+    rt = runner.build_runtime(MODEL_CONFIG, seed=0, bf16=True, device='cuda')
+    sampler = Sampler(rt.model, rt.diffuser, rt.config.model,
+                      SamplerConfig(num_t=NUM_T))
+    prepared = sampler.prepare(design_batch(rt),
+                               torch.Generator(device='cuda').manual_seed(0))
+    traj, state = sampler._start(prepared)
+    mb = {**traj.static, **state}
+    t = torch.ones(NUM_SAMPLES, device=rt.device)
+    rot_s, trans_s = rt.diffuser.score_scaling(t)
+    mb.update(t=t, rot_score_scaling=rot_s, trans_score_scaling=trans_s)
+    with torch.no_grad():
+        rt.model(mb, static_acts=traj.static_acts)          # warm-up
+        with tempfile.TemporaryDirectory() as d:
+            torch.cuda.synchronize()
+            reset_counts(ws)
+            with prof.trace(d):
+                with prof.annotate(TRACE_SPAN, rt.device):
+                    torch.cuda.synchronize()
+                    rt.model(mb, static_acts=traj.static_acts)
+                    torch.cuda.synchronize()
+            launches = read_counts(ws)
+            path = os.path.join(d, 'trace.json')
+            size = os.path.getsize(path)
+            with open(path) as f:
+                trace = json.load(f)
+    names = trace_events_under(trace, TRACE_SPAN)
+    check_launches(launches, PER_PASS, 'traced trunk pass')
+    found = {row: sum(any(k in n for k in ks) for n in names)
+             for row, ks in TRACE_KERNELS.items()}
+    print(f'trace of one bf16 trunk pass on {card}: {size} bytes, '
+          f'{len(names)} device kernels inside the "{TRACE_SPAN}" span; rows '
+          f'1-7 by kernel name: {found}', flush=True)
+    missing = [row for row, n in found.items() if not n]
+    if missing:
+        fail(f'trace: no device kernel of {missing} inside the span '
+             f'({sorted(set(names))[:40]})')
+    del rt
+    torch.cuda.empty_cache()
+    return launches, {'trace_bytes': size, 'kernels_in_span': len(names),
+                      'rows_by_kernel_name': found}
+
+
+def free_port():
+    import socket
+    s = socket.socket()
+    s.bind(('127.0.0.1', 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def run_children(kind, world, extra=()):
+    """`world` child processes of this script (`--child kind rank world
+    port ...`), started together on the one card; each must exit 0 within
+    CHILD_TIMEOUT and print one result line.  Every child is stopped on
+    the way out."""
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=HERE)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), '--child', kind, str(r),
+         str(world), str(port), *extra], cwd=HERE, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=CHILD_TIMEOUT)[0])
+            except subprocess.TimeoutExpired:
+                fail(f'{kind}: a child ran past {CHILD_TIMEOUT} s')
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = [ln[len(CHILD_TAG):] for ln in out.splitlines()
+                 if ln.startswith(CHILD_TAG)]
+        if p.returncode != 0 or len(lines) != 1:
+            fail(f'{kind}: child {r} exited {p.returncode}:\n{out[-6000:]}')
+        results.append(json.loads(lines[0]))
+    return results
+
+
+def child_join(rank, world, port):
+    from abx_tpu_torch.parallel import mesh as mesh_lib
+    mesh_lib.init_process_group('gloo', f'127.0.0.1:{port}', world, rank,
+                                timeout_s=CHILD_TIMEOUT)
+
+
+def child_tp_esm(torch, rank, world, port, args):
+    """13b, one rank: ESM2-3B over a tensor-parallel gloo group on the one
+    card.  The f32 weighted embedding against one process's AntibodyESM
+    (rank 0), then a bf16 ESM-conditioned design with the tensor-parallel
+    module as esm_fn; rank 0 writes its PDBs to args[0]."""
+    import torch.distributed as dist
+    from abx_tpu_torch.cli import runner
+    from abx_tpu_torch.data import dataset as ds
+    from abx_tpu_torch.parallel import esm_tp
+    from abx_tpu_torch.parallel import mesh as mesh_lib
+    from abx_tpu_torch.sampling.output import (postprocess_reference,
+                                               postprocess_sample)
+    from abx_tpu_torch.sampling.sampler import Sampler, SamplerConfig
+    from abx_tpu_torch.utils import params as params_lib
+    child_join(rank, world, port)
+    dev = torch.device('cuda')
+    mesh = esm_tp.mesh2d(1, world, device=dev)
+    ws = wrappers()
+    full, (ab, hl, ll, lw), l_ab = dense_esm(torch, dev)
+    tp = esm_tp.TensorParallelAntibodyESM(mesh, full.config, l_ab,
+                                          dtype=torch.float32, device='meta')
+    params_lib.load_esm_params(
+        tp.module, esm_tp.shard_esm_params(mesh, full.module.state_dict()),
+        dev, torch.float32)
+    tp.requires_grad_(False).eval()
+    with torch.no_grad():
+        want = full(ab, hl, ll, lw) if rank == 0 else None
+        del full
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        reset_counts(ws)
+        got = tp(ab, hl, ll, lw)
+        torch.cuda.synchronize()
+        fwd = read_counts(ws)
+        t0 = time.time()
+        tp(ab, hl, ll, lw)
+        torch.cuda.synchronize()
+        fwd_s = time.time() - t0
+    both = mesh_lib.all_gather_rows(mesh.model, got[None])
+    out = {'launches_forward': fwd, 'tp_forward_s': fwd_s,
+           'ranks_identical': bool(torch.equal(both[0], both[1]))}
+    if rank == 0:
+        valid = torch.arange(l_ab, device=dev)[None] < (hl + ll)[:, None]
+        d, m = rel_err(got[valid], want[valid])
+        out.update(max_abs_err=d, max_abs_ref=m)
+    del tp, got, want, both
+    torch.cuda.empty_cache()
+
+    rt = runner.build_runtime(MODEL_CONFIG, seed=0, bf16=True, device='cuda',
+                              esm_random=True)
+    tp = esm_tp.TensorParallelAntibodyESM(
+        mesh, rt.esm.config, rt.esm.antibody_len,
+        sep_pad_num=rt.esm.sep_pad_num, dtype=torch.bfloat16, device='meta')
+    params_lib.load_esm_params(
+        tp.module, esm_tp.shard_esm_params(mesh, rt.esm.module.state_dict()),
+        dev, torch.bfloat16)
+    rt.esm = tp.requires_grad_(False).eval()
+    torch.cuda.empty_cache()
+    sampler = Sampler(rt.model, rt.diffuser, rt.config.model,
+                      SamplerConfig(num_t=TP_NUM_T), esm_fn=rt.esm)
+    feats, meta = next(runner.load_complexes(None, None, PDB, rt))
+    gen = runner.sample_generator(dev, 0, meta['name'], 0)
+    torch.cuda.synchronize()
+    reset_counts(ws)
+    t0 = time.time()
+    result, rows = runner.sample_chunk(sampler, design_batch(rt), gen,
+                                       mesh_lib.local_mesh(dev))
+    torch.cuda.synchronize()
+    out['design_s'] = time.time() - t0
+    out['launches_design'] = read_counts(ws)
+    same = True
+    for k in ('seq', 'atom14', 'rigids'):
+        v = result[k].contiguous().view(torch.uint8)
+        g = mesh_lib.all_gather_rows(mesh.model, v[None])
+        same = same and bool(torch.equal(g[0], g[1]))
+    out['design_ranks_identical'] = same
+    if rank == 0:
+        host = runner._to_host(result)
+        postprocess_reference(os.path.join(args[0], 'reference'), meta,
+                              ds.stack_batch([feats]))
+        for i in range(rows.stop - rows.start):
+            sdir = os.path.join(args[0], f'{i:04d}')
+            os.makedirs(sdir, exist_ok=True)
+            postprocess_sample(sdir, meta, host, i)
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def phase_tp_esm(torch, card):
+    """13b: tensor-parallel ESM2-3B over TP gloo ranks on the one card."""
+    torch.cuda.empty_cache()
+    passes = (TP_NUM_T + 1) * (NUM_RECYCLE + 1)
+    with tempfile.TemporaryDirectory() as out:
+        os.makedirs(os.path.join(out, 'reference'))
+        t0 = time.time()
+        res = run_children('tp_esm', TP, [out])
+        wall = time.time() - t0
+        for i in range(NUM_SAMPLES):
+            check_pdb(os.path.join(out, f'{i:04d}', '6ct7_H_L_S.pdb'))
+        check_pdb(os.path.join(out, 'reference', '6ct7_H_L_S.pdb'))
+        written = sorted(os.listdir(out))
+    if written != ['0000', '0001', '0002', '0003', 'reference']:
+        fail(f'tp esm design wrote {written}')
+    r0 = res[0]
+    print(f'tensor-parallel ESM2-3B (tp {TP} gloo ranks on one card, f32, '
+          f'weighted embedding of 4 x 306 tokens) on {card}: max |diff| '
+          f'{r0["max_abs_err"]:.3g} against one process (max|ref| '
+          f'{r0["max_abs_ref"]:.3g}); a forward {r0["tp_forward_s"]:.3f} s; '
+          f'bf16 design (num_t {TP_NUM_T}, {NUM_SAMPLES} samples) '
+          f'{r0["design_s"]:.2f} s; children {wall:.1f} s', flush=True)
+    if r0['max_abs_err'] > F32_TOL * r0['max_abs_ref']:
+        fail('tp esm: the weighted embedding differs from one process')
+    for r, x in enumerate(res):
+        if not (x['ranks_identical'] and x['design_ranks_identical']):
+            fail(f'tp esm: rank {r} holds other bits than its peer')
+        check_launches(x['launches_forward'], {'esm_attention': ESM_LAYERS},
+                       f'tp esm forward (rank {r})')
+        check_launches(x['launches_design'], {
+            **passes_launches(PER_PASS, passes),
+            'esm_attention': ESM_LAYERS * passes}, f'tp esm design (rank {r})')
+    launches = add_counts([x['launches_design'] for x in res]
+                          + [x['launches_forward'] for x in res])
+    return launches, {'children_s': wall, **{
+        k: r0[k] for k in ('max_abs_err', 'max_abs_ref', 'tp_forward_s',
+                           'design_s')}}
+
+
+def child_inference(torch, rank, world, port, args):
+    """13c, one host: cli/inference.py under --coordinator."""
+    from abx_tpu_torch.cli import inference
+    ws = wrappers()
+    reset_counts(ws)
+    t0 = time.time()
+    log = inference.main(list(args) + [
+        '--coordinator', f'127.0.0.1:{port}', '--num_hosts', str(world),
+        '--host_id', str(rank)])
+    torch.cuda.synchronize()
+    return {'names': [n for n, _, _ in log], 'launches': read_counts(ws),
+            'wall_s': time.time() - t0,
+            'sampling_s': sum(e for _, _, e in log)}
+
+
+def phase_multihost(torch, card):
+    """13c: two cli/inference.py hosts on the one card over both test
+    complexes."""
+    passes = (MH_NUM_T + 1) * (NUM_RECYCLE + 1)
+    with tempfile.TemporaryDirectory() as data, \
+            tempfile.TemporaryDirectory() as out:
+        names, index = write_test_set(torch, data)
+        t0 = time.time()
+        res = run_children('inference', MH_HOSTS, [
+            '--data_dir', data, '--name_idx', index, '--output_dir', out,
+            '--mode', 'design', '--num_t', str(MH_NUM_T), '--num_samples',
+            str(MH_SAMPLES), '--batch_samples', str(MH_SAMPLES), '--bf16',
+            '--model_config', MODEL_CONFIG, '--seed', '0', '--device',
+            'cuda'])
+        wall = time.time() - t0
+        owned = [set(x['names']) for x in res]
+        if owned[0] & owned[1] or owned[0] | owned[1] != set(names):
+            fail(f'multi-host: hosts took {owned}, expected a disjoint '
+                 f'cover of {names}')
+        design = os.path.join(out, 'design')
+        want = sorted(['reference'] + [f'{i:04d}' for i in range(
+            MH_SAMPLES)])
+        if sorted(os.listdir(design)) != want:
+            fail(f'multi-host: {sorted(os.listdir(design))}')
+        for sub in want:
+            files = sorted(os.listdir(os.path.join(design, sub)))
+            if files != sorted(f'{n}.pdb' for n in names):
+                fail(f'multi-host: {sub} holds {files}')
+            for n in names:
+                check_pdb(os.path.join(design, sub, f'{n}.pdb'), chains_of(n))
+    for h, x in enumerate(res):
+        if len(x['names']) != 1:
+            fail(f'multi-host: host {h} took {x["names"]}')
+        check_launches(x['launches'], passes_launches(PER_PASS, passes),
+                       f'multi-host inference (host {h})')
+    print(f'multi-host inference ({MH_HOSTS} hosts on one card, gloo, bf16, '
+          f'num_t {MH_NUM_T}, {MH_SAMPLES} samples of one complex each) on '
+          f'{card}: hosts {[x["names"] for x in res]}, sampling '
+          f'{[round(x["sampling_s"], 2) for x in res]} s, wall '
+          f'{[round(x["wall_s"], 2) for x in res]} s incl. model build; '
+          f'children {wall:.1f} s', flush=True)
+    return add_counts([x['launches'] for x in res]), {
+        'children_s': wall, 'hosts': [x['names'] for x in res],
+        'sampling_s': [x['sampling_s'] for x in res]}
+
+
+def dp_setup(torch, mesh):
+    """The data-parallel training case: f32 full width, dense random trunk
+    weights (scale 0.5, seed 0), a frozen ESM2-3B with random weights made
+    on the card, TrainConfig with the learning rate at its peak (1e-2:
+    an update of 1e-4 of it stays above the f32 spacing of weights up to
+    ~8) from the first update; the global batch of both test complexes,
+    twice."""
+    import random
+    from abx_tpu_torch.cli import runner
+    from abx_tpu_torch.data import dataset as ds
+    from abx_tpu_torch.train.trainer import TrainConfig, Trainer
+    from abx_tpu_torch.utils import params as params_lib
+    rt = runner.build_runtime(MODEL_CONFIG, seed=0, device='cuda',
+                              esm_random=True)
+    params_lib.load_flax_params(rt.model, params_lib.dense_random_tree(
+        params_lib.state_dict_tree(rt.model), seed=0, scale=0.5))
+    trainer = Trainer(rt.model, rt.diffuser, rt.config.model, rt.config.loss,
+                      TrainConfig(learning_rate=1e-2, warmup_steps=0,
+                                  decay_steps=100, log_every=0),
+                      esm=rt.esm, mesh=mesh)
+    exs = []
+    for i, pdb in enumerate(TEST_SET * (DP_BATCH // len(TEST_SET))):
+        name = os.path.basename(pdb)[:-4]
+        parts = name.split('_')
+        ex = ds.complex_from_pdb(pdb, parts[1], parts[2], parts[3].split('|'))
+        exs.append(ds.prepare_example(ex, rt.data_config, True,
+                                      rng=random.Random(i))[0])
+    return trainer, ds.stack_batch(exs)
+
+
+def train_snapshot(trainer):
+    return ({k: p.detach().cpu().clone() for k, p in trainer._params().items()},
+            {k: p.grad.detach().cpu().clone()
+             for k, p in trainer._params().items() if p.grad is not None})
+
+
+def child_dp_train(torch, rank, world, port, args):
+    """13d, one rank: two data-parallel steps on its rows of the global
+    batch; rank 0 saves the weights and summed gradients after the first."""
+    import torch.distributed as dist
+    from abx_tpu_torch.parallel import mesh as mesh_lib
+    child_join(rank, world, port)
+    mesh = mesh_lib.make_mesh(device='cuda')
+    trainer, batch = dp_setup(torch, mesh)
+    state = trainer.init_state()
+    mine = mesh_lib.shard_batch(mesh, batch)
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    ws = wrappers()
+    torch.cuda.synchronize()
+    reset_counts(ws)
+    times, metrics = [], []
+    for i in range(2):
+        t0 = time.time()
+        m = trainer.step(state, mine, gen)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        metrics.append({k: float(m[k]) for k in ('total', 'grad_norm',
+                                                  'num_recycle')})
+        if i == 0 and rank == 0:
+            torch.save(train_snapshot(trainer), args[0])
+    launches = read_counts(ws)
+    dist.barrier()
+    dist.destroy_process_group()
+    return {'metrics': metrics, 'step_s': times, 'launches': launches,
+            'peak_gb': torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_dp_train(torch, card):
+    """13d: one data-parallel step over DP_RANKS gloo ranks on the one card
+    against one process's step on the whole batch."""
+    from abx_tpu_torch.parallel import mesh as mesh_lib
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        snap = os.path.join(tmp, 'dp_step1.pt')
+        t0 = time.time()
+        res = run_children('dp_train', DP_RANKS, [snap])
+        wall = time.time() - t0
+        w_dp, g_dp = torch.load(snap)
+    trainer, batch = dp_setup(torch, mesh_lib.local_mesh('cuda'))
+    state = trainer.init_state()
+    w0 = {k: p.detach().cpu().clone() for k, p in trainer._params().items()}
+    m = trainer.step(state, batch, torch.Generator(device='cuda')
+                     .manual_seed(0))
+    torch.cuda.synchronize()
+    w1, g1 = train_snapshot(trainer)
+    loss, norm1 = float(m['total']), float(m['grad_norm'])
+    lr, trainer_clip = trainer.config.learning_rate, trainer.config.grad_clip
+    del trainer, state
+    torch.cuda.empty_cache()
+    dp_loss, dp_norm = (res[0]['metrics'][0][k] for k in ('total',
+                                                          'grad_norm'))
+    loss_rel = abs(dp_loss - loss) / abs(loss)
+    max_dw = max((w1[k] - w0[k]).abs().max().item() for k in w1)
+    g_err = max((g_dp[k] - g1[k]).abs().max().item() for k in g1)
+    g_max = max(g.abs().max().item() for g in g1.values())
+    def first_update(g, norm):
+        g = g if norm < trainer_clip else g / norm * trainer_clip
+        return g / (g.abs() + ADAM_EPS)
+    bar = DP_WEIGHT_TOL * max_dw
+    bad, noisy, total, err_max = 0, 0, 0, 0.0
+    for k in w1:
+        err = (w_dp[k] - w1[k]).abs()
+        zero = torch.zeros_like(w1[k])
+        du = (first_update(g_dp.get(k, zero), dp_norm)
+              - first_update(g1.get(k, zero), norm1)).abs() * lr
+        held = du <= HELD_SHARE_OF_BAR * bar
+        noisy += int((~held).sum())
+        bad += int((err[held] > bar).sum())
+        if bool(held.any()):
+            err_max = max(err_max, float(err[held].max()))
+        total += err.numel()
+    step_s = statistics.median(x['step_s'][1] for x in res)
+    print(f'data-parallel training ({DP_RANKS} gloo ranks on one card, f32, '
+          f'global batch {DP_BATCH}, full width, ESM2-3B frozen) on {card}: '
+          f'loss {dp_loss:.7g} vs one process {loss:.7g} (rel '
+          f'{loss_rel:.3g}); gradients max |diff| {g_err:.3g} (max '
+          f'{g_max:.3g}); weights after the update max |diff| {err_max:.3g} '
+          f'against max |update| {max_dw:.3g} on the {total - noisy} '
+          f'weights whose first Adam update the two runs\' gradients '
+          f'determine to a tenth of the bar ({noisy} of {total} not); '
+          f'{step_s:.3f} s per step (the second step, '
+          f'median over ranks; steps {[x["step_s"] for x in res]}); peak '
+          f'{[round(x["peak_gb"], 2) for x in res]} GB; children '
+          f'{wall:.1f} s', flush=True)
+    if loss_rel > DP_LOSS_TOL:
+        fail(f'dp train: loss {dp_loss} vs {loss}')
+    if g_err > DP_GRAD_TOL * g_max:
+        fail(f'dp train: gradients differ by {g_err:.3g} (max {g_max:.3g})')
+    if bad:
+        fail(f'dp train: {bad} weights beyond {DP_WEIGHT_TOL} x max|update|')
+    for r, x in enumerate(res):
+        passes = sum(int(mm['num_recycle']) + 1 for mm in x['metrics'])
+        check_launches(x['launches'], {'esm_attention': ESM_LAYERS * passes},
+                       f'dp train (rank {r})')
+        if x['metrics'] != res[0]['metrics']:
+            fail(f'dp train: rank {r} metrics {x["metrics"]}')
+    return add_counts([x['launches'] for x in res]), {
+        'loss_rel': loss_rel, 'grad_max_abs_err': g_err, 'grad_max': g_max,
+        'weight_max_abs_err': err_max, 'max_update': max_dw,
+        'weights_not_held': noisy, 'weights': total, 's_per_step': step_s,
+        'children_s': wall, 'peak_gb': [x['peak_gb'] for x in res]}
+
+
+def phase_13(torch, card):
+    """Phase 13; returns its paths' launches and its stats."""
+    t0 = time.time()
+    paths, stats = phase_picard(torch, card)
+    paths['tp_esm'], stats['tp_esm'] = phase_tp_esm(torch, card)
+    paths['multihost_inference'], stats['multihost_inference'] = \
+        phase_multihost(torch, card)
+    paths['dp_train'], stats['dp_train'] = phase_dp_train(torch, card)
+    paths['trace'], stats['trace'] = phase_trace(torch, card)
+    stats['seconds'] = time.time() - t0
+    print(f'phase 13 took {stats["seconds"]:.1f} s', flush=True)
+    return paths, stats
+
+
+CHILDREN = {'tp_esm': child_tp_esm, 'inference': child_inference,
+            'dp_train': child_dp_train}
+
+
+def child_main(argv):
+    """`chip_smoke.py --child <kind> <rank> <world> <port> [args]`: one
+    process of phase 13 on the card; prints one result line."""
+    sys.path.insert(0, HERE)
+    import torch
+    if not torch.cuda.is_available():
+        fail('child: no CUDA device')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from abx_tpu_torch.ops import _lib
+    _lib.lib()
+    kind, rank, world, port = argv[0], int(argv[1]), int(argv[2]), \
+        int(argv[3])
+    out = CHILDREN[kind](torch, rank, world, port, argv[4:])
+    print(CHILD_TAG + json.dumps(out), flush=True)
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, 'abx_tpu_torch')):
         fail('abx_tpu_torch/ not found beside chip_smoke.py: run it from a '
@@ -2255,6 +2882,8 @@ def main():
     shutil.rmtree(design_out)
     train_paths, stats['train'] = phase_train(torch, card)
     paths.update(train_paths)
+    p13_paths, stats['phase13'] = phase_13(torch, card)
+    paths.update(p13_paths)
 
     rows = []
     for name, (source, replaces) in KERNEL_META.items():
@@ -2283,4 +2912,7 @@ def main():
 
 
 if __name__ == '__main__':
-    main()
+    if sys.argv[1:2] == ['--child']:
+        child_main(sys.argv[2:])
+    else:
+        main()

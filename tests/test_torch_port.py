@@ -45,7 +45,9 @@ for m in mods:
 assert {{'abx_tpu_torch.evaluation.relax', 'abx_tpu_torch.evaluation.pll',
          'abx_tpu_torch.cli.eval_pll', 'abx_tpu_torch.train.losses',
          'abx_tpu_torch.train.trainer', 'abx_tpu_torch.utils.checkpoint',
-         'abx_tpu_torch.data.pipeline', 'abx_tpu_torch.cli.train'}} <= set(
+         'abx_tpu_torch.data.pipeline', 'abx_tpu_torch.cli.train',
+         'abx_tpu_torch.parallel.mesh', 'abx_tpu_torch.parallel.esm_tp',
+         'abx_tpu_torch.sampling.picard', 'abx_tpu_torch.utils.prof'}} <= set(
     mods), mods
 import chip_smoke
 import numpy as np
