@@ -13,7 +13,8 @@ are the sampler's opt-in, output-changing options.
 
 `--device` defaults to cuda and never falls back: without a card it
 raises.  `--device cpu` must be asked for (with `--tiny` it is the CPU
-smoke run).  Without `--model` the weights are random, from `--seed`.
+smoke run).  Without `--model` the weights are random, from `--seed`;
+`--model abx_diffab.ckpt` runs the released weights.
 """
 
 from __future__ import annotations
@@ -34,9 +35,11 @@ def main(argv: Optional[List[str]] = None):
     p.add_argument('--mode', type=str, default='design',
                    choices=['design', 'optimize', 'trajectory'])
     p.add_argument('--model', type=str, default=None,
-                   help='trunk weights: a flax msgpack checkpoint of the '
-                        'JAX package, or the weights file the port\'s '
-                        'trainer writes (cli/train.py: params.pt)')
+                   help='trunk weights, told apart by content: a reference '
+                        'checkpoint (the released abx_diffab.ckpt / '
+                        'abx_rabd.ckpt), the weights file the port\'s '
+                        'trainer writes (cli/train.py: params.pt), or a '
+                        'flax msgpack checkpoint of the JAX package')
     p.add_argument('--model_config', type=str, default=None)
     p.add_argument('--num_samples', type=int, default=1)
     p.add_argument('--batch_samples', type=int, default=None)

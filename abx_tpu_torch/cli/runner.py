@@ -39,6 +39,7 @@ from abx_tpu_torch.sampling.sampler import (Sampler, SamplerConfig,
                                             to_device_batch)
 from abx_tpu_torch.utils import checkpoint as ckpt_lib
 from abx_tpu_torch.utils import params as params_lib
+from abx_tpu_torch.utils import torch_convert
 
 logger = logging.getLogger(__name__)
 
@@ -72,8 +73,10 @@ def build_runtime(model_config_path: Optional[str] = None,
                   esm_random: bool = False,
                   esm_layers: Optional[int] = None,
                   esm_dim: Optional[int] = None) -> Runtime:
-    """`checkpoint_path`: the trunk's weights, a flax msgpack of the JAX
-    package or a weights file of the port's trainer (`train/trainer.py`).
+    """`checkpoint_path`: the trunk's weights, a reference checkpoint (the
+    released AbX `.ckpt`), a weights file of the port's trainer
+    (`train/trainer.py`) or a flax msgpack of the JAX package, told apart
+    by `load_trunk_weights`.
     `esm_checkpoint` (a msgpack of the JAX package's ESM2 tree, or a
     fair-esm `.pt`) or `esm_random` (a full-shape ESM2 with random weights,
     for speed and memory studies) turns ESM conditioning on; `esm_layers`
@@ -106,15 +109,9 @@ def build_runtime(model_config_path: Optional[str] = None,
     dtype = torch.bfloat16 if bf16 else torch.float32
     model = ScoreNetworkIteration(cfg.model, diffuser,
                                   cfg.data.max_antibody_len, dtype=dtype)
-    if checkpoint_path and ckpt_lib.is_torch_checkpoint(checkpoint_path):
-        # The weights file of the port's trainer (its EMA weights, or a
-        # `.raw`): a state dict by the port's names.
-        model.load_state_dict(ckpt_lib.load_params(checkpoint_path))
-        logger.info('loaded checkpoint %s', checkpoint_path)
-    elif checkpoint_path:
-        params_lib.load_flax_params(model,
-                                    params_lib.read_msgpack(checkpoint_path))
-        logger.info('loaded checkpoint %s', checkpoint_path)
+    if checkpoint_path:
+        kind = load_trunk_weights(model, checkpoint_path, cfg)
+        logger.info('loaded checkpoint %s (%s)', checkpoint_path, kind)
     else:
         reset_parameters(model, seed)
         logger.warning('no checkpoint: using randomly initialised weights')
@@ -135,6 +132,31 @@ def build_runtime(model_config_path: Optional[str] = None,
     if esm is not None:
         esm.requires_grad_(False).eval()
     return Runtime(cfg, diffuser, model, dcfg, dev, esm)
+
+
+def load_trunk_weights(model: ScoreNetworkIteration, path: str, cfg
+                       ) -> str:
+    """Load the trunk's weights from `path` into `model`, strictly, telling
+    the file's kind by its content (not its name: the port's trainer
+    writes `params.pt`, a released checkpoint is a `.ckpt`):
+    - a `torch.save` archive holding `model_state_dict`, or keys of the
+      reference ScoreNetwork (`impl.`): a reference checkpoint such as the
+      released `abx_diffab.ckpt` / `abx_rabd.ckpt`, converted by
+      `utils/torch_convert.py`;
+    - any other `torch.save` archive: a state dict by the port's names,
+      the weights file of the port's trainer (its EMA weights, or a
+      `.raw`);
+    - anything else: a flax msgpack checkpoint of the JAX package.
+    Returns 'reference', 'port' or 'msgpack'."""
+    if not ckpt_lib.is_torch_checkpoint(path):
+        params_lib.load_flax_params(model, params_lib.read_msgpack(path))
+        return 'msgpack'
+    state = torch_convert.read_checkpoint(path)
+    if torch_convert.is_reference_state_dict(state):
+        torch_convert.load_reference_state_dict(model, state, cfg)
+        return 'reference'
+    model.load_state_dict(state)
+    return 'port'
 
 
 def _esm_module(cfg, dtype) -> AntibodyESM:

@@ -108,8 +108,11 @@ def main(argv: Optional[List[str]] = None):
     p.add_argument('--is_cluster_idx', action='store_true')
     p.add_argument('--output_dir', type=str, required=True)
     p.add_argument('--init_checkpoint', type=str, default=None,
-                   help='starting weights: a flax msgpack of the JAX '
-                        'package or a weights file of this trainer')
+                   help='starting weights (fine-tuning), told apart by '
+                        'content: a reference checkpoint (the released '
+                        'abx_diffab.ckpt / abx_rabd.ckpt), a weights file '
+                        'of this trainer, or a flax msgpack of the JAX '
+                        'package')
     p.add_argument('--model_config', type=str, default=None)
     p.add_argument('--batch_size', type=int, default=8)
     p.add_argument('--num_steps', type=int, default=10000,

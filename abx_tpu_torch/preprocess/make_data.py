@@ -11,10 +11,10 @@ cdr_def=14), multiprocess over complexes.
 Output npz schema matches the reference exactly (antibody_*/antigen_* keys),
 so datasets preprocessed by either implementation interoperate.
 
-Numbering: the port's `preprocess/numbering.py` holds the template fit
-only, which is what the JAX package's `auto` backend runs where ANARCI is
-not installed (and remote AbNum not opted into); `--numbering` takes
-`auto` and `template`, both that fit.
+Numbering: `--numbering auto|anarci|template|abnum`, the backends of the
+port's `preprocess/numbering.py` (ANARCI when installed, then the template
+fit; AbNum only when asked for, as a remote lookup).  A chain that the
+chosen backend cannot number drops its complex.
 """
 
 from __future__ import annotations
@@ -30,11 +30,9 @@ import numpy as np
 from abx_tpu_torch.common import residue_constants as rc
 from abx_tpu_torch.data.pdb_io import parse_pdb
 from abx_tpu_torch.preprocess.mmcif import parse_mmcif
-from abx_tpu_torch.preprocess.numbering import annotate_domain
+from abx_tpu_torch.preprocess.numbering import BACKENDS, annotate_domain
 
 logger = logging.getLogger(__name__)
-
-NUMBERING_BACKENDS = ('auto', 'template')
 
 
 def parse_sabdab_summary(path: str) -> List[Dict]:
@@ -81,15 +79,13 @@ def make_complex_features(chains: Dict, heavy: str, light: str,
                           numbering_backend: str = 'auto'
                           ) -> Optional[Dict[str, np.ndarray]]:
     """Chain features -> merged antibody/antigen npz-schema arrays."""
-    if numbering_backend not in NUMBERING_BACKENDS:
-        raise ValueError(f'numbering backend {numbering_backend!r}: the '
-                         f'port has {NUMBERING_BACKENDS} (the template fit)')
     ab_parts, ag_parts = [], []
     for idx, (cid, tag) in enumerate([(heavy, 'H'), (light, 'L')]):
         if not cid or cid not in chains:
             return None
         data = chains[cid]
-        ann = annotate_domain(data.str_seq, tag)
+        ann = annotate_domain(data.str_seq, tag,
+                              backend=numbering_backend)
         if ann is None:
             return None
         sl = slice(ann.start, ann.end)
@@ -180,7 +176,7 @@ def main(argv=None):
     p.add_argument('--output_dir', type=str, required=True)
     p.add_argument('--cpus', type=int, default=1)
     p.add_argument('--numbering', type=str, default='auto',
-                   choices=list(NUMBERING_BACKENDS))
+                   choices=list(BACKENDS))
     p.add_argument('--verbose', action='store_true')
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO)

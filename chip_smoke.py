@@ -164,7 +164,15 @@ fatal on failure:
        Adam's first update to a tenth of that; seconds a step;
      13e. utils/prof.py's trace around one bf16 trunk pass under an
        annotate span: rows 1-7's device kernels inside the span.
-Each main path (phases 5, 6, 6b, 7, 8, 9, 10, 11, 12, 13 and the
+  14. a released-checkpoint design: the flagship model (ESM off, random
+     weights from seed 0, every weight moved by 0.02 N(0, 1) so that no
+     AF2 zero init hides a mapping) written as a reference-format `.ckpt`
+     (`{'model_state_dict': ...}` under the reference ScoreNetwork's names,
+     utils/torch_convert.py::reference_state_dict) and as the port
+     trainer's `params.pt`; cli/design.py --model on each (bf16, 4
+     samples, num_t 4, seed 0): the design PDBs byte-identical, the
+     trunk kernels launched per pass x 15 on the `.ckpt` run.
+Each main path (phases 5, 6, 6b, 7, 8, 9, 10, 11, 12, 13, 14 and the
 trajectory run) is driven with the launch counts set to 0 just before it
 and read just after; phase 12's are `train_esm_off` (both runs),
 `train_esm_on` and `design_trained` in `launches_by_path`.  The lines
@@ -2808,6 +2816,75 @@ CHILDREN = {'tp_esm': child_tp_esm, 'inference': child_inference,
             'dp_train': child_dp_train}
 
 
+REF_NUM_T = 4
+
+
+def phase_reference_ckpt(torch, card):
+    """Phase 14: the design CLI from a reference-format `.ckpt` against the
+    same weights from the port's `params.pt`, bit for bit."""
+    from abx_tpu_torch.cli import design, runner
+    from abx_tpu_torch.utils import checkpoint as ckpt_lib
+    from abx_tpu_torch.utils import torch_convert
+    t0 = time.time()
+    rt = runner.build_runtime(MODEL_CONFIG, seed=0, bf16=True, device='cuda')
+    g = torch.Generator().manual_seed(14)
+    with torch.no_grad():
+        for p in rt.model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=g).to(p))
+    ws = wrappers()
+    passes = (REF_NUM_T + 1) * (NUM_RECYCLE + 1)
+    expected = {k: n * passes for k, n in PER_PASS.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        files = {'reference': os.path.join(tmp, 'abx_diffab.ckpt'),
+                 'port': os.path.join(tmp, 'params.pt')}
+        torch.save({'model_state_dict':
+                    torch_convert.reference_state_dict(rt.model)},
+                   files['reference'])
+        ckpt_lib.save_params(files['port'], rt.model.state_dict())
+        del rt
+        texts, launches, seconds = {}, None, {}
+        for kind, path in files.items():
+            out = os.path.join(tmp, kind)
+            argv = ['--pdb_file', PDB, '--output_dir', out, '--model_config',
+                    MODEL_CONFIG, '--model', path, '--seed', '0', '--bf16',
+                    '--device', 'cuda', '--num_samples', str(NUM_SAMPLES),
+                    '--batch_samples', str(NUM_SAMPLES), '--num_t',
+                    str(REF_NUM_T)]
+            reset_counts(ws)
+            t1 = time.time()
+            design.main(argv)
+            torch.cuda.synchronize()
+            seconds[kind] = time.time() - t1
+            if kind == 'reference':
+                launches = read_counts(ws)
+            texts[kind] = {}
+            for i in range(NUM_SAMPLES):
+                pdb = os.path.join(out, 'design', f'{i:04d}',
+                                   '6ct7_H_L_S.pdb')
+                if not os.path.exists(pdb):
+                    fail(f'phase 14: the {kind} run wrote no {pdb}')
+                check_pdb(pdb)
+                with open(pdb, encoding='utf-8') as f:
+                    texts[kind][i] = f.read()
+        for i in range(NUM_SAMPLES):
+            if texts['reference'][i] != texts['port'][i]:
+                diff = [(a, b) for a, b in zip(
+                    texts['reference'][i].splitlines(),
+                    texts['port'][i].splitlines()) if a != b]
+                fail(f'phase 14: design {i} from the reference .ckpt differs '
+                     f'from the same weights loaded from params.pt on '
+                     f'{len(diff)} lines, first {diff[:1]}')
+    check_launches(launches, expected, 'reference-checkpoint design')
+    total = time.time() - t0
+    print(f'phase 14 (reference .ckpt vs params.pt, bf16, num_t '
+          f'{REF_NUM_T}) on {card}: {NUM_SAMPLES} designs bit-identical; '
+          f'design CLI {seconds["reference"]:.2f} s (.ckpt) / '
+          f'{seconds["port"]:.2f} s (params.pt); phase {total:.1f} s',
+          flush=True)
+    return launches, {'seconds': total, 'design_s': seconds,
+                      'identical': NUM_SAMPLES}
+
+
 def child_main(argv):
     """`chip_smoke.py --child <kind> <rank> <world> <port> [args]`: one
     process of phase 13 on the card; prints one result line."""
@@ -2884,6 +2961,8 @@ def main():
     paths.update(train_paths)
     p13_paths, stats['phase13'] = phase_13(torch, card)
     paths.update(p13_paths)
+    paths['design_reference_ckpt'], stats['reference_ckpt'] = \
+        phase_reference_ckpt(torch, card)
 
     rows = []
     for name, (source, replaces) in KERNEL_META.items():

@@ -141,9 +141,11 @@ def test_make_complex_features_matches_jax(path):
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-def test_preprocess_cli_writes_the_jax_npz(tmp_path):
+def test_preprocess_cli_writes_the_jax_npz(tmp_path, monkeypatch):
     """`cli/preprocess.py` over a SAbDab summary of one entry (PDB format)
-    writes the same npz and name index as the JAX package's."""
+    writes the same npz and name index as the JAX package's; with the
+    `anarci` package absent, the `anarci` backend drops the complex in
+    both packages."""
     struct = tmp_path / 'structs'
     struct.mkdir()
     shutil.copy(PDB, struct / '6ct7.pdb')
@@ -165,9 +167,12 @@ def test_preprocess_cli_writes_the_jax_npz(tmp_path):
     assert set(got.files) == set(want.files)
     for k in want.files:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    with pytest.raises(ValueError, match='numbering backend'):
-        port_make_data.make_complex_features(parse_pdb(PDB), 'H', 'L', ['S'],
-                                             numbering_backend='anarci')
+    monkeypatch.setitem(sys.modules, 'anarci', None)   # import fails
+    assert port_make_data.make_complex_features(
+        parse_pdb(PDB), 'H', 'L', ['S'], numbering_backend='anarci') is None
+    assert jax_make_data.make_complex_features(
+        jax_pdb_io.parse_pdb(PDB), 'H', 'L', ['S'],
+        numbering_backend='anarci') is None
 
 
 def _mmcif(path, chain, n, observed, scheme=True):

@@ -13,6 +13,7 @@ package.
 
 import ctypes
 import functools
+import multiprocessing
 import re
 
 import numpy as np
@@ -475,6 +476,11 @@ def test_c_major_and_attention_wrappers_on_cpu_run_plain_version():
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device (the kernels run only on the card)')
+    return _card()
+
+
+def _card():
+    """The card, with TF32 off (the f32 bars assume full f32 products)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device('cuda')
@@ -1761,15 +1767,35 @@ def as_tuple(out):
     return out if isinstance(out, tuple) else (out,)
 
 
+def _in_own_process(fn, *args):
+    """Run `fn(*args)` in a fresh process (spawned, so with a CUDA context
+    of its own) and return its result; an assertion that fails there fails
+    here with its message.  The one-launch module tests profile their call
+    this way: after the earlier tests of this file, torch.profiler in the
+    same process recorded no device event for those calls (`AssertionError:
+    []`), though each passed alone, and a profile after every test hid the
+    fault; a process of its own gives the profiler the state it has when a
+    test runs alone."""
+    ctx = multiprocessing.get_context('spawn')
+    with ctx.Pool(1) as pool:
+        return pool.apply(fn, args)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('kind', ['transition', 'seq_attention',
                                   'tri_attention'])
 def test_module_launches_the_hopper_kernel_once(cuda, kind):
     """A bf16 call with a module's cached weights launches the Hopper kernel
     alone (the module's transition, or the pair bias as the module computes
-    it), and follows an in-place change of a weight."""
+    it), and follows an in-place change of a weight (profiled in a process
+    of its own)."""
+    _in_own_process(_module_launches_the_hopper_kernel_once, kind)
+
+
+def _module_launches_the_hopper_kernel_once(kind):
     from torch.profiler import ProfilerActivity, profile
     from abx_tpu_torch.models.seqformer import _bias_packed
+    cuda = _card()
     mod, _, cache, wrapper, proj, _, _ = _module_case(kind)
     mod = mod.to(cuda).to(torch.bfloat16).eval()
     with torch.no_grad():
@@ -1817,8 +1843,13 @@ def test_module_launches_its_kernel_once(cuda, kind):
     """A bf16 call with the module's cached weights launches the kernel
     alone (the gate-fold post and the channel-major post on a contraction
     output, the recycled pair input), and follows an in-place change of a
-    weight."""
+    weight (profiled in a process of its own)."""
+    _in_own_process(_module_launches_its_kernel_once, kind)
+
+
+def _module_launches_its_kernel_once(kind):
     from torch.profiler import ProfilerActivity, profile
+    cuda = _card()
     mod, _, cache, _, proj, attr, _ = _module_case(kind)
     mod = mod.to(cuda).to(torch.bfloat16).eval()
     with torch.no_grad():
