@@ -242,10 +242,14 @@ def _train(args, p):
         logger.info('resuming at step %d: %d steps remain to the %d target',
                     state.step, remaining, args.num_steps)
     generator = torch.Generator(device=rt.device).manual_seed(args.seed)
-    return trainer.fit(state, data_iter, remaining, generator,
-                       checkpoint_path=ckpt,
-                       metrics_path=os.path.join(args.output_dir,
-                                                 'metrics.csv'))
+    state = trainer.fit(state, data_iter, remaining, generator,
+                        checkpoint_path=ckpt,
+                        metrics_path=os.path.join(args.output_dir,
+                                                  'metrics.csv'))
+    if rt.device.type == 'cuda':
+        logger.info('peak memory allocated: %.3f GB',
+                    torch.cuda.max_memory_allocated(rt.device) / 1e9)
+    return state
 
 
 if __name__ == '__main__':

@@ -24,6 +24,14 @@ Writes `metrics.csv` (the training curve) and `result.json` under `--out`
 stops training at a step boundary once that many seconds have passed (the
 schedule stays the one of `--steps`; `result.json` records the steps
 made).  `--eval_only` samples from `<out>/params.pt` of an earlier run.
+
+The JAX tool's quality studies of the sampler's output-changing options:
+`--eval_esm_reuse`, `--eval_esm_refresh K...`, `--eval_corrector NUM_T...`
+and `--eval_fast_recipe` evaluate the same weights again with those
+`SamplerConfig` options, in both dtypes, under the JAX tool's result keys
+(`esm_reuse`, `esm_refresh_k{k}`, `corrector_t{nt}_off` / `_k2`,
+`fast_recipe_t25`; each `{'f32': summary, 'bf16': summary}`);
+`--exact_elbo` trains the sequence loss with the exact tau-leaping ELBO.
 """
 
 from __future__ import annotations
@@ -44,6 +52,10 @@ PDB = os.path.join(REPO, 'testdata', '6ct7_H_L_S.pdb')
 MODEL_CONFIG = os.path.join(REPO, 'config', 'config_model.json')
 EVAL_CHUNK = 4
 LOG_EVERY = 50
+# The bench's fast_recipe_t25: num_t 25, two corrector jumps a step, ESM
+# reuse refreshed every 8 grid positions.
+FAST_RECIPE = {'esm_reuse': True, 'refresh_every': 8, 'num_t': 25,
+               'corrector_steps': 2}
 
 
 def card_line(device: torch.device) -> str:
@@ -97,6 +109,8 @@ def train(args, out: str, device: str) -> dict:
                               esm_random=args.esm_random,
                               esm_layers=args.esm_layers,
                               esm_dim=args.esm_dim)
+    if args.exact_elbo:
+        rt.config.loss.diffusion_seq.config.exact_elbo = True
     batch = ds.stack_batch([complex_features(rt)] * args.batch)
     trainer = Trainer(
         rt.model, rt.diffuser, rt.config.model, rt.config.loss,
@@ -142,28 +156,42 @@ def train(args, out: str, device: str) -> dict:
     return record
 
 
-def evaluate(args, out: str, device: str, bf16: bool):
-    """Sample the generate area with the EMA weights in one dtype; one row
-    per sample."""
+def eval_runtime(args, out: str, device: str, bf16: bool):
+    """The EMA weights of `<out>/params.pt` in one dtype."""
     from abx_tpu_torch.cli import runner
+    return runner.build_runtime(None if args.tiny else MODEL_CONFIG,
+                                os.path.join(out, 'params.pt'),
+                                tiny=args.tiny, seed=0, bf16=bf16,
+                                device=device, esm_random=args.esm_random,
+                                esm_layers=args.esm_layers,
+                                esm_dim=args.esm_dim)
+
+
+def evaluate(args, rt, num_t=None, esm_reuse=False, refresh_every=1,
+             corrector_steps=0):
+    """Sample the generate area on runtime `rt` (`eval_runtime`), with the
+    sampler options of the JAX tool's `eval_samples`; one row per sample,
+    and the seconds it took."""
     from abx_tpu_torch.data import dataset as ds
     from abx_tpu_torch.sampling.sampler import (Sampler, SamplerConfig,
                                                 to_device_batch)
-    rt = runner.build_runtime(None if args.tiny else MODEL_CONFIG,
-                              os.path.join(out, 'params.pt'),
-                              tiny=args.tiny, seed=0, bf16=bf16,
-                              device=device, esm_random=args.esm_random,
-                              esm_layers=args.esm_layers,
-                              esm_dim=args.esm_dim)
     feats = complex_features(rt)
     chunk = min(args.num_samples, EVAL_CHUNK)
     sfeats = to_device_batch(ds.stack_batch([feats] * chunk), rt.device)
     gt_ca = np.asarray(feats['atom14_gt_positions'][:, 1])
     gt_seq = np.asarray(feats['seq'])
     sampler = Sampler(rt.model, rt.diffuser, rt.config.model,
-                      SamplerConfig(num_t=args.num_t, mode='design',
-                                    generate_area=args.generate_area),
+                      SamplerConfig(num_t=num_t or args.num_t, mode='design',
+                                    generate_area=args.generate_area,
+                                    esm_reuse_recycles=esm_reuse,
+                                    esm_refresh_every=refresh_every,
+                                    seq_corrector_steps=corrector_steps),
                       esm_fn=rt.esm)
+    dtype = 'bf16' if rt.model.dtype == torch.bfloat16 else 'f32'
+    tag = ('  [esm_reuse]' if esm_reuse else '') + (
+        f'  [refresh_k={refresh_every}]' if refresh_every > 1 else '') + (
+        f'  [num_t={num_t}]' if num_t else '') + (
+        f'  [corrector_k={corrector_steps}]' if corrector_steps else '')
     rows = []
     t0 = time.time()
     for c0 in range(0, args.num_samples, chunk):
@@ -179,10 +207,28 @@ def evaluate(args, out: str, device: str, bf16: bool):
                 (pred_ca[mask] - gt_ca[mask]) ** 2, -1))))
             aar = float(np.mean(seq[j][mask] == gt_seq[mask]))
             rows.append({'sample': c0 + j, 'h3_rmsd': rmsd, 'h3_aar': aar})
-            print(f'sample {c0 + j} ({"bf16" if bf16 else "f32"}): '
-                  f'{args.generate_area} rmsd={rmsd:.3f} A aar={aar:.3f}',
-                  flush=True)
+            print(f'sample {c0 + j} ({dtype}): {args.generate_area} '
+                  f'rmsd={rmsd:.3f} A aar={aar:.3f}' + tag, flush=True)
     return rows, time.time() - t0
+
+
+def eval_configs(args):
+    """(result key, `evaluate` options) of each `--eval_*` flag, under the
+    JAX tool's keys."""
+    out = []
+    if args.eval_esm_reuse:
+        out.append(('esm_reuse', {'esm_reuse': True}))
+    for k in args.eval_esm_refresh:
+        out.append((f'esm_refresh_k{k}',
+                    {'esm_reuse': True, 'refresh_every': k}))
+    for nt in args.eval_corrector:
+        out.append((f'corrector_t{nt}_off',
+                    {'num_t': nt, 'corrector_steps': 0}))
+        out.append((f'corrector_t{nt}_k2',
+                    {'num_t': nt, 'corrector_steps': 2}))
+    if args.eval_fast_recipe:
+        out.append(('fast_recipe_t25', FAST_RECIPE))
+    return out
 
 
 def main(argv=None):
@@ -201,6 +247,20 @@ def main(argv=None):
                         '--esm_layers/--esm_dim')
     p.add_argument('--esm_layers', type=int, default=6)
     p.add_argument('--esm_dim', type=int, default=320)
+    p.add_argument('--exact_elbo', action='store_true',
+                   help='train the sequence loss with the exact tau-leaping '
+                        'CTMC ELBO instead of the CE surrogate')
+    p.add_argument('--eval_esm_reuse', action='store_true',
+                   help='also evaluate with esm_reuse_recycles on')
+    p.add_argument('--eval_esm_refresh', type=int, nargs='*', default=[],
+                   help='also evaluate esm_refresh_every at these k values '
+                        '(each with esm_reuse_recycles)')
+    p.add_argument('--eval_corrector', type=int, nargs='*', default=[],
+                   help='also evaluate at these reduced num_t values, the '
+                        'sequence corrector off and at k=2 for each')
+    p.add_argument('--eval_fast_recipe', action='store_true',
+                   help="also evaluate the bench's fast_recipe_t25 (num_t "
+                        '25, corrector k=2, ESM reuse refreshed every 8)')
     p.add_argument('--eval_only', action='store_true',
                    help='skip training; sample from <out>/params.pt (the '
                         'EMA weights of an earlier run)')
@@ -220,11 +280,20 @@ def main(argv=None):
         with open(result_path, encoding='utf-8') as f:
             result = json.load(f)
     else:
-        result = {'train': train(args, args.out, args.device)}
+        result = {'train': train(args, args.out, args.device),
+                  'exact_elbo': args.exact_elbo}
     rows, evals = {}, {}
     for name, bf16 in (('f32', False), ('bf16', True)):
-        rows[name], seconds = evaluate(args, args.out, args.device, bf16)
+        rt = eval_runtime(args, args.out, args.device, bf16)
+        rows[name], seconds = evaluate(args, rt)
         evals[name] = {**summarize(rows[name]), 'seconds': seconds}
+        for key, options in eval_configs(args):
+            r, seconds = evaluate(args, rt, **options)
+            result.setdefault(key, {})[name] = {**summarize(r),
+                                                'seconds': seconds}
+        del rt
+        if device.type == 'cuda':
+            torch.cuda.empty_cache()
     evals['bf16_minus_f32'] = [
         {'sample': a['sample'], 'h3_rmsd': b['h3_rmsd'] - a['h3_rmsd'],
          'h3_aar': b['h3_aar'] - a['h3_aar']}
@@ -242,9 +311,11 @@ def main(argv=None):
     })
     with open(result_path, 'w', encoding='utf-8') as f:
         json.dump(result, f, indent=1)
-    print(json.dumps({k: v for k, v in result.items() if k != 'eval'}))
-    print(json.dumps({k: {m: v for m, v in e.items() if m != 'samples'}
-                      for k, e in evals.items() if k != 'bf16_minus_f32'}))
+    keys = ['eval'] + [k for k, _ in eval_configs(args)]
+    print(json.dumps({k: v for k, v in result.items() if k not in keys}))
+    print(json.dumps({k: {d: {m: v for m, v in e.items() if m != 'samples'}
+                          for d, e in result[k].items()
+                          if d != 'bf16_minus_f32'} for k in keys}))
     return result
 
 

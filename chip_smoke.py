@@ -172,9 +172,28 @@ fatal on failure:
      trainer's `params.pt`; cli/design.py --model on each (bf16, 4
      samples, num_t 4, seed 0): the design PDBs byte-identical, the
      trunk kernels launched per pass x 15 on the `.ckpt` run.
-Each main path (phases 5, 6, 6b, 7, 8, 9, 10, 11, 12, 13, 14 and the
-trajectory run) is driven with the launch counts set to 0 just before it
-and read just after; phase 12's are `train_esm_off` (both runs),
+  15. the quality and rehearsal tools of abx_tpu_torch/tools at full width
+     (`tools_*` in `launches_by_path`):
+     15a. multi_train_rehearsal: the 16-complex corpus, cli/train.py in a
+       subprocess (B=4, 8 steps, a checkpoint every 2) killed with SIGKILL
+       once the step-4 checkpoint has landed, resumed to step 8; the EMA
+       weights' 4 bf16 CDR designs of the held-out variant (num_t 4)
+       finite, the trunk kernels per pass x 15;
+     15b. overfit_6ct7: 2 steps with a frozen random ESM2 (6 x 320), then
+       `--eval_only` with every `--eval_*` flag (ESM reuse, refresh 2,
+       corrector at num_t 4, the fast recipe at num_t 25), each result key
+       finite in f32 and bf16; the trunk kernels per pass and
+       esm_attention per ESM pass, counted over the 12 evaluations;
+     15c. revalidate_kernels on those weights, on the default route (the
+       kernels of one evaluation) and with every kernel flag 0 (no
+       launch); its verdict is printed, not judged (2-step weights);
+     15d. probe_picard at num_t 4 (B=1, bf16): sweeps <= grid at both
+       tolerances, the tol-0 fixpoint's sequences equal to the sequential
+       run's and its backbone within 0.1 A, the trunk kernels per pass of
+       every run.
+Each main path (phases 5, 6, 6b, 7, 8, 9, 10, 11, 12, 13, 14, each of 15a-d
+and the trajectory run) is driven with the launch counts set to 0 just
+before it and read just after; phase 12's are `train_esm_off` (both runs),
 `train_esm_on` and `design_trained` in `launches_by_path`.  The lines
 before the last are the nvidia-smi card line and the kernels JSON (each
 kernel's launches on each main path in `launches_by_path`, and in
@@ -188,6 +207,7 @@ per source, all started together.  No JAX is imported.
 """
 
 import json
+import math
 import os
 import shutil
 import statistics
@@ -2885,6 +2905,183 @@ def phase_reference_ckpt(torch, card):
                       'identical': NUM_SAMPLES}
 
 
+# Phase 15: the quality and rehearsal tools of abx_tpu_torch/tools at full
+# width and small depth.  The overfit evaluation's sampler options, as
+# (num_t, ESM passes a grid position: 3 inside every trunk pass, or 1 at
+# every refresh-th position with ESM reuse, refresh interval): the base
+# evaluation, esm_reuse, esm_refresh_k2, corrector_t4_off / _k2 and
+# fast_recipe_t25.
+TOOL_NUM_T, TOOL_ESM_LAYERS = 8, 6
+TOOL_EVALS = [(TOOL_NUM_T, 3, 1), (TOOL_NUM_T, 1, 1), (TOOL_NUM_T, 1, 2),
+              (4, 3, 1), (4, 3, 1), (25, 1, 8)]
+
+
+def tool_eval_launches(evals, dtypes=2):
+    """Launches of a set of evaluations, in each dtype: the trunk rows per
+    pass x 3 passes a grid position (the prime step + num_t), and
+    esm_attention once a layer for each ESM pass."""
+    passes = esm = 0
+    for num_t, esm_per_pos, refresh in evals:
+        grid = num_t + 1
+        passes += grid * (NUM_RECYCLE + 1)
+        esm += (grid * esm_per_pos if esm_per_pos > 1
+                else len(range(0, grid, refresh))) * TOOL_ESM_LAYERS
+    return {**passes_launches(PER_PASS, passes * dtypes),
+            'esm_attention': esm * dtypes}
+
+
+def finite(x):
+    return x is not None and math.isfinite(x)
+
+
+def phase_tools(torch, card):
+    """Phase 15: the rehearsal (train CLI subprocesses, SIGKILL, resume,
+    held-out evaluation), the overfit tool's evaluation flags, both routes
+    of the revalidation tool and the Picard probe."""
+    from abx_tpu_torch.tools import (multi_train_rehearsal, overfit_6ct7,
+                                     probe_picard, revalidate_kernels)
+    ws = wrappers()
+    paths, stats = {}, {}
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        # 15a: 8 steps of B = 4, a checkpoint every 2, killed after the one
+        # at step 4; the holdout's 4 CDR designs at num_t 4 in this process.
+        reset_counts(ws)
+        t0 = time.time()
+        res = multi_train_rehearsal.main([
+            '--steps', '8', '--checkpoint_every', '2', '--batch', '4',
+            '--num_t', '4', '--num_samples', '4',
+            '--out', os.path.join(tmp, 'mt'),
+            '--work', os.path.join(tmp, 'mt_work')])
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launches = read_counts(ws)
+        events = {e['event']: e for e in res['timeline']}
+        if events.get('sigkill', {}).get('checkpoint_step') != 4 or \
+                'resume_done' not in events:
+            fail(f'rehearsal timeline: {res["timeline"]}')
+        if res['last_step'] != 8:
+            fail(f'rehearsal: metrics.csv ends at step {res["last_step"]}')
+        ev = res['holdout_eval']
+        if len(ev['samples']) != 4 or not all(
+                finite(r['cdr_rmsd']) for r in ev['samples']):
+            fail(f'rehearsal holdout evaluation: {ev["samples"]}')
+        check_launches(launches, passes_launches(PER_PASS, 5 * 3),
+                       'rehearsal holdout evaluation')
+        paths['tools_rehearsal'] = launches
+        stats['rehearsal'] = {
+            'seconds': seconds, 's_per_step_rows': res['s_per_step_rows'],
+            'peak_memory_gb_resumed_run': res['peak_memory_gb_resumed_run'],
+            'sigkill_after_rows': events['sigkill']['after_metric_rows'],
+            'cdr_rmsd_mean': ev['cdr_rmsd_mean']}
+        print(f'phase 15a, rehearsal (16 complexes, B=4, 8 steps, SIGKILL '
+              f'after the step-4 checkpoint, resume) on {card}: '
+              f'{seconds:.1f} s; s a step by metric row '
+              f'{[round(x, 3) for x in res["s_per_step_rows"]]}; holdout '
+              f'CDR RMSD {ev["cdr_rmsd_mean"]:.2f} A', flush=True)
+
+        # 15b: 2 overfit steps with a frozen random ESM2, then every
+        # evaluation flag on those weights (the launches counted there).
+        of = os.path.join(tmp, 'overfit')
+        base = ['--esm_random', '--esm_layers', str(TOOL_ESM_LAYERS),
+                '--num_t', str(TOOL_NUM_T), '--num_samples', '4',
+                '--out', of]
+        t0 = time.time()
+        overfit_6ct7.main(['--steps', '2'] + base)
+        reset_counts(ws)
+        t1 = time.time()
+        result = overfit_6ct7.main(base + [
+            '--eval_only', '--eval_esm_reuse', '--eval_esm_refresh', '2',
+            '--eval_corrector', '4', '--eval_fast_recipe'])
+        torch.cuda.synchronize()
+        launches = read_counts(ws)
+        keys = ['esm_reuse', 'esm_refresh_k2', 'corrector_t4_off',
+                'corrector_t4_k2', 'fast_recipe_t25']
+        for key in ['eval'] + keys:
+            for dtype in ('f32', 'bf16'):
+                block = result.get(key, {}).get(dtype)
+                if not block or block['n'] != 4 or not (
+                        finite(block['h3_rmsd_mean'])
+                        and finite(block['h3_rmsd_ci95'])
+                        and finite(block['h3_aar_mean'])):
+                    fail(f'overfit tool: result[{key!r}][{dtype!r}] = '
+                         f'{block}')
+        check_launches(launches, tool_eval_launches(TOOL_EVALS),
+                       'overfit evaluation flags')
+        paths['tools_overfit_eval'] = launches
+        stats['overfit_eval_flags'] = {
+            'train_and_eval_s': t1 - t0, 'eval_flags_s': time.time() - t1,
+            **{k: {d: result[k][d]['h3_rmsd_mean'] for d in ('f32', 'bf16')}
+               for k in keys}}
+        print(f'phase 15b, overfit tool (2 steps, ESM2 {TOOL_ESM_LAYERS} x '
+              f'320 random) on {card}: every --eval_* key in both dtypes, '
+              f'{time.time() - t1:.1f} s for the evaluations', flush=True)
+
+        # 15c: the revalidation tool on those weights, on the default route
+        # and on the plain route (every kernel flag 0, ESM attention too).
+        verdicts = {}
+        for route, env in (('kernels', {}),
+                           ('plain', {**{k: '0' for k in ALL_FLAGS},
+                                      'ABX_FUSED_ESM_ATTN': '0'})):
+            set_flags(env)
+            reset_counts(ws)
+            rc = revalidate_kernels.main([
+                '--run_dir', of, '--num_t', str(TOOL_NUM_T),
+                '--num_samples', '4', '--tag', route])
+            launches = read_counts(ws)
+            set_flags({})
+            os.environ.pop('ABX_FUSED_ESM_ATTN', None)
+            with open(os.path.join(of, f'bf16_kernel_eval_{route}.json'),
+                      encoding='utf-8') as f:
+                rec = json.load(f)
+            if rc not in (0, 1) or len(rec['abs_delta_per_sample']) != 4 \
+                    or not finite(rec['max_per_sample_delta']):
+                fail(f'revalidation ({route}): rc {rc}, {rec}')
+            expected = (tool_eval_launches(TOOL_EVALS[:1], dtypes=1)
+                        if route == 'kernels' else {})
+            check_launches(launches, expected, f'revalidation ({route})')
+            paths[f'tools_revalidate_{route}'] = launches
+            verdicts[route] = {'quality': rec['quality'],
+                               'max_per_sample_delta':
+                                   rec['max_per_sample_delta']}
+        stats['revalidate'] = verdicts
+        print(f'phase 15c, revalidation (2-step weights, plumbing only) on '
+              f'{card}: {verdicts}', flush=True)
+
+        # 15d: the Picard probe at num_t 4 (B = 1, bf16).
+        reset_counts(ws)
+        t0 = time.time()
+        pic = probe_picard.main(['--num_t', '4',
+                                 '--out', os.path.join(tmp, 'picard')])
+        seconds = time.time() - t0
+        launches = read_counts(ws)
+        e = pic['configs']['t4']
+        for tol in ('tol0', 'tol1e-4'):
+            if 'error' in e[tol] or e[tol]['sweeps'] > e[tol]['grid_len']:
+                fail(f'picard probe {tol}: {e[tol]}')
+        if not e['tol0']['seq_matches_sequential'] or \
+                e['tol0']['atom14_max_dev_A'] > BB_TOL:
+            fail(f'picard probe: the fixpoint differs from the sequential '
+                 f'run: {e["tol0"]}')
+        # Three sequential runs (cold, warm, the tol-0 check) of the whole
+        # grid, and a cold and a warm Picard run at each tolerance, each
+        # sweep one pass of every grid position's rows.
+        passes = (NUM_RECYCLE + 1) * (
+            3 * e['tol0']['grid_len']
+            + 2 * (e['tol0']['sweeps'] + e['tol1e-4']['sweeps']))
+        check_launches(launches, passes_launches(PER_PASS, passes),
+                       'picard probe')
+        paths['tools_picard_probe'] = launches
+        stats['picard_probe'] = {'seconds': seconds, **e}
+        print(f'phase 15d, Picard probe (B=1, num_t 4, bf16) on {card}: '
+              f'{seconds:.1f} s, sweeps {e["tol0"]["sweeps"]} / grid '
+              f'{e["tol0"]["grid_len"]}, backbone vs sequential '
+              f'{e["tol0"]["atom14_max_dev_A"]:.3g} A', flush=True)
+    stats['seconds'] = time.time() - t_phase
+    print(f'phase 15 in {stats["seconds"]:.1f} s', flush=True)
+    return paths, stats
+
+
 def child_main(argv):
     """`chip_smoke.py --child <kind> <rank> <world> <port> [args]`: one
     process of phase 13 on the card; prints one result line."""
@@ -2963,6 +3160,8 @@ def main():
     paths.update(p13_paths)
     paths['design_reference_ckpt'], stats['reference_ckpt'] = \
         phase_reference_ckpt(torch, card)
+    tool_paths, stats['tools'] = phase_tools(torch, card)
+    paths.update(tool_paths)
 
     rows = []
     for name, (source, replaces) in KERNEL_META.items():

@@ -14,6 +14,7 @@ repository's test complexes (integers exact, floats to 1e-6) and compares
 the PDB text both packages write.
 """
 
+import os
 import subprocess
 import sys
 
@@ -25,6 +26,7 @@ from abx_tpu.sampling import output as jax_output
 from abx_tpu_torch import config as port_config
 from abx_tpu_torch.data import dataset as port_ds
 from abx_tpu_torch.sampling import output as port_output
+from tests.torch_cpu_alloc import SUBPROCESS_ENV
 
 BLOCKED = ('abx_tpu', 'jax', 'flax', 'optax', 'ml_collections', 'msgpack',
            'orbax')
@@ -47,8 +49,10 @@ assert {{'abx_tpu_torch.evaluation.relax', 'abx_tpu_torch.evaluation.pll',
          'abx_tpu_torch.train.trainer', 'abx_tpu_torch.utils.checkpoint',
          'abx_tpu_torch.data.pipeline', 'abx_tpu_torch.cli.train',
          'abx_tpu_torch.parallel.mesh', 'abx_tpu_torch.parallel.esm_tp',
-         'abx_tpu_torch.sampling.picard', 'abx_tpu_torch.utils.prof'}} <= set(
-    mods), mods
+         'abx_tpu_torch.sampling.picard', 'abx_tpu_torch.utils.prof',
+         'abx_tpu_torch.tools.revalidate_kernels',
+         'abx_tpu_torch.tools.multi_train_rehearsal',
+         'abx_tpu_torch.tools.probe_picard'}} <= set(mods), mods
 import chip_smoke
 import numpy as np
 from abx_tpu_torch.cli import design, inference, train
@@ -71,7 +75,9 @@ train.main(['--data_dir', {str(tmp_path)!r}, '--name_idx',
 print(len(mods))
 """
     proc = subprocess.run([sys.executable, '-c', code], capture_output=True,
-                          text=True, timeout=300)
+                          text=True, timeout=300,
+                          env=dict(os.environ, OMP_NUM_THREADS='1',
+                                   **SUBPROCESS_ENV))
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert int(proc.stdout.split()[-1]) >= 40
     for sub in ('reference', '0000'):

@@ -8,6 +8,7 @@ every step must agree: backbone atoms (N, CA, C, O) within 0.1 A and
 identical sequences (the PARITY.md §2.1 bar).  Plus the CLI smoke run.
 """
 
+import os
 import subprocess
 import sys
 
@@ -32,6 +33,7 @@ from abx_tpu_torch.models.network import ScoreNetworkIteration
 from abx_tpu_torch.sampling.sampler import (Sampler, SamplerConfig,
                                             to_device_batch)
 from abx_tpu_torch.utils import params as params_lib
+from tests.torch_cpu_alloc import SUBPROCESS_ENV
 
 PDB = 'testdata/6ct7_H_L_S.pdb'
 NUM_T = 3
@@ -109,7 +111,8 @@ def test_cli_tiny_cpu_writes_pdbs(tmp_path):
     proc = subprocess.run(
         [sys.executable, '-m', 'abx_tpu_torch.cli.design', '--pdb_file', PDB,
          '--output_dir', str(out), '--tiny', '--device', 'cpu',
-         '--num_t', '3'], capture_output=True, text=True, timeout=300)
+         '--num_t', '3'], capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, OMP_NUM_THREADS='1', **SUBPROCESS_ENV))
     assert proc.returncode == 0, proc.stderr[-4000:]
     for sub in ('reference', '0000'):
         path = out / 'design' / sub / '6ct7_H_L_S.pdb'
