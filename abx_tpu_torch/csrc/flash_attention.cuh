@@ -1,6 +1,7 @@
 // Register-resident flash attention core (FlashAttention-2 style) on
-// mma.sync.m16n8k16, shared by the ESM2 self-attention (esm_attention.cu)
-// and the triangle / seq attentions (tri_attention.cu).
+// mma.sync.m16n8k16, shared by the ESM2 self-attention and its segment
+// route (esm_attention.cu) and the triangle / seq attentions
+// (tri_attention.cu).
 //
 // out[b, r, l, h, :] = softmax_j(qscale * q_l . k_j + bias[b, h, l, j]
 //                                + keybias[b, j]) . v[j]
@@ -13,6 +14,17 @@
 // the wrappers launch nothing to build it); keys past L are -inf.  The
 // logits are summed in the reference's order: (qscale * q.k + bias) +
 // keybias.
+// Segment mode (SEG instances, ESM's flash route): the function of the
+// stock TPU flash kernel with segment ids 1 - pad.  Key j is visible to
+// query l iff both are valid or both are padded, and the keys past L up to
+// the next multiple of 128 (the stock kernel's zero-padded tail) are
+// padded keys with zero k and v; a masked logit is s + kSegMask, the stock
+// kernel's mask value.  The key tiles are 128 keys, the stock kernel's
+// block: its running max is updated once a 128-key block and P is rounded
+// to bf16 against it, as there; where L <= 128 (one block) P is normalised
+// before it is rounded, as the stock kernel's one-step path does.  Two
+// key-bias rows in shared memory, one for each query segment; a thread
+// reads its two rows' segments once.
 // Operands are read and written through (batch, row, position, head)
 // element strides with unit stride along D, so head-major views, column
 // blocks of a fused projection and the columns of a natural pair tensor
@@ -87,6 +99,12 @@ constexpr int kStages = 2;
 constexpr int kLdBias = kKB + 8;  // bias tile row (elements): conflict-free
 constexpr size_t kMaxSmem = 232448;
 constexpr float kLog2e = 1.4426950408889634f;
+// The stock TPU flash kernel's mask value, -0.7 * FLT_MAX: s + kSegMask is
+// kSegMask itself at any logit the model makes, so a block with no visible
+// key gives p = 1 everywhere, which the next block's exp(m_prev - m_next)
+// = 0 wipes, as in the stock kernel.
+constexpr float kSegMask = -0.7f * 3.402823466e38f;
+constexpr int kSegKB = 128;  // keys a pipeline stage in segment mode
 
 // Element (b, r, l, h, d) of an operand lies at
 // base + b*s.b + r*s.r + l*s.l + h*s.h + d.
@@ -115,12 +133,13 @@ struct Args {
 };
 
 // Byte offsets of the shared-memory regions of one block.
-template <typename T, int DP, int QW>
+template <typename T, int DP, int QW, bool SEG = false>
 struct Layout {
   static constexpr int kQB = 16 * QW;
+  static constexpr int KB = SEG ? kSegKB : kKB;  // keys a stage
   static constexpr int kLd = DP + 8;  // padded operand row (elements)
   static constexpr size_t kQTile = sizeof(T) * kQB * kLd;  // Q or gate
-  static constexpr size_t kKTile = sizeof(T) * kKB * kLd;  // K or V
+  static constexpr size_t kKTile = sizeof(T) * KB * kLd;  // K or V
   size_t gate, k, v, bias, kbias, total;
   __host__ __device__ Layout(int rb, bool has_gate, int bias_es, int L) {
     gate = rb * kQTile;
@@ -128,7 +147,8 @@ struct Layout {
     v = k + kStages * rb * kKTile;
     bias = v + kStages * rb * kKTile;
     kbias = bias + static_cast<size_t>(kStages) * kQB * kLdBias * bias_es;
-    total = kbias + sizeof(float) * static_cast<size_t>(round_up(L, kKB));
+    total = kbias + (SEG ? 2 : 1) * sizeof(float) *
+                        static_cast<size_t>(round_up(L, KB));
   }
 };
 
@@ -237,9 +257,12 @@ __device__ __forceinline__ float2 bias_pair(const bf16* p) {
 // and 4-warp row groups, four groups an SM (the ESM2-3B shape: 800 blocks
 // of 4 warps take two waves of the 132 SMs), else at what one block
 // allows.
-template <typename T, int DP, int QW, int RBMAX>
+// Segment mode: shared memory (2 stages of 128-key K and V tiles) sets
+// the blocks an SM, two for bf16 with DP <= 64, and registers are not
+// capped.
+template <typename T, int DP, int QW, int RBMAX, bool SEG>
 constexpr int min_blocks() {
-  return (!IsF32<T>::value && DP <= 64 && QW == 4 && RBMAX <= 4)
+  return (!SEG && !IsF32<T>::value && DP <= 64 && QW == 4 && RBMAX <= 4)
              ? 4 / RBMAX
              : 1;
 }
@@ -270,19 +293,22 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // RBMAX: the most rows a block (row groups of QW warps).
-template <typename T, int DP, int QW, int RBMAX, bool BIAS, bool FINAL>
+template <typename T, int DP, int QW, int RBMAX, bool BIAS, bool FINAL,
+          bool SEG>
 __global__ void __launch_bounds__(RBMAX * QW * 32,
-                                  (min_blocks<T, DP, QW, RBMAX>()))
+                                  (min_blocks<T, DP, QW, RBMAX, SEG>()))
     flash_kernel(const Args a) {
   constexpr bool SPLIT = IsF32<T>::value;
   static_assert(!(FINAL && SPLIT), "the bf16 exponent is for bf16 inputs");
-  using Lay = Layout<T, DP, QW>;
-  constexpr int QB = Lay::kQB, LD = Lay::kLd;
+  static_assert(!(SEG && (BIAS || FINAL || RBMAX != 1)),
+                "segment mode is ESM's: no bias, online exponent, one row");
+  using Lay = Layout<T, DP, QW, SEG>;
+  constexpr int QB = Lay::kQB, LD = Lay::kLd, KB = Lay::KB;
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte copy
   constexpr int CH = DP / VEC;         // 16-byte copies per row
   constexpr int KT = DP / 16;          // k16 steps of Q K^T
   constexpr int NT = DP / 8;           // n8 tiles of O
-  constexpr int NS = kKB / 8;          // n8 tiles of S
+  constexpr int NS = KB / 8;           // n8 tiles of S
   extern __shared__ __align__(128) unsigned char smem_raw[];
   // One row a block and no gate are compile-time where the instance says
   // so (ESM): its layout and indices then fold to constants.
@@ -368,7 +394,7 @@ __global__ void __launch_bounds__(RBMAX * QW * 32,
     }
   };
   using QRows = std::integral_constant<int, QB>;
-  using KRows = std::integral_constant<int, kKB>;
+  using KRows = std::integral_constant<int, KB>;
 
   // The QB x 64 bias tile at (q0, k0) of this block's (b, h).
   auto stage_bias = [&](auto elem, unsigned char* dst, int k0) {
@@ -392,16 +418,16 @@ __global__ void __launch_bounds__(RBMAX * QW * 32,
     }
   };
 
-  const int nkb = (L + kKB - 1) / kKB;
+  const int nkb = (L + KB - 1) / KB;
   const int steps = FINAL ? 2 * nkb : nkb;
   // Step st loads key tile st % nkb into stage st % kStages: K and the bias
   // tile, and V unless it is a FINAL kernel's first pass.
   auto stage_step = [&](int st) {
     const int kb = st % nkb, buf = st % kStages;
-    const int tile = (buf * rb + grp) * kKB * LD;
-    stage(KRows{}, k_s + tile, k_row, a.ks.l, kb * kKB);
+    const int tile = (buf * rb + grp) * KB * LD;
+    stage(KRows{}, k_s + tile, k_row, a.ks.l, kb * KB);
     if (!FINAL || st >= nkb)
-      stage(KRows{}, v_s + tile, v_row, a.vs.l, kb * kKB);
+      stage(KRows{}, v_s + tile, v_row, a.vs.l, kb * KB);
     if constexpr (BIAS) {
       unsigned char* dst = b_s + buf * QB * kLdBias * bias_es;
       if (SPLIT || a.bias_f32)
@@ -422,14 +448,33 @@ __global__ void __launch_bounds__(RBMAX * QW * 32,
     if (i < steps) stage_step(i);
     cp_async_commit();
   }
-  for (int j = tid; j < nkb * kKB; j += nthr) {
-    float kv = -INFINITY;
-    if (j < L)
-      kv = a.key_pad ? (a.key_pad[static_cast<size_t>(b) * L + j] ? kBigNeg
-                                                                   : 0.f)
-                     : (1.f - a.mask[static_cast<size_t>(b) * L + j]) *
-                           kBigNeg;
-    kbias[j] = kv;
+  for (int j = tid; j < nkb * KB; j += nthr) {
+    if constexpr (SEG) {
+      // Row 0 for padded queries, row 1 for valid ones; key j is valid iff
+      // j < L and not padded (the tail past L is the padded segment).
+      const bool valid = j < L && !a.key_pad[static_cast<size_t>(b) * L + j];
+      kbias[j] = valid ? kSegMask : 0.f;
+      kbias[nkb * KB + j] = valid ? 0.f : kSegMask;
+    } else {
+      float kv = -INFINITY;
+      if (j < L)
+        kv = a.key_pad
+                 ? (a.key_pad[static_cast<size_t>(b) * L + j] ? kBigNeg : 0.f)
+                 : (1.f - a.mask[static_cast<size_t>(b) * L + j]) * kBigNeg;
+      kbias[j] = kv;
+    }
+  }
+  // Segment mode: the key-bias row of each of this thread's two query rows
+  // (rows past L are in the padded segment; they are not stored).
+  const float* kb_row[2] = {kbias, kbias};
+  if constexpr (SEG) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int l = q0 + wq * 16 + g + 8 * r;
+      const bool valid =
+          l < L && !a.key_pad[static_cast<size_t>(b) * L + l];
+      kb_row[r] = kbias + (valid ? nkb * KB : 0);
+    }
   }
 
   FragA<SPLIT> qf[KT];
@@ -451,8 +496,8 @@ __global__ void __launch_bounds__(RBMAX * QW * 32,
         load_a<T, LD>(qf[kt], q_s + grp * QB * LD, wq * 16, kt * 16, lane);
     }
     const int kb = st % nkb, buf = st % kStages;
-    const T* kt_s = k_s + (buf * rb + grp) * kKB * LD;
-    const T* vt_s = v_s + (buf * rb + grp) * kKB * LD;
+    const T* kt_s = k_s + (buf * rb + grp) * KB * LD;
+    const T* vt_s = v_s + (buf * rb + grp) * KB * LD;
 
     // s = (qscale * q . k + bias) + keybias.
     float s[NS][4];
@@ -479,10 +524,20 @@ __global__ void __launch_bounds__(RBMAX * QW * 32,
     }
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
-      const float2 kbv =
-          *reinterpret_cast<const float2*>(kbias + kb * kKB + n * 8 + 2 * t);
+      if constexpr (SEG) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] += (e & 1) ? kbv.y : kbv.x;
+        for (int r = 0; r < 2; ++r) {
+          const float2 kbv = *reinterpret_cast<const float2*>(
+              kb_row[r] + kb * KB + n * 8 + 2 * t);
+          s[n][2 * r] += kbv.x;
+          s[n][2 * r + 1] += kbv.y;
+        }
+      } else {
+        const float2 kbv = *reinterpret_cast<const float2*>(
+            kbias + kb * kKB + n * 8 + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] += (e & 1) ? kbv.y : kbv.x;
+      }
     }
 
     // Rows g (r = 0: e = 0, 1) and g + 8 (r = 1: e = 2, 3) of the warp's 16.
@@ -536,6 +591,21 @@ __global__ void __launch_bounds__(RBMAX * QW * 32,
         }
 #pragma unroll
       for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + sum[r];
+      if constexpr (SEG) {
+        // The stock kernel's one-block path (L <= 128): P is normalised
+        // before it is rounded for P V, and the output not divided again.
+        if (nkb == 1) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float l = quad_sum(sum[r]);
+#pragma unroll
+            for (int n = 0; n < NS; ++n) {
+              s[n][2 * r] /= l;
+              s[n][2 * r + 1] /= l;
+            }
+          }
+        }
+      }
 #pragma unroll
       for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -544,7 +614,7 @@ __global__ void __launch_bounds__(RBMAX * QW * 32,
 
     // O += P V, P from the S registers.
 #pragma unroll
-    for (int kc = 0; kc < kKB / 16; ++kc) {
+    for (int kc = 0; kc < KB / 16; ++kc) {
       FragA<SPLIT> pf;
       const float* p0 = s[2 * kc];
       const float* p1 = s[2 * kc + 1];
@@ -577,7 +647,7 @@ __global__ void __launch_bounds__(RBMAX * QW * 32,
   const T* gt = g_s + w0;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const float l = quad_sum(l_run[r]);
+    const float l = SEG && nkb == 1 ? 1.f : quad_sum(l_run[r]);
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const int i = (g + 8 * r) * LD + n * 8 + 2 * t;
@@ -621,9 +691,10 @@ inline bool strides16(const Strides& s, size_t es) {
 }
 
 // rb: at most RBMAX rows a block, fewer where shared memory runs out.
-template <typename T, int DP, int QW, int RBMAX, bool BIAS, bool FINAL>
+template <typename T, int DP, int QW, int RBMAX, bool BIAS, bool FINAL,
+          bool SEG>
 cudaError_t launch_t(Args a, int B, cudaStream_t stream) {
-  using Lay = Layout<T, DP, QW>;
+  using Lay = Layout<T, DP, QW, SEG>;
   const size_t es = sizeof(T);
   const int bias_es = !BIAS ? 0 : (a.bias_f32 ? 4 : static_cast<int>(es));
   const bool has_gate = BIAS && a.gate != nullptr;
@@ -639,23 +710,30 @@ cudaError_t launch_t(Args a, int B, cudaStream_t stream) {
     --a.rb;
   const size_t smem = Lay(a.rb, has_gate, bias_es, a.L).total;
   if (smem > kMaxSmem) return cudaErrorInvalidConfiguration;
-  cudaError_t e = set_smem(flash_kernel<T, DP, QW, RBMAX, BIAS, FINAL>, smem);
+  cudaError_t e =
+      set_smem(flash_kernel<T, DP, QW, RBMAX, BIAS, FINAL, SEG>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.L + Lay::kQB - 1) / Lay::kQB, a.H,
                   B * ((a.R + a.rb - 1) / a.rb));
-  flash_kernel<T, DP, QW, RBMAX, BIAS, FINAL>
+  flash_kernel<T, DP, QW, RBMAX, BIAS, FINAL, SEG>
       <<<grid, a.rb * QW * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int QW, int RBMAX, bool BIAS, bool FINAL>
+// Segment mode in f32 stops at D = 64: two stages of 128-key f32 K and V
+// tiles of D = 128 would take 278 KB of shared memory.
+template <typename T, int QW, int RBMAX, bool BIAS, bool FINAL,
+          bool SEG = false>
 cudaError_t launch_d(const Args& a, int B, cudaStream_t s) {
   if (a.D < 1 || a.L < 1 || a.R < 1) return cudaErrorInvalidValue;
-  if (a.D <= 16) return launch_t<T, 16, QW, RBMAX, BIAS, FINAL>(a, B, s);
-  if (a.D <= 32) return launch_t<T, 32, QW, RBMAX, BIAS, FINAL>(a, B, s);
-  if (a.D <= 48) return launch_t<T, 48, QW, RBMAX, BIAS, FINAL>(a, B, s);
-  if (a.D <= 64) return launch_t<T, 64, QW, RBMAX, BIAS, FINAL>(a, B, s);
-  if (a.D <= 128) return launch_t<T, 128, QW, RBMAX, BIAS, FINAL>(a, B, s);
+  if (a.D <= 16) return launch_t<T, 16, QW, RBMAX, BIAS, FINAL, SEG>(a, B, s);
+  if (a.D <= 32) return launch_t<T, 32, QW, RBMAX, BIAS, FINAL, SEG>(a, B, s);
+  if (a.D <= 48) return launch_t<T, 48, QW, RBMAX, BIAS, FINAL, SEG>(a, B, s);
+  if (a.D <= 64) return launch_t<T, 64, QW, RBMAX, BIAS, FINAL, SEG>(a, B, s);
+  if constexpr (!(SEG && IsF32<T>::value)) {
+    if (a.D <= 128)
+      return launch_t<T, 128, QW, RBMAX, BIAS, FINAL, SEG>(a, B, s);
+  }
   return cudaErrorInvalidValue;
 }
 

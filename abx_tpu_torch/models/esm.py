@@ -13,7 +13,9 @@ q_proj`, `layers.{i}.fc1`, `emb_layer_norm_after`, ...), so a fair-esm
 state dict loads by name; `utils/params.py` maps the JAX package's tree
 onto them.  Parameters live in the compute dtype (frozen weights), and a
 Python loop over the layers replaces `nn.scan`.  The attention goes through
-`ops/esm_attention.py` (the hand-written kernel on the card).
+`ops/esm_attention.py` (the hand-written kernels on the card: by default
+`esm_attention`; `ABX_FUSED_ESM_ATTN=0 ABX_FLASH_ESM=1` takes the flash
+route, `esm_flash_attention`, on the card and on the CPU alike).
 """
 
 from __future__ import annotations
@@ -30,7 +32,9 @@ import torch.nn.functional as F
 from abx_tpu_torch.common import residue_constants as rc
 from abx_tpu_torch.models.modules import layer_norm
 from abx_tpu_torch.ops import registry
-from abx_tpu_torch.ops.esm_attention import esm_attention, esm_attention_plain
+from abx_tpu_torch.ops.esm_attention import (esm_attention,
+                                             esm_attention_plain,
+                                             esm_flash_attention)
 
 # ESM alphabet (fair-esm standard): ids of the special / aa tokens.
 ESM_CLS, ESM_PAD, ESM_EOS, ESM_UNK, ESM_MASK = 0, 1, 2, 3, 32
@@ -164,12 +168,13 @@ class ESMSelfAttention(nn.Module):
         k = _apply_rotary(k, cos, sin)
         # Head-major views; the kernel reads them through strides.
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-        on_card = registry.on_device(x)
-        if on_card and registry.use_fused_esm_attention():
+        fused = registry.use_fused_esm_attention()
+        if fused and registry.on_device(x):
             out = esm_attention(q, k, v, padding_mask)
-        elif on_card and registry.use_flash_esm():
-            out = F.scaled_dot_product_attention(
-                q, k, v, attn_mask=~padding_mask[:, None, None, :], scale=1.0)
+        elif not fused and registry.use_flash_esm():
+            # The stock flash kernel's function; on a CPU tensor the
+            # wrapper is its plain version.
+            out = esm_flash_attention(q, k, v, padding_mask)
         else:
             out = esm_attention_plain(q, k, v, padding_mask)
         return _row_parallel(self.out_proj,

@@ -104,11 +104,13 @@ def use_fused_esm_attention() -> bool:
 
 
 def use_flash_esm() -> bool:
-    """ESM2 attention through `torch.nn.functional.
-    scaled_dot_product_attention` with a boolean key mask: the counterpart
-    of the JAX package's `_esm_flash_attention`, which calls JAX's library
-    flash kernel.  A library call, not a kernel of this repository; default
-    off, and only taken with `ABX_FUSED_ESM_ATTN=0`."""
+    """ESM2 attention through `ops/esm_attention.py::esm_flash_attention`,
+    the hand-written segment-masked flash kernel (its plain version on the
+    CPU): the counterpart of the JAX package's `_esm_flash_attention`,
+    which calls JAX's stock TPU flash kernel with segment ids.  A padded
+    query attends to the padded keys only, so the padded rows differ from
+    `esm_attention`'s; the valid rows agree.  Default off, and only taken
+    with `ABX_FUSED_ESM_ATTN=0`."""
     return os.environ.get('ABX_FLASH_ESM', '0') == '1'
 
 

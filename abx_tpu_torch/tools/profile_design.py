@@ -10,7 +10,8 @@ of testdata/6ct7_H_L_S.pdb (L = 256 + 32).  After one warm-up trajectory
 each, it times whole trajectories at --num_t in turns (off, on, on, off)
 and reports seconds per diffusion step and samples/hour; times one ESM2-3B
 forward alone (CUDA events) with the attention through the hand-written
-kernel, torch's scaled_dot_product_attention and the plain version; and
+kernel, the flash route's hand-written segment-masked kernel
+(ABX_FUSED_ESM_ATTN=0 ABX_FLASH_ESM=1) and the plain version; and
 traces a --profile_t trajectory of each with torch.profiler, printing the
 device time by kernel name (the top 40, and every kernel of the port's
 own library), the summed device time and the device kernels per trunk
@@ -99,17 +100,17 @@ def _profile(sampler, batch, passes: int):
 
 def _esm_forward_ms(rt, batch):
     """One ESM2-3B forward of the batch's antibody for each attention
-    route: the routes in turns (kernel, sdpa, plain, plain, sdpa, kernel),
+    route: the routes in turns (kernel, flash, plain, plain, flash, kernel),
     each turn 2 warm-ups and 5 CUDA-event timings; the median of a route's
     10 timings."""
     l_ab = rt.model.antibody_len
     ab = batch['seq'][:, :l_ab]
     lw = rt.model.seqformer.esm_layer_weights()
-    routes = {'kernel': {}, 'sdpa': {'ABX_FUSED_ESM_ATTN': '0',
-                                     'ABX_FLASH_ESM': '1'},
+    routes = {'kernel': {}, 'flash': {'ABX_FUSED_ESM_ATTN': '0',
+                                      'ABX_FLASH_ESM': '1'},
               'plain': {'ABX_FUSED_ESM_ATTN': '0'}}
     times = collections.defaultdict(list)
-    for route in ('kernel', 'sdpa', 'plain', 'plain', 'sdpa', 'kernel'):
+    for route in ('kernel', 'flash', 'plain', 'plain', 'flash', 'kernel'):
         env = routes[route]
         os.environ.update(env)
         with torch.no_grad():

@@ -33,7 +33,13 @@ fatal on failure:
      beside them the bare bf16 torch.matmul of their products as a
      yardstick, recycle_embed a bare torch.add of two bf16 pair tensors;
      esm_attention also at the masked-PLL batches of phase 11, B=32, L=122
-     and B=8, L=109, no key padded, with its f32 call timed too),
+     and B=8, L=109, no key padded, with its f32 call timed too;
+     esm_flash_attention, the flash route's segment-masked kernel, at the
+     ESM2-3B shape and the first PLL batch, held on every row, the padded
+     ones included, and in bf16 also against its bf16 plain version (the
+     stock TPU flash kernel's rounding points): the share of outputs that
+     differ is printed, at most BF16_SHARE more than one bf16 step apart;
+     its library call is SDPA with the segment mask as a boolean mask),
      and row 1's attention core alone on ready projection rows beside
      SDPA; the bf16 core against the plain core with the TPU kernel's
      exponent (against the row's final max) on rows whose logits are exact
@@ -58,8 +64,9 @@ fatal on failure:
   4d. the same with the default flags and ABX_TRIMULT_C_MAJOR=1;
   4b. one full-width f32 ESM2-3B forward of AntibodyESM (dense random
      weights, learned layer weights given) on the tokens of
-     testdata/6ct7_H_L_S.pdb with ABX_FUSED_ESM_ATTN on and off: the
-     weighted embedding agrees to 1e-4 * max|ref| on valid rows;
+     testdata/6ct7_H_L_S.pdb with ABX_FUSED_ESM_ATTN on and off, and on
+     the flash route (ABX_FUSED_ESM_ATTN=0 ABX_FLASH_ESM=1): the weighted
+     embedding agrees to 1e-4 * max|ref| on valid rows;
   5. a full-width bf16 ESM-off CDR-H3 design through
      abx_tpu_torch.cli.design (config/config_model.json, random weights from
      seed 0, 4 samples, num_t 8) on testdata/6ct7_H_L_S.pdb: 4 PDBs with
@@ -76,6 +83,10 @@ fatal on failure:
      Gibbs-corrector jumps a step, through runner.run_sampling: 4 PDBs,
      esm_attention launched 36 x 5 = 180 times, the trunk kernels as in
      phase 5;
+  6c. phase 6's design on its runtime on the flash route
+     (ABX_FUSED_ESM_ATTN=0 ABX_FLASH_ESM=1): 4 PDBs, esm_flash_attention
+     launched 36 x 3 x (num_t + 1) = 972 times, esm_attention never, the
+     trunk kernels as in phase 5; seconds per step beside phase 6's;
   10. ESM-off Sampler.sample_resumable in chunks of 3 grid positions,
      whole, and killed as its second chunk starts (the first chunk's
      state on disk) and then resumed: sequences identical to
@@ -191,7 +202,7 @@ fatal on failure:
        tolerances, the tol-0 fixpoint's sequences equal to the sequential
        run's and its backbone within 0.1 A, the trunk kernels per pass of
        every run.
-Each main path (phases 5, 6, 6b, 7, 8, 9, 10, 11, 12, 13, 14, each of 15a-d
+Each main path (phases 5, 6, 6b, 6c, 7, 8, 9, 10, 11, 12, 13, 14, each of 15a-d
 and the trajectory run) is driven with the launch counts set to 0 just
 before it and read just after; phase 12's are `train_esm_off` (both runs),
 `train_esm_on` and `design_trained` in `launches_by_path`.  The lines
@@ -318,7 +329,8 @@ def kernel_cases(torch, dev):
 
     def case(name, label, kern, plain, a32, a16, reads, flops, library=None,
              env=None, plain16=None, one_launch=False, gemm=None,
-             kernel_name=None, stream=None, split=None, time32=False):
+             kernel_name=None, stream=None, split=None, time32=False,
+             share16=False):
         """env: flags set while the case runs; plain16: the plain version
         the bf16 kernel is held to, where it differs from `plain`;
         one_launch: the wrapper must launch its kernel and no other device
@@ -333,13 +345,16 @@ def kernel_cases(torch, dev):
         under the profiler one call runs that kernel that many times and
         nothing else but the split's layout copies and fills; time32: the
         f32 call is timed too (kernel, plain, library and its bound), where
-        a main path runs the kernel in f32."""
+        a main path runs the kernel in f32; share16: the bf16 call is held
+        to the plain version run in bf16 too (the rounding points of the
+        function it ports): at most BF16_SHARE of the outputs more than one
+        bf16 step apart, the share that differ at all printed."""
         cases.append(dict(name=name, label=label, kern=kern, plain=plain,
                           a32=a32, a16=a16, reads=reads, flops=flops,
                           library=library, env=env or {}, plain16=plain16,
                           one_launch=one_launch, gemm=gemm,
                           kernel_name=kernel_name, stream=stream,
-                          split=split, time32=time32))
+                          split=split, time32=time32, share16=share16))
 
     def tri(label, r, c, h, exp_flag):
         x = rnd(b, r, l, c)
@@ -697,6 +712,32 @@ def kernel_cases(torch, dev):
                  torch.nn.functional.scaled_dot_product_attention(
                      q, k, v, attn_mask=~m[:, None, None, :], scale=1.0),
              one_launch=True, time32=True)
+
+    # The flash route (row 15) on the same operands: every row, the padded
+    # query rows included (they attend to the padded keys only).  Its
+    # library call is SDPA with the segment mask (valid with valid, padded
+    # with padded) as a boolean (B, 1, L, L) mask, built before the timed
+    # call; it leaves out the stock kernel's zero tail, which only the
+    # padded rows see.
+    def flash_case(label, q, k, v, m, time32):
+        seg = m[:, None, :, None] == m[:, None, None, :]
+        case('esm_flash_attention', label,
+             lambda q, k, v: esm_op.esm_flash_attention(q, k, v, m),
+             lambda q, k, v: esm_op.esm_flash_attention_plain(q, k, v, m),
+             (q, k, v), (low(q), low(k), low(v)), [m],
+             4 * q.shape[0] * h * q.shape[2] ** 2 * d,
+             lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
+                 q, k, v, attn_mask=seg, scale=1.0),
+             one_launch=True, time32=time32, share16=True)
+    q, k, v = ((rnd(b, le, h, d) * (d ** -0.5 if i == 0 else 1.0))
+               .transpose(1, 2) for i in range(3))
+    flash_case('ESM2-3B (4,40,306,64), 29-45 padded keys', q, k, v, pad,
+               False)
+    pb, pl = 32, 122
+    q, k, v = ((rnd(pb, pl, h, d) * (d ** -0.5 if i == 0 else 1.0))
+               .transpose(1, 2) for i in range(3))
+    flash_case(f'masked PLL ({pb},{h},{pl},{d}), no padded key', q, k, v,
+               torch.zeros(pb, pl, dtype=torch.bool, device=dev), True)
     return cases
 
 
@@ -718,6 +759,8 @@ KERNEL_META = {
                       'abx_tpu/ops/recycle_embed.py:61'),
     'esm_attention': ('abx_tpu_torch/csrc/esm_attention.cu',
                       'abx_tpu/ops/esm_attention.py:47'),
+    'esm_flash_attention': ('abx_tpu_torch/csrc/esm_attention.cu',
+                            'abx_tpu/models/esm.py:117'),
     'tri_mult_pre_no_fgate': ('abx_tpu_torch/csrc/row_linear.cu',
                               'abx_tpu/ops/tri_mult.py:72'),
     'ipa_pair_attend': ('abx_tpu_torch/csrc/ipa_attend.cu',
@@ -771,6 +814,25 @@ def phase_kernels(torch, dev):
                      f'{d16:.3g}, max|ref| {m:.3g}')
             e32, e16 = max(e32, d32 / m), max(e16, d16 / m16)
             abs16 = max(abs16, d16)
+        shares = None
+        if cs['share16']:
+            shares = [0.0, 0.0]
+            for g16, w16 in zip(got16, as_tuple(plain(*a16))):
+                g16, w16 = g16.float(), w16.float()
+                # One bf16 step of w16: 2^(e - 8) for |w16| = m 2^e, m in
+                # [0.5, 1).
+                step = torch.ldexp(torch.ones_like(w16),
+                                   torch.frexp(w16).exponent - 8)
+                shares[0] = max(shares[0], (g16 != w16).float().mean().item())
+                shares[1] = max(shares[1], ((g16 - w16).abs() > step)
+                                .float().mean().item())
+            print(f'kernel {name} {label}: bf16 against the bf16 plain '
+                  f'version: share of outputs that differ {shares[0]:.3g}, '
+                  f'more than one bf16 step apart {shares[1]:.3g} (bound '
+                  f'{BF16_SHARE})', flush=True)
+            if shares[1] > BF16_SHARE:
+                fail(f'{name} {label}: {shares[1]:.3g} of the bf16 outputs '
+                     'more than one bf16 step from the bf16 plain version')
         nbytes = tensor_bytes([*a16, *cs['reads'], *got16])
         bms, by = bound_ms(cs['flops'], nbytes)
         ms = time_ms(torch, lambda: kern(*a16))
@@ -853,6 +915,9 @@ def phase_kernels(torch, dev):
             'gemm_yardstick_ms': gemm_ms, 'stream_yardstick_ms': stream_ms})
         if f32 is not None:
             entry['cases'][-1]['f32'] = f32
+        if shares is not None:
+            entry['cases'][-1]['bf16_share_differing'] = shares[0]
+            entry['cases'][-1]['bf16_share_past_one_step'] = shares[1]
         if cs['one_launch'] or cs['split']:
             entry['cases'][-1]['device_kernels_per_call'] = launched
             entry['cases'][-1]['device_ms_per_call'] = dev_ms
@@ -1384,32 +1449,44 @@ def dense_esm(torch, dev):
     return esm, (ab, hl, ll, lw), l_ab
 
 
+ESM_ROUTES = {'on': {'ABX_FUSED_ESM_ATTN': '1'},
+              'off': {'ABX_FUSED_ESM_ATTN': '0'},
+              'flash': {'ABX_FUSED_ESM_ATTN': '0', 'ABX_FLASH_ESM': '1'}}
+
+
 def phase_esm_flags(torch, dev):
     """Full-width f32 ESM2-3B forward of AntibodyESM on the 6ct7 antibody
     (four samples, three with re-drawn residues, as noisy sequences), dense
-    random weights made on the card, with the ESM attention kernel on and
-    off (plain f32 version)."""
+    random weights made on the card, with the ESM attention kernel on, off
+    (plain f32 version) and on the flash route (its segment-masked
+    kernel), each held to off on the valid rows."""
     esm, (ab, hl, ll, lw), l_ab = dense_esm(torch, dev)
     outs = {}
-    for value in ('1', '0'):
-        os.environ['ABX_FUSED_ESM_ATTN'] = value
+    for route, env in ESM_ROUTES.items():
+        os.environ.update(env)
         with torch.no_grad():
-            outs[value] = esm(ab, hl, ll, lw)
+            outs[route] = esm(ab, hl, ll, lw)
         torch.cuda.synchronize()
-    os.environ.pop('ABX_FUSED_ESM_ATTN')
+        for k in env:
+            os.environ.pop(k)
     valid = torch.arange(l_ab, device=dev)[None] < (hl + ll)[:, None]
-    on, off = outs['1'][valid], outs['0'][valid]
-    if not (torch.isfinite(on).all() and torch.isfinite(off).all()):
-        fail('ESM flags on/off: non-finite weighted embedding')
-    d, m = rel_err(on, off)
-    print(f'ESM flags on vs off (f32 ESM2-3B, weighted embedding, valid '
-          f'rows): max |diff| {d:.3g}, max|ref| {m:.3g}', flush=True)
-    if d > FLAGS_TOL * m:
-        fail(f'ESM flags on vs off: weighted embedding differs by {d:.3g} '
-             f'(max|ref| {m:.3g})')
+    off = outs['off'][valid]
+    report = {}
+    for route in ('on', 'flash'):
+        on = outs[route][valid]
+        if not (torch.isfinite(on).all() and torch.isfinite(off).all()):
+            fail(f'ESM flags {route} vs off: non-finite weighted embedding')
+        d, m = rel_err(on, off)
+        print(f'ESM flags {route} vs off (f32 ESM2-3B, weighted embedding, '
+              f'valid rows): max |diff| {d:.3g}, max|ref| {m:.3g}',
+              flush=True)
+        if d > FLAGS_TOL * m:
+            fail(f'ESM flags {route} vs off: weighted embedding differs by '
+                 f'{d:.3g} (max|ref| {m:.3g})')
+        report[route] = {'max_abs_err': d, 'max_abs_ref': m}
     del esm, outs, on, off
     torch.cuda.empty_cache()
-    return {'max_abs_err': d, 'max_abs_ref': m}
+    return {**report['on'], 'flash': report['flash']}
 
 
 def wrappers():
@@ -1434,6 +1511,7 @@ def wrappers():
             'tri_mult_post': tm_op.tri_mult_post,
             'recycle_embed': re_op.recycle_embed,
             'esm_attention': esm_op.esm_attention,
+            'esm_flash_attention': esm_op.esm_flash_attention,
             'ipa_pair_attend': ia_op.ipa_pair_attend,
             'triangle_multiply': tg_op.triangle_multiply_kernel,
             'tri_mult_post_gatefold': tm_op.tri_mult_post_gatefold,
@@ -1607,6 +1685,34 @@ def phase_design_esm_reuse(torch, card, rt, complexes):
                      f'{CORRECTOR} corrector steps)')
     return launches, design_stats(log, None, card, 'ESM-on design, ESM '
                                   'reuse')
+
+
+def phase_design_esm_flash(torch, card, rt, complexes):
+    """Phase 6c: the ESM-on design of phase 6 on its runtime with the ESM
+    attention on the flash route (ABX_FUSED_ESM_ATTN=0 ABX_FLASH_ESM=1),
+    through the runner API."""
+    from abx_tpu_torch.cli import runner
+    ws = wrappers()
+    expected = {k: n * PASSES for k, n in PER_PASS.items()}
+    expected['esm_flash_attention'] = ESM_LAYERS * PASSES
+    env = ESM_ROUTES['flash']
+    with tempfile.TemporaryDirectory() as out:
+        os.environ.update(env)
+        try:
+            reset_counts(ws)
+            log = runner.run_sampling(
+                rt, os.path.join(out, 'design'), complexes,
+                num_samples=NUM_SAMPLES, num_t=NUM_T, seed=0,
+                batch_samples=NUM_SAMPLES)
+            torch.cuda.synchronize()
+            launches = read_counts(ws)
+        finally:
+            for k in env:
+                os.environ.pop(k)
+        check_design(out, launches, expected,
+                     'ESM-on design, flash route')
+    return launches, design_stats(log, None, card, 'ESM-on design, flash '
+                                  'route')
 
 
 def design_batch(rt, n=NUM_SAMPLES):
@@ -3138,6 +3244,13 @@ def main():
         phase_design_esm(torch, card)
     paths['design_esm_reuse'], stats['design_esm_reuse'] = \
         phase_design_esm_reuse(torch, card, rt_esm, complexes)
+    paths['design_esm_flash'], stats['design_esm_flash'] = \
+        phase_design_esm_flash(torch, card, rt_esm, complexes)
+    print(f'ESM-on design s per step: flash route '
+          f'{stats["design_esm_flash"]["s_per_step"]:.3f}, esm_attention '
+          f'{stats["design_esm"]["s_per_step"]:.3f} (first trajectory), '
+          f'{stats["design_esm"]["steady_s_per_step"]:.3f} (second)',
+          flush=True)
     from abx_tpu_torch.cli import runner
     rt_off = runner.build_runtime(MODEL_CONFIG, seed=0, bf16=True,
                                   device='cuda')
@@ -3167,7 +3280,7 @@ def main():
     for name, (source, replaces) in KERNEL_META.items():
         cases = kernels[name]['cases']
         first = cases[0]
-        by_path = {p: counts[name] for p, counts in paths.items()}
+        by_path = {p: counts.get(name, 0) for p, counts in paths.items()}
         rows.append({
             'name': name, 'route': 'cuda', 'source': source,
             'replaces': replaces, 'launches': max(by_path.values()),

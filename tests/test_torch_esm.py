@@ -5,7 +5,9 @@ and dense random weights (`utils/params.dense_random_tree`) handed to both
 sides, to the port through the ESM weight bridge.  Tolerances: the ESM2
 forward and the attention within 1e-5 of max|ref| (f32 summation order),
 trunk activations 1e-4 (as tests/test_torch_modules.py), the sampler
-within 0.1 A of backbone per step with identical sequences.
+within 0.1 A of backbone per step with identical sequences.  The flash
+route's attention alone is held to the JAX package in
+tests/test_torch_esm_flash.py.
 """
 
 import jax
@@ -38,6 +40,7 @@ from abx_tpu_torch.sampling.sampler import to_device_batch
 from abx_tpu_torch.utils import params as params_lib
 from tests.mini_torch_esm2 import MiniESM2
 from tests.test_torch_modules import _force_kernel_route
+from tests.torch_cpu_alloc import lean_cpu
 
 REL = 1e-5          # ESM2 and attention, relative to max|ref|
 ACT = dict(rtol=0, atol=1e-4)
@@ -170,11 +173,13 @@ def test_esm_attention_plain_matches_jax_at_edge_cases(shape):
     _esm_attention_vs_jax(40 + d, b, h, l, d, pad, q_scale=d ** -0.5)
 
 
-@pytest.mark.parametrize('route', ['plain', 'kernel'])
+@pytest.mark.parametrize('route', ['plain', 'kernel', 'flash'])
 def test_esm_self_attention_matches_jax(route, monkeypatch):
-    """One attention block, through the module's plain route and through
-    its kernel route (on_device forced, the wrapper swapped for its plain
-    version: head-major strided views in, (B, L, H, D) out)."""
+    """One attention block, through the module's plain route, through its
+    kernel route (on_device forced, the wrapper swapped for its plain
+    version: head-major strided views in, (B, L, H, D) out) and through
+    the flash route (ABX_FUSED_ESM_ATTN=0 ABX_FLASH_ESM=1, likewise),
+    checked on the valid rows."""
     rng = np.random.default_rng(3)
     x = rng.standard_normal((2, 23, ESM_CFG.embed_dim)).astype(np.float32)
     pad = np.zeros((2, 23), bool)
@@ -189,7 +194,10 @@ def test_esm_self_attention_matches_jax(route, monkeypatch):
     pm = port_esm.ESMSelfAttention(ESM_CFG, torch.float32)
     pm.load_state_dict({k: torch.tensor(v) for k, v in
                         params_lib.esm_flax_to_state_dict(tree).items()})
-    if route == 'kernel':
+    if route == 'flash':
+        monkeypatch.setenv('ABX_FUSED_ESM_ATTN', '0')
+        monkeypatch.setenv('ABX_FLASH_ESM', '1')
+    if route != 'plain':
         _force_kernel_route(monkeypatch)
     cos, sin = port_esm.rotary_sincos(23, ESM_CFG.embed_dim
                                       // ESM_CFG.attention_heads,
@@ -377,10 +385,14 @@ def test_embedding_and_seqformer_with_esm_matches_jax():
         np.testing.assert_allclose(n(g), np.asarray(w), **ACT)
 
 
-def test_esm_design_sampler_matches_jax_under_shared_noise():
-    """Tiny trunk (num_recycle 2) + tiny ESM2, T = 3, on
-    testdata/6ct7_H_L_S.pdb at L = 256 + 32: ESM runs inside each of the
-    3 trunk passes of every step, on that pass's recycled sequence."""
+@pytest.fixture(scope='module')
+def esm_design():
+    """The JAX side of the shared-noise ESM design, once for both routes:
+    tiny trunk (num_recycle 2) + tiny ESM2, T = 3, on
+    testdata/6ct7_H_L_S.pdb at L = 256 + 32; the JAX sampler on the CPU
+    takes its einsum attention, whose valid rows both port routes equal.
+    Freed memory is kept in the process while it runs (see
+    tests/torch_cpu_alloc.py)."""
     num_t, l_ab = 3, 256
     cfg, pcfg = _esm_cfgs(l_ab=l_ab, num_recycle=2)
     ex = ds.complex_from_pdb('testdata/6ct7_H_L_S.pdb', 'H', 'L', ['S'])
@@ -395,44 +407,80 @@ def test_esm_design_sampler_matches_jax_under_shared_noise():
         num_t=num_t, mode='design', collect_trajectory=True),
         esm_fn=jesm, esm_params=jesm_params)
     key = jax.random.PRNGKey(0)
-    prepared = jsampler.prepare(jax.random.split(key)[0], jfeats)
-    shapes = jax.eval_shape(lambda: jm.init(
-        jax.random.PRNGKey(0), prepared, compute_loss=True,
-        esm_fn=lambda *a, **kw: jesm(jesm_params, *a, **kw)))
-    tree = params_lib.dense_random_tree(
-        jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes),
-        seed=13, scale=0.5)
-    b, l = feats['seq'].shape
-    rng = np.random.default_rng(14)
-    noise = {'rot_z': rng.standard_normal((num_t + 1, b, l, 3)),
-             'trans_z': rng.standard_normal((num_t + 1, b, l, 3)),
-             'seq_u': rng.random((num_t + 1, b, l, 20))}
-    noise = {k: v.astype(np.float32) for k, v in noise.items()}
-    want = jsampler.sample(jax.tree.map(jnp.asarray, tree), jfeats, key,
-                           noise={k: jnp.asarray(v) for k, v in noise.items()})
+    with lean_cpu():
+        prepared = jsampler.prepare(jax.random.split(key)[0], jfeats)
+        shapes = jax.eval_shape(lambda: jm.init(
+            jax.random.PRNGKey(0), prepared, compute_loss=True,
+            esm_fn=lambda *a, **kw: jesm(jesm_params, *a, **kw)))
+        tree = params_lib.dense_random_tree(
+            jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes),
+            seed=13, scale=0.5)
+        b, l = feats['seq'].shape
+        rng = np.random.default_rng(14)
+        noise = {'rot_z': rng.standard_normal((num_t + 1, b, l, 3)),
+                 'trans_z': rng.standard_normal((num_t + 1, b, l, 3)),
+                 'seq_u': rng.random((num_t + 1, b, l, 20))}
+        noise = {k: v.astype(np.float32) for k, v in noise.items()}
+        want = jsampler.sample(
+            jax.tree.map(jnp.asarray, tree), jfeats, key,
+            noise={k: jnp.asarray(v) for k, v in noise.items()})
+        jtraj = jax.tree.map(np.asarray, want['trajectory'])
+    return dict(num_t=num_t, l_ab=l_ab, pcfg=pcfg, feats=feats, pesm=pesm,
+                prepared={k: np.asarray(v) for k, v in prepared.items()
+                          if not isinstance(v, tuple)},
+                tree=tree, noise=noise, jtraj=jtraj)
 
+
+@pytest.mark.parametrize('route', ['default', 'flash'])
+def test_esm_design_sampler_matches_jax_under_shared_noise(route, esm_design,
+                                                           monkeypatch):
+    """The port's ESM-on sampler against the JAX sampler under shared
+    noise: ESM runs inside each of the 3 trunk passes of every step, on
+    that pass's recycled sequence.  On the default route (esm_attention's
+    function) and on the flash route (ABX_FUSED_ESM_ATTN=0
+    ABX_FLASH_ESM=1: esm_flash_attention's, whose padded rows differ and
+    reach no valid row).  The port's side runs on two torch threads with
+    freed memory kept (tests/torch_cpu_alloc.py): in a CPU run of one
+    trajectory it took 17 s against 30 s on one thread, and its eight
+    threads' 6 s grew 30x beside five busy processes."""
+    e = esm_design
+    num_t, pcfg, pesm = e['num_t'], e['pcfg'], e['pesm']
+    flash_calls = []
+    if route == 'flash':
+        monkeypatch.setenv('ABX_FUSED_ESM_ATTN', '0')
+        monkeypatch.setenv('ABX_FLASH_ESM', '1')
+        flash = port_esm.esm_flash_attention
+        monkeypatch.setattr(port_esm, 'esm_flash_attention',
+                            lambda *a: flash_calls.append(1) or flash(*a))
     pdiff = JointDiffuser(JointConfig.from_dict(pcfg.diffuser.to_dict()))
-    pm = ScoreNetworkIteration(pcfg.model, pdiff, l_ab).eval()
-    params_lib.load_flax_params(pm, tree)
+    pm = ScoreNetworkIteration(pcfg.model, pdiff, e['l_ab']).eval()
+    params_lib.load_flax_params(pm, e['tree'])
     calls = []
-    pesm.register_forward_hook(lambda *_: calls.append(1))
+    hook = pesm.register_forward_hook(lambda *_: calls.append(1))
     psampler = Sampler(pm, pdiff, pcfg.model,
                        SamplerConfig(num_t=num_t, collect_trajectory=True),
                        esm_fn=pesm)
-    batch = to_device_batch({k: np.asarray(v) for k, v in prepared.items()
-                             if not isinstance(v, tuple)}, 'cpu')
-    got = psampler.sample_prepared(
-        batch, noise={k: torch.tensor(v) for k, v in noise.items()})
+    batch = to_device_batch(e['prepared'], 'cpu')
+    before = esm_op.esm_flash_attention.launches
+    try:
+        with lean_cpu(threads=2):
+            got = psampler.sample_prepared(
+                batch, noise={k: torch.tensor(v)
+                              for k, v in e['noise'].items()})
+    finally:
+        hook.remove()
     assert len(calls) == 3 * (num_t + 1)
+    assert len(flash_calls) == (len(calls) * ESM_CFG.num_layers
+                                if route == 'flash' else 0)
+    assert esm_op.esm_flash_attention.launches == before
 
-    jtraj = want['trajectory']
+    jtraj = e['jtraj']
     devs = []
     for s, step in enumerate(got['trajectory']):
-        np.testing.assert_array_equal(step['seq'].numpy(),
-                                      np.asarray(jtraj['seq'][s]))
+        np.testing.assert_array_equal(step['seq'].numpy(), jtraj['seq'][s])
         bb = np.abs(step['atom14'].numpy()[..., :4, :]
-                    - np.asarray(jtraj['atom14'][s])[..., :4, :])
+                    - jtraj['atom14'][s][..., :4, :])
         devs.append(float(bb.max()))
-    print(f'max backbone deviation per step (A): {devs}')
+    print(f'max backbone deviation per step (A), {route} route: {devs}')
     assert max(devs) <= 0.1, devs
-    assert not np.array_equal(got['seq'].numpy(), feats['seq'])
+    assert not np.array_equal(got['seq'].numpy(), e['feats']['seq'])

@@ -694,6 +694,72 @@ def test_esm_attention_launches_one_device_kernel(cuda):
     assert len(names) == 1 and 'flash_kernel' in names[0], names
 
 
+def test_esm_flash_wrapper_on_cpu_runs_plain_version_without_counting():
+    """The flash route's wrapper on CPU tensors is its plain version, whose
+    valid rows are esm_attention's, and counts nothing."""
+    before = (esm_op.esm_flash_attention.launches,
+              esm_op.esm_attention.launches)
+    qkv, pad = _esm_case(5, 2, 3, 9, 8, True)
+    got = esm_op.esm_flash_attention(*qkv, pad)
+    torch.testing.assert_close(got, esm_op.esm_flash_attention_plain(*qkv,
+                                                                     pad))
+    valid = ~pad[:, None, :, None].expand(got.shape)
+    torch.testing.assert_close(
+        got[valid], esm_op.esm_attention_plain(*qkv, pad)[valid])
+    assert (esm_op.esm_flash_attention.launches,
+            esm_op.esm_attention.launches) == before
+
+
+# (b, h, l, d, strided, all_pad_row): one 128-key block (L <= 128, the stock
+# kernel's one-step path) and two or three (L = 133, 260, 306), ragged L,
+# D = 16, 24 (padded to 32), 32, 64, strided and contiguous operands, and a
+# batch row whose every position is padded.
+ESM_FLASH_SHAPES = [(2, 3, 70, 64, True, None), (1, 4, 133, 32, False, None),
+                    (2, 2, 17, 24, True, None), (4, 40, 306, 64, True, None),
+                    (2, 3, 260, 16, True, None), (3, 2, 150, 64, True, 1),
+                    (32, 40, 122, 64, True, None)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', ESM_FLASH_SHAPES)
+def test_esm_flash_attention_kernel_matches_plain(cuda, shape, dtype):
+    """Every row, the padded ones included (the kernel computes the stock
+    kernel's function on all of them): f32 and bf16 against the f32 plain
+    version at the card's bars; bf16 against the bf16 plain version (the
+    stock kernel's rounding points: P rounded against the running max of
+    each 128-key block, or normalised where L <= 128): at most 1% of the
+    outputs differ by more than one bf16 step."""
+    *dims, strided, all_pad_row = shape
+    qkv, pad = _esm_case(16, *dims, strided, all_pad_row)
+    qkv, pad = [a.to(cuda) for a in qkv], pad.to(cuda)
+    low = [a.to(dtype) for a in qkv]
+    want = esm_op.esm_flash_attention_plain(*qkv, pad)
+    got = esm_op.esm_flash_attention(*low, pad)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    _close_on_card(got, want, dtype)
+    if dtype == torch.bfloat16:
+        want16 = esm_op.esm_flash_attention_plain(*low, pad).float()
+        step = torch.ldexp(torch.ones_like(want16),
+                           torch.frexp(want16).exponent - 8)
+        share = ((got.float() - want16).abs() > step).float().mean().item()
+        assert share <= 1e-2, share
+
+
+@pytest.mark.gpu
+def test_esm_flash_attention_refuses_what_its_kernel_does_not_take(cuda):
+    """No fallback: f32 with D = 128 (past the f32 kernel's shared memory),
+    D not a multiple of 8 and a CPU padding mask raise."""
+    for dtype, d, pad_dev in ((torch.float32, 128, cuda),
+                              (torch.bfloat16, 20, cuda),
+                              (torch.bfloat16, 64, 'cpu')):
+        qkv, pad = _esm_case(17, 1, 2, 40, d, True)
+        qkv = [a.to(cuda).to(dtype) for a in qkv]
+        with pytest.raises(ValueError, match='esm_flash_attention'):
+            esm_op.esm_flash_attention(*qkv, pad.to(pad_dev))
+
+
 # --- the opt-in kernels: ragged L, both orientations, f32 and bf16 ----------
 
 @pytest.mark.gpu

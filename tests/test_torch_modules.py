@@ -145,6 +145,8 @@ def _force_kernel_route(monkeypatch):
              recycle_embed.recycle_embed_plain),
             (port_ipa, 'ipa_attention', ipa_attention.ipa_attention_plain),
             (port_esm, 'esm_attention', esm_attention.esm_attention_plain),
+            (port_esm, 'esm_flash_attention',
+             esm_attention.esm_flash_attention_plain),
             (port_seqformer, 'gate_proj_residual',
              gate_proj.gate_proj_residual_plain),
             (port_seqformer, 'tri_mult_post_gatefold',

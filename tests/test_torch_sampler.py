@@ -33,7 +33,7 @@ from abx_tpu_torch.models.network import ScoreNetworkIteration
 from abx_tpu_torch.sampling.sampler import (Sampler, SamplerConfig,
                                             to_device_batch)
 from abx_tpu_torch.utils import params as params_lib
-from tests.torch_cpu_alloc import SUBPROCESS_ENV
+from tests.torch_cpu_alloc import SUBPROCESS_ENV, lean_cpu
 
 PDB = 'testdata/6ct7_H_L_S.pdb'
 NUM_T = 3
@@ -88,8 +88,9 @@ def test_design_sampler_matches_jax_under_shared_noise():
     batch = to_device_batch(
         {k: np.asarray(v) for k, v in prepared.items()
          if not isinstance(v, tuple)}, 'cpu')
-    got = psampler.sample_prepared(
-        batch, noise={k: torch.tensor(v) for k, v in noise.items()})
+    with lean_cpu(threads=2):
+        got = psampler.sample_prepared(
+            batch, noise={k: torch.tensor(v) for k, v in noise.items()})
 
     jtraj = want['trajectory']
     assert len(got['trajectory']) == NUM_T == jtraj['t'].shape[0]

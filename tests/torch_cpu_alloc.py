@@ -8,7 +8,8 @@ anew: about half the CPU time of such a test on one thread is the kernel's.
 it is entered and hands the memory back at its end; `SUBPROCESS_ENV` does
 the same for a child process through glibc's environment tunables.
 `lean_cpu` adds one torch thread, which costs such a run the least CPU
-time.
+time (or a few: a run that scales well on two costs little more CPU time
+and half the wall time).
 """
 
 import contextlib
@@ -41,14 +42,15 @@ def retain_freed_memory():
 
 
 @contextlib.contextmanager
-def lean_cpu(children: bool = False):
-    """One torch thread and freed memory kept, in this process and, with
-    `children`, in the child processes it starts while entered."""
+def lean_cpu(children: bool = False, threads: int = 1):
+    """`threads` torch threads and freed memory kept, in this process and,
+    with `children`, in the child processes it starts while entered."""
     import torch
     n = torch.get_num_threads()
-    env = {'OMP_NUM_THREADS': '1', **SUBPROCESS_ENV} if children else {}
+    env = ({'OMP_NUM_THREADS': str(threads), **SUBPROCESS_ENV} if children
+           else {})
     saved = {k: os.environ.get(k) for k in env}
-    torch.set_num_threads(1)
+    torch.set_num_threads(threads)
     os.environ.update(env)
     try:
         with retain_freed_memory():
