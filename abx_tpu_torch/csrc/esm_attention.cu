@@ -19,17 +19,10 @@
 // in head-major views of the (B, L, H, D) projection output, so no
 // transpose copies are made.
 //
-// abx_esm_flash_attention replaces abx_tpu/models/esm.py:117
-// _esm_flash_attention, the JAX package's ABX_FLASH_ESM route, which calls
-// JAX's stock Pallas TPU flash kernel with segment ids 1 - pad on q, k, v
-// zero-padded to a multiple of 128 (block_q = block_k = 128).  A padded
-// query attends to the padded keys and that zero tail only, so its row is
-// another function than esm_attention's.  The same core in segment mode
-// (flash_attention.cuh): one 4-warp block per (64 queries, head, batch),
-// 128-key tiles (the stock kernel's block, so its running max and the
-// bf16 rounding of P against it are the stock kernel's), the tail taken as
-// zero-filled keys of the last tile, no padding of L in memory.  Its bound
-// is esm_attention's: the same bytes (q, k, v, out and the pad row).
+// The flash route (abx_tpu/models/esm.py:117 _esm_flash_attention, the
+// stock TPU flash kernel with segment ids) has its entry,
+// abx_esm_flash_attention, in esm_flash_sm90.cu: bf16 on the Hopper kernel
+// there, f32 on this core's segment mode (flash_attention.cuh).
 #include "flash_attention.cuh"
 
 // q, k, v: (B, H, L, D) views; strides[12] = (b, l, h) element strides of
@@ -60,35 +53,4 @@ extern "C" int abx_esm_attention(int dtype, const void* q, const void* k,
   // 4-warp blocks of 64 queries, no bias, the online f32 exponent.
   return dtype == 0 ? flash::launch_d<float, 4, 1, false, false>(a, B, s)
                     : flash::launch_d<abx::bf16, 4, 1, false, false>(a, B, s);
-}
-
-// The stock TPU flash kernel's function (segment ids 1 - pad, the keys
-// past L up to a multiple of 128 in the padded segment with zero k and v,
-// a running max a 128-key block): every row, the padded ones included.
-// Arguments as abx_esm_attention's; D at most 64 in f32, 128 in bf16.
-extern "C" int abx_esm_flash_attention(int dtype, const void* q,
-                                       const void* k, const void* v,
-                                       const void* key_pad, void* out,
-                                       const long long* strides, int B,
-                                       int L, int H, int D, void* stream) {
-  namespace flash = abx::flash;
-  flash::Args a{};
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.key_pad = static_cast<const unsigned char*>(key_pad);
-  a.out = out;
-  a.qs = flash::Strides{strides[0], 0, strides[1], strides[2]};
-  a.ks = flash::Strides{strides[3], 0, strides[4], strides[5]};
-  a.vs = flash::Strides{strides[6], 0, strides[7], strides[8]};
-  a.os = flash::Strides{strides[9], 0, strides[10], strides[11]};
-  a.R = 1;
-  a.L = L;
-  a.H = H;
-  a.D = D;
-  a.qscale = 1.f;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0
-             ? flash::launch_d<float, 4, 1, false, false, true>(a, B, s)
-             : flash::launch_d<abx::bf16, 4, 1, false, false, true>(a, B, s);
 }

@@ -1,7 +1,7 @@
 // Register-resident flash attention core (FlashAttention-2 style) on
-// mma.sync.m16n8k16, shared by the ESM2 self-attention and its segment
-// route (esm_attention.cu) and the triangle / seq attentions
-// (tri_attention.cu).
+// mma.sync.m16n8k16, shared by the ESM2 self-attention (esm_attention.cu),
+// the f32 instance of its flash route (esm_flash_sm90.cu) and the triangle
+// / seq attentions (tri_attention.cu).
 //
 // out[b, r, l, h, :] = softmax_j(qscale * q_l . k_j + bias[b, h, l, j]
 //                                + keybias[b, j]) . v[j]
@@ -14,8 +14,10 @@
 // the wrappers launch nothing to build it); keys past L are -inf.  The
 // logits are summed in the reference's order: (qscale * q.k + bias) +
 // keybias.
-// Segment mode (SEG instances, ESM's flash route): the function of the
-// stock TPU flash kernel with segment ids 1 - pad.  Key j is visible to
+// Segment mode (SEG instances: only the f32 instance of ESM's flash route;
+// its bf16 launches run the Hopper kernel of esm_flash_sm90.cu, which
+// takes kSegMask, kSegKB and the quad reductions from here): the function
+// of the stock TPU flash kernel with segment ids 1 - pad.  Key j is visible to
 // query l iff both are valid or both are padded, and the keys past L up to
 // the next multiple of 128 (the stock kernel's zero-padded tail) are
 // padded keys with zero k and v; a masked logit is s + kSegMask, the stock
@@ -257,9 +259,9 @@ __device__ __forceinline__ float2 bias_pair(const bf16* p) {
 // and 4-warp row groups, four groups an SM (the ESM2-3B shape: 800 blocks
 // of 4 warps take two waves of the 132 SMs), else at what one block
 // allows.
-// Segment mode: shared memory (2 stages of 128-key K and V tiles) sets
-// the blocks an SM, two for bf16 with DP <= 64, and registers are not
-// capped.
+// Segment mode (now only its f32 instance, with DP <= 64): shared memory
+// (2 stages of 128-key f32 K and V tiles) sets the blocks an SM, and
+// registers are not capped.
 template <typename T, int DP, int QW, int RBMAX, bool SEG>
 constexpr int min_blocks() {
   return (!SEG && !IsF32<T>::value && DP <= 64 && QW == 4 && RBMAX <= 4)

@@ -55,6 +55,7 @@
 namespace abx {
 namespace pcm90 {
 
+using sm90::desc_mn_sw128;
 using sm90::desc_sw128;
 using sm90::load8_bf16;
 using sm90::named_sync;
@@ -101,18 +102,6 @@ struct Args {
   const float* wb;     // (C,)
   bf16* out;           // (B*P, C)
 };
-
-// wgmma descriptor of an MN-major, 128-byte-swizzled operand at shared
-// address addr: 64 MN elements a 128-byte row, one row a K index, 8-row K
-// groups 1024 bytes apart (the stride byte offset).  A 64-row M tile is one
-// swizzle atom wide, so the leading byte offset (the stride between MN
-// atoms) is never used; it is set to 1024 as well.
-__device__ __forceinline__ uint64_t desc_mn_sw128(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1024 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
 
 // d = A(64 x 16) B(16 x 64)^T + (scale_d ? d : 0), A MN-major (transposed)
 // and B K-major, both from shared memory.

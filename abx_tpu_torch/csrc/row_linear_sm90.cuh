@@ -118,6 +118,19 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
          (static_cast<uint64_t>(1) << 62);
 }
 
+// wgmma descriptor of an MN-major, 128-byte-swizzled operand at shared
+// address addr: 64 MN elements a 128-byte row, one row a K index, 8-row K
+// groups 1024 bytes apart (the stride byte offset).  The callers' MN
+// extent is one swizzle atom (64 rows of an M tile, 64 columns of N), so
+// the leading byte offset (the stride between MN atoms) is never used; it
+// is set to 1024 as well.
+__device__ __forceinline__ uint64_t desc_mn_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }

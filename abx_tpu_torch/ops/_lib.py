@@ -47,6 +47,7 @@ _SIGNATURES = {
                          + [_P] * 5 + [_I] * 7 + [_P],
     'abx_esm_attention': [_I] + [_P] * 6 + [_I] * 4 + [_P],
     'abx_esm_flash_attention': [_I] + [_P] * 6 + [_I] * 4 + [_P],
+    'abx_esm_flash_sm90_info': [_I, _I, _P],
     'abx_gate_proj': [_I, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
     'abx_tri_mult_post_gatefold': [_I, _P, _P, _I, _I, _I] + [_P] * 10,
     'abx_tri_mult_post_gatefold_sm90': [_P, _P, _I, _I, _I] + [_P] * 10,

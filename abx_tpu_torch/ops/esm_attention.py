@@ -9,13 +9,16 @@ Pallas TPU flash kernel with segment ids, the `ABX_FLASH_ESM` route): a
 query attends to the keys of its own segment (valid or padded), L padded
 with zeros to a multiple of 128 in the padded segment, the softmax taken
 online a 128-key block with P rounded to v's dtype against the running
-max.  On the card both wrappers launch `csrc/esm_attention.cu` (the
-register-resident flash core of `csrc/flash_attention.cuh`, the second in
-its segment mode), which reads q / k / v through strides (head-major views
-of the (B, L, H, D) projection output need no copy), reads the bool
-padding mask itself and writes the output in (B, L, H, D) memory order;
-the (B, H, L, L) logits never reach device memory.  See the source note
-there for what bounds them.
+max.  On the card `esm_attention` launches `csrc/esm_attention.cu` and
+`esm_flash_attention` the entry of `csrc/esm_flash_sm90.cu`: in bf16 the
+Hopper kernel there (TMA and wgmma, one 128-key block a warpgroup
+product), in f32 the register-resident flash core of
+`csrc/flash_attention.cuh` in its segment mode, the core `esm_attention`
+runs too.  Both read q / k / v through strides (head-major views of the
+(B, L, H, D) projection output need no copy), read the bool padding mask
+themselves and write the output in (B, L, H, D) memory order; the (B, H,
+L, L) logits never reach device memory.  See the source notes for what
+bounds them.
 """
 
 from __future__ import annotations
@@ -202,3 +205,15 @@ def esm_flash_attention(q, k, v, padding_mask):
 
 
 esm_flash_attention.launches = 0
+
+
+def flash_kernel_info(head_dim: int, length: int) -> dict:
+    """What the bf16 flash route's Hopper kernel gets on this card for
+    head dim `head_dim` at length `length`: CTAs an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and local
+    (spill) bytes a thread, dynamic shared memory bytes a CTA."""
+    info = (ctypes.c_int * 4)()
+    _lib.check(_lib.lib().abx_esm_flash_sm90_info(
+        head_dim, length, ctypes.addressof(info)), 'flash_kernel_info')
+    return dict(zip(('ctas_per_sm', 'registers', 'local_bytes',
+                     'smem_bytes'), info))

@@ -1,15 +1,17 @@
-"""What sets the pace of the recycle_embed, gate-fold, channel-major post and
-ipa_pair_attend kernels, by cutting parts out.
+"""What sets the pace of the recycle_embed, gate-fold, channel-major post,
+ipa_pair_attend and bf16 flash-route (esm_flash_attention) kernels, by
+cutting parts out.
 
     python -m abx_tpu_torch.tools.ablate_kernels \
         [--out build/ablate_kernels.json] [--kernels NAME ...]
 
 As tools/ablate_transition.py does for the transition: builds variants of
-`csrc/recycle_embed.cu`, `csrc/gatefold_sm90.cu`, `csrc/post_cmajor_sm90.cu`
-and `csrc/ipa_attend.cu`, each with one part of the work removed by a
-source edit, into libraries of their own (one nvcc each, all started
-together; the `-Xptxas -v` report of each is printed), and times each bare
-launch at the flagship shape (bf16, B=4, L=288; median of CUDA-event
+`csrc/recycle_embed.cu`, `csrc/gatefold_sm90.cu`, `csrc/post_cmajor_sm90.cu`,
+`csrc/ipa_attend.cu` and `csrc/esm_flash_sm90.cu`, each with one part of
+the work removed by a source edit, into libraries of their own (one nvcc
+each, all started together; the `-Xptxas -v` report of each is printed),
+and times each bare launch at the flagship shape (bf16, B=4, L=288, or the
+shape given below; median of CUDA-event
 timings after warm-up, and the device time a call from torch.profiler over
 20 calls, which leaves out the launch's host work) in turns, twice.  The variants compute wrong values
 on purpose; only `full` is checked against the plain version.
@@ -32,6 +34,17 @@ tri_mult_post_c_major ((4,128,288,288) -> (4,288,288,192)):
   no_gemm       the products left out;
   no_fg_res     fg and res never loaded (the epilogue reads stale tiles);
   no_store      the output never written out.
+esm_flash_attention (bf16, ESM2-3B (4,40,306,64) with 29-45 padded keys,
+and _pll at the masked-PLL batch (32,40,122,64); csrc/esm_flash_sm90.cu):
+  full          the kernel as it is;
+  no_norm       the one-block path's normalisation of P (L <= 128) left
+                out;
+  no_exp        no exponent (P = the scaled difference itself);
+  no_qk         no Q K^T products (S set from constants);
+  no_pv         no P V products (P still packed);
+  no_kbias      the key-bias rows never built (stale rows);
+  no_store      the output never written out;
+  l2_none       the tensor maps without L2 promotion (256-byte).
 ipa_pair_attend (attn (4,12,288,288) f32, pair (4,288,288,128)):
   full          the kernel as it is;
   no_pair       no pair chunks loaded (stale B fragments);
@@ -55,6 +68,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from abx_tpu_torch.ops import _lib
+from abx_tpu_torch.ops import esm_attention as esm_op
 from abx_tpu_torch.ops import ipa_attend as ia_op
 from abx_tpu_torch.ops import recycle_embed as re_op
 from abx_tpu_torch.ops import tri_mult as tm_op
@@ -146,6 +160,28 @@ IPA_ATTEND = {
                   '      if (h < 0) *reinterpret_cast<uint4*>(dst + h * C + '
                   'c) =\n')],
 }
+ESM_FLASH = {
+    'full': [],
+    'no_norm': [('          sc[4 * n + 2 * r] *= inv;\n'
+                 '          sc[4 * n + 2 * r + 1] *= inv;\n', '')],
+    'no_exp': [('sc[i] = exp2f((sc[i] - m_run[(i >> 1) & 1]) * kLog2e);',
+                'sc[i] = (sc[i] - m_run[(i >> 1) & 1]) * kLog2e;')],
+    'no_qk': [('        wgmma_128(sc, desc_sw128(q_wg + a * kAtom + 32 * kk),\n'
+               '                  desc_sw128(k_s + a * kAtom + 32 * kk), '
+               'a + kk > 0);\n',
+               '        for (int e = 0; e < 64; ++e) sc[e] = 1e-3f * e;\n')],
+    'no_pv': [('        wgmma_rs_tv(o[a], pf[kk],\n'
+               '                    desc_mn_sw128(v_s + a * kAtom + kk * 16 '
+               '* 128));\n',
+               '        o[a][kk] += __uint_as_float((pf[kk][0] ^ pf[kk][1] ^ '
+               'pf[kk][2] ^ pf[kk][3]) & 0x3f000000u);\n')],
+    'no_kbias': [('    for (int j = tid - 32; j < lp; j += kThreads - 32) {',
+                  '    for (int j = tid - 32; j < 0; j += kThreads - 32) {')],
+    'no_store': [('      if (l0 + r < L && c < p.D)',
+                  '      if (l0 + r < 0 && c < p.D)')],
+    'l2_none': [('CU_TENSOR_MAP_L2_PROMOTION_L2_256B',
+                 'CU_TENSOR_MAP_L2_PROMOTION_NONE')],
+}
 KERNELS = {'recycle_embed': ('recycle_embed.cu', 'abx_recycle_embed',
                              RECYCLE),
            'tri_mult_post_gatefold': ('gatefold_sm90.cu',
@@ -155,7 +191,11 @@ KERNELS = {'recycle_embed': ('recycle_embed.cu', 'abx_recycle_embed',
                                      'abx_tri_mult_post_c_major_sm90',
                                      POST_C_MAJOR),
            'ipa_pair_attend': ('ipa_attend.cu', 'abx_ipa_pair_attend',
-                               IPA_ATTEND)}
+                               IPA_ATTEND),
+           'esm_flash_attention': ('esm_flash_sm90.cu',
+                                   'abx_esm_flash_attention', ESM_FLASH),
+           'esm_flash_attention_pll': ('esm_flash_sm90.cu',
+                                       'abx_esm_flash_attention', ESM_FLASH)}
 
 
 def _cases(dev):
@@ -215,7 +255,30 @@ def _cases(dev):
         return fn(1, attn.data_ptr(), pair.data_ptr(), ia_out.data_ptr(), b,
                   h, l, cp, _lib.stream(pair))
     ia_want = ia_op.ipa_pair_attend_plain(attn, pair)
-    return {'recycle_embed': (rec_call, rec_want, rec_out),
+    flash = {}
+    for name, eb, el, padded in (('esm_flash_attention', 4, 306, True),
+                                 ('esm_flash_attention_pll', 32, 122, False)):
+        q, k, v = ((rnd(eb, el, 40, 64) * (0.125 if i == 0 else 1.0))
+                   .bfloat16().transpose(1, 2) for i in range(3))
+        epad = torch.zeros(eb, el, dtype=torch.bool, device=dev)
+        if padded:
+            epad[:, -29:] = True
+            epad[2, -45:] = True
+        eout = torch.empty((eb, el, 40, 64), dtype=torch.bfloat16,
+                           device=dev)
+        st = (ctypes.c_longlong * 12)(*(
+            s for x in (q, k, v, eout.transpose(1, 2))
+            for s in (x.stride(0), x.stride(2), x.stride(1))))
+
+        def flash_call(fn, q=q, k=k, v=v, epad=epad, eout=eout, st=st,
+                       eb=eb, el=el):
+            return fn(1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      epad.data_ptr(), eout.data_ptr(), ctypes.addressof(st),
+                      eb, el, 40, 64, _lib.stream(q))
+        flash[name] = (flash_call,
+                       esm_op.esm_flash_attention_plain(q, k, v, epad)
+                       .transpose(1, 2), eout)
+    return {**flash, 'recycle_embed': (rec_call, rec_want, rec_out),
             'tri_mult_post_gatefold': (fold_call, fold_want, fold_out),
             'tri_mult_post_c_major': (cm_call, cm_want, cm_out),
             'ipa_pair_attend': (ia_call, ia_want, ia_out)}

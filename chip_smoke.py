@@ -39,7 +39,10 @@ fatal on failure:
      ones included, and in bf16 also against its bf16 plain version (the
      stock TPU flash kernel's rounding points): the share of outputs that
      differ is printed, at most BF16_SHARE more than one bf16 step apart;
-     its library call is SDPA with the segment mask as a boolean mask),
+     its bf16 call launches the Hopper kernel of csrc/esm_flash_sm90.cu,
+     by name, whose CTAs an SM, registers, local bytes and ptxas spill
+     lines are printed first; its library call is SDPA with the segment
+     mask as a boolean mask),
      and row 1's attention core alone on ready projection rows beside
      SDPA; the bf16 core against the plain core with the TPU kernel's
      exponent (against the row's final max) on rows whose logits are exact
@@ -728,7 +731,8 @@ def kernel_cases(torch, dev):
              4 * q.shape[0] * h * q.shape[2] ** 2 * d,
              lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
                  q, k, v, attn_mask=seg, scale=1.0),
-             one_launch=True, time32=time32, share16=True)
+             one_launch=True, kernel_name='esm_flash_sm90_kernel',
+             time32=time32, share16=True)
     q, k, v = ((rnd(b, le, h, d) * (d ** -0.5 if i == 0 else 1.0))
                .transpose(1, 2) for i in range(3))
     flash_case('ESM2-3B (4,40,306,64), 29-45 padded keys', q, k, v, pad,
@@ -759,7 +763,7 @@ KERNEL_META = {
                       'abx_tpu/ops/recycle_embed.py:61'),
     'esm_attention': ('abx_tpu_torch/csrc/esm_attention.cu',
                       'abx_tpu/ops/esm_attention.py:47'),
-    'esm_flash_attention': ('abx_tpu_torch/csrc/esm_attention.cu',
+    'esm_flash_attention': ('abx_tpu_torch/csrc/esm_flash_sm90.cu',
                             'abx_tpu/models/esm.py:117'),
     'tri_mult_pre_no_fgate': ('abx_tpu_torch/csrc/row_linear.cu',
                               'abx_tpu/ops/tri_mult.py:72'),
@@ -787,8 +791,33 @@ def as_tuple(out):
     return out if isinstance(out, tuple) else (out,)
 
 
+def flash_kernel_report():
+    """Row 15's Hopper kernel (csrc/esm_flash_sm90.cu) on this card: CTAs
+    an SM, registers and local bytes a thread (the CUDA runtime), and
+    ptxas's register and spill lines of each of its instances (build.log
+    beside the library)."""
+    from abx_tpu_torch.ops import _lib
+    from abx_tpu_torch.ops import esm_attention as esm_op
+    report = {f'D={d}, L={l}': esm_op.flash_kernel_info(d, l)
+              for d, l in ((64, 306), (64, 122), (128, 306))}
+    log = _lib.BUILD_ROOT / _lib.source_hash() / 'build.log'
+    ptxas, entry = {}, None
+    for line in log.read_text().splitlines():
+        if 'Compiling entry function' in line:
+            name = line.split("'")[1]
+            entry = name if 'esm_flash_sm90_kernel' in name else None
+        elif entry and ('spill' in line or 'Used' in line):
+            ptxas.setdefault(entry, []).append(line.strip())
+    report['ptxas'] = ptxas
+    for key, val in report.items():
+        print(f'kernel esm_flash_attention Hopper kernel {key}: {val}',
+              flush=True)
+    return report
+
+
 def phase_kernels(torch, dev):
-    results = {}
+    results = {'esm_flash_attention': {
+        'cases': [], 'hopper_kernel': flash_kernel_report()}}
     for cs in kernel_cases(torch, dev):
         name, label, kern, plain = (cs['name'], cs['label'], cs['kern'],
                                     cs['plain'])
@@ -3288,7 +3317,8 @@ def main():
             'max_abs_err': max(c['max_abs_err'] for c in cases),
             'ms': first['ms'], 'plain_ms': first['plain_ms'],
             'bound_ms': first['bound_ms'], 'bound_by': first['bound_by'],
-            'library_ms': first['library_ms'], 'cases': cases})
+            'library_ms': first['library_ms'], 'cases': cases,
+            **{k: v for k, v in kernels[name].items() if k != 'cases'}})
     print(card)
     print(json.dumps({'kernels': rows, 'bf16_exp_final_max': exponent,
                       'bf16_rounding_points': rounding,

@@ -227,11 +227,14 @@ def _recycle_case(seed, b, l, c0, c, n_bins):
             rng.integers(0, n_bins, (b, l, l)))
 
 
-def _esm_case(seed, b, h, l, d, strided, all_pad_row=None):
+def _esm_case(seed, b, h, l, d, strided, all_pad_row=None,
+              head_pad_row=None):
     """q (pre-scaled), k, v as (B, H, L, D): head-major views of (B, L, H,
     D) tensors when `strided`, as the ESM module hands them in; a padding
-    mask (True = PAD) with padded tails of different lengths, and every key
-    of batch row `all_pad_row` padded where one is given."""
+    mask (True = PAD) with padded tails of different lengths, every key
+    of batch row `all_pad_row` padded where one is given, and the first
+    128 keys of batch row `head_pad_row` (the flash route's first key
+    block) where one is given."""
     rng = np.random.default_rng(seed)
     qkv = [rng.standard_normal((b, l, h, d)).astype(np.float32)
            for _ in range(3)]
@@ -245,6 +248,8 @@ def _esm_case(seed, b, h, l, d, strided, all_pad_row=None):
     pad[0, rng.integers(0, l // 2)] = True
     if all_pad_row is not None:
         pad[all_pad_row] = True
+    if head_pad_row is not None:
+        pad[head_pad_row, :128] = True
     return qkv, torch.as_tensor(pad)
 
 
@@ -710,14 +715,23 @@ def test_esm_flash_wrapper_on_cpu_runs_plain_version_without_counting():
             esm_op.esm_attention.launches) == before
 
 
-# (b, h, l, d, strided, all_pad_row): one 128-key block (L <= 128, the stock
-# kernel's one-step path) and two or three (L = 133, 260, 306), ragged L,
-# D = 16, 24 (padded to 32), 32, 64, strided and contiguous operands, and a
-# batch row whose every position is padded.
+# (b, h, l, d, strided, all_pad_row[, head_pad_row]): one 128-key block
+# (L <= 128, the stock kernel's one-step path) and two or three (L = 133,
+# 260, 306), ragged L, D = 16, 24 (padded to 32), 32, 64, strided and
+# contiguous operands, and a batch row whose every position is padded;
+# then L a multiple of 128 (no zero tail: L = 128, 256, 384), L = 129 (a
+# tail of 127 keys), and a batch row whose first 128 keys are all padded
+# (its valid queries see no key of the first block).
 ESM_FLASH_SHAPES = [(2, 3, 70, 64, True, None), (1, 4, 133, 32, False, None),
                     (2, 2, 17, 24, True, None), (4, 40, 306, 64, True, None),
                     (2, 3, 260, 16, True, None), (3, 2, 150, 64, True, 1),
-                    (32, 40, 122, 64, True, None)]
+                    (32, 40, 122, 64, True, None),
+                    (2, 3, 128, 64, True, None), (1, 4, 256, 32, False, None),
+                    (2, 3, 129, 64, True, None), (2, 2, 384, 64, True, None),
+                    (3, 2, 300, 64, True, None, 1)]
+# bf16 only: D = 128 (the f32 instance stops at 64), one and three blocks.
+ESM_FLASH_BF16_SHAPES = [(2, 2, 97, 128, True, None),
+                         (2, 3, 300, 128, False, None, 1)]
 
 
 @pytest.mark.gpu
@@ -730,8 +744,20 @@ def test_esm_flash_attention_kernel_matches_plain(cuda, shape, dtype):
     stock kernel's rounding points: P rounded against the running max of
     each 128-key block, or normalised where L <= 128): at most 1% of the
     outputs differ by more than one bf16 step."""
-    *dims, strided, all_pad_row = shape
-    qkv, pad = _esm_case(16, *dims, strided, all_pad_row)
+    _check_esm_flash(cuda, shape, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('shape', ESM_FLASH_BF16_SHAPES)
+def test_esm_flash_attention_bf16_d128_matches_plain(cuda, shape):
+    """The bf16 Hopper kernel's D = 128 instance (two 64-column boxes a
+    tile) at the bars of the test above."""
+    _check_esm_flash(cuda, shape, torch.bfloat16)
+
+
+def _check_esm_flash(cuda, shape, dtype):
+    *dims, strided, all_pad_row = shape[:6]
+    qkv, pad = _esm_case(16, *dims, strided, all_pad_row, *shape[6:])
     qkv, pad = [a.to(cuda) for a in qkv], pad.to(cuda)
     low = [a.to(dtype) for a in qkv]
     want = esm_op.esm_flash_attention_plain(*qkv, pad)
@@ -745,6 +771,34 @@ def test_esm_flash_attention_kernel_matches_plain(cuda, shape, dtype):
                            torch.frexp(want16).exponent - 8)
         share = ((got.float() - want16).abs() > step).float().mean().item()
         assert share <= 1e-2, share
+
+
+@pytest.mark.gpu
+def test_esm_flash_attention_launches_its_kernel_by_dtype(cuda):
+    """One call launches one device kernel: in bf16 the Hopper kernel
+    (esm_flash_sm90.cu), in f32 the core's segment mode (flash_kernel);
+    profiled in a process of its own."""
+    _in_own_process(_esm_flash_launches_its_kernel_by_dtype)
+
+
+def _esm_flash_launches_its_kernel_by_dtype():
+    from torch.profiler import ProfilerActivity, profile
+    cuda = _card()
+    qkv, pad = _esm_case(18, 2, 3, 300, 64, True)
+    pad = pad.to(cuda)
+    for dtype, want, not_want in ((torch.bfloat16, 'esm_flash_sm90_kernel',
+                                   None),
+                                  (torch.float32, 'flash_kernel', 'sm90')):
+        low = [a.to(cuda).to(dtype) for a in qkv]
+        esm_op.esm_flash_attention(*low, pad)  # builds and loads the library
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            esm_op.esm_flash_attention(*low, pad)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(names) == 1 and want in names[0], (dtype, names)
+        assert not_want is None or not_want not in names[0], (dtype, names)
 
 
 @pytest.mark.gpu
