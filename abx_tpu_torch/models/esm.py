@@ -6,7 +6,10 @@ the sequence is re-tokenised with integer index arithmetic
 ([cls | heavy | 48 x G | light | eos | pad]), and the learned
 layer-weighted sum of the per-layer representations is accumulated in f32
 inside the layer loop, so the (B, L, D, num_layers + 1) stack is never
-built.
+built.  Under a profiler the forward is the span `abx.esm`, and each layer
+is tiled by `abx.esm.norm` (each LayerNorm with its cast), `abx.esm.attn`
+and `abx.esm.ffn` (each with its residual add); `abx.esm.mix` is each
+step of the weighted sum.
 
 Submodules carry fair-esm's names (`embed_tokens`, `layers.{i}.self_attn.
 q_proj`, `layers.{i}.fc1`, `emb_layer_norm_after`, ...), so a fair-esm
@@ -35,6 +38,7 @@ from abx_tpu_torch.ops import registry
 from abx_tpu_torch.ops.esm_attention import (esm_attention,
                                              esm_attention_plain,
                                              esm_flash_attention)
+from abx_tpu_torch.utils.prof import annotate, annotated
 
 # ESM alphabet (fair-esm standard): ids of the special / aa tokens.
 ESM_CLS, ESM_PAD, ESM_EOS, ESM_UNK, ESM_MASK = 0, 1, 2, 3, 32
@@ -208,11 +212,15 @@ class ESMLayer(nn.Module):
         # a flax LayerNorm there, which the context does not reach).
         dt = self.dtype
         tp = self.training
-        y = self.self_attn(self.self_attn_layer_norm(x, tp).to(dt),
-                           padding_mask, cos, sin)
-        x = x + y
-        y = F.gelu(self.fc1(self.final_layer_norm(x, tp).to(dt)))
-        return x + _row_parallel(self.fc2, y, self.tp_group)
+        with annotate('abx.esm.norm'):
+            h = self.self_attn_layer_norm(x, tp).to(dt)
+        with annotate('abx.esm.attn'):
+            x = x + self.self_attn(h, padding_mask, cos, sin)
+        with annotate('abx.esm.norm'):
+            h = self.final_layer_norm(x, tp).to(dt)
+        with annotate('abx.esm.ffn'):
+            y = F.gelu(self.fc1(h))
+            return x + _row_parallel(self.fc2, y, self.tp_group)
 
 
 class ESM2(nn.Module):
@@ -263,8 +271,9 @@ class ESM2(nn.Module):
 
         weighted = layer_weights is not None
         if weighted:
-            lw = layer_weights.float()
-            acc = lw[0] * x.float()
+            with annotate('abx.esm.mix'):
+                lw = layer_weights.float()
+                acc = lw[0] * x.float()
         reprs = [x] if not (weighted or final_only) else None
         for i, layer in enumerate(self.layers):
             # ESM is frozen: its layers never enter the autograd graph.
@@ -274,15 +283,17 @@ class ESM2(nn.Module):
             with torch.no_grad():
                 x = layer(x, padding_mask, cos, sin)
             if weighted:
-                acc = acc + lw[i + 1] * x.float()
+                with annotate('abx.esm.mix'):
+                    acc = acc + lw[i + 1] * x.float()
             if reprs is not None:
                 reprs.append(x)
         # The final LN applies to the last layer's representation only.
-        with torch.no_grad():
+        with torch.no_grad(), annotate('abx.esm.norm'):
             final = self.emb_layer_norm_after(x).to(dt)
         if weighted:
             # acc holds w[-1] * x_raw; swap in the post-LN final.
-            return acc + lw[-1] * (final.float() - x.float())
+            with annotate('abx.esm.mix'):
+                return acc + lw[-1] * (final.float() - x.float())
         if final_only:
             return final
         # Full stack: [embedding, layers 1..n-1, post-LN final].
@@ -372,6 +383,7 @@ class AntibodyESM(nn.Module):
     def esm_seq_len(self) -> int:
         return self.antibody_len + self.sep_pad_num + 2
 
+    @annotated('abx.esm')
     def forward(self, ab_aatype, heavy_len, light_len, layer_weights=None):
         """Returns (B, L_ab, D) in f32 when `layer_weights` is given, else
         (B, L_ab, D, num_layers+1)."""

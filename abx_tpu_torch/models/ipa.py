@@ -11,7 +11,8 @@ pair track runs in its own kernel (`ops/ipa_attend.py`).  In train() mode
 both kernels are off, dropout follows the IPA and the transition, the
 rotations are detached between layers (the reference's no-grad rots;
 `delta_quat` keeps its gradient), and the output carries the per-layer
-frames (`traj`) that the FAPE loss reads.
+frames (`traj`) that the FAPE loss reads.  Under a profiler `IpaScore` is
+the span `abx.ipa` and each IPA call `abx.ipa.attn`.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from abx_tpu_torch.models.modules import (LayerNorm, Linear, fused_dense,
 from abx_tpu_torch.ops import registry
 from abx_tpu_torch.ops.ipa_attend import ipa_pair_attend
 from abx_tpu_torch.ops.ipa_attention import ipa_attention
+from abx_tpu_torch.utils.prof import annotated
 
 BIG_NEG = -1e9
 
@@ -66,6 +68,7 @@ class InvariantPointAttention(nn.Module):
         invariant: the caller computes it once for all layers)."""
         return np.sqrt(1.0 / 3) * self.proj_pair(inputs_2d).permute(0, 3, 1, 2)
 
+    @annotated('abx.ipa.attn')
     def forward(self, inputs_1d, inputs_2d, mask, rigids: Rigid, pair_bias):
         c = self.config
         h = c.num_head
@@ -192,6 +195,7 @@ class IpaScore(nn.Module):
         self.affine_update = Linear(nc, 6, 'final', dtype=dtype)
         self.torsion_module = TorsionModule(c.torsion, nc, dtype=dtype)
 
+    @annotated('abx.ipa')
     def forward(self, representations, batch, generator=None):
         """`generator` draws the dropout in train() mode."""
         c = self.config.IPA

@@ -20,6 +20,7 @@ from abx_tpu_torch.models.heads import (DistogramHead, PredictedLDDTHead,
                                         SequenceHead, rebuild_atoms)
 from abx_tpu_torch.models.ipa import IpaScore
 from abx_tpu_torch.models.seqformer import EmbeddingAndSeqformer
+from abx_tpu_torch.utils.prof import annotate
 
 
 def get_prev(batch, outputs, prev_pos_config) -> Dict[str, torch.Tensor]:
@@ -92,21 +93,23 @@ class ScoreNetworkIteration(nn.Module):
                                            esm_fn=esm_fn, generator=generator)
         representations = {'seq': seq_act, 'pair': pair_act}
         folding = self.diffusion_module(representations, batch, generator)
-        seq_out = self.sequence_module(folding['structure_act'], batch)
-        folding.update(rebuild_atoms(seq_out['seq_0'], folding['rigids'],
-                                     folding['angles_sin_cos'], batch))
-        heads = {
-            'folding': folding,
-            'sequence_module': seq_out,
-            'predicted_lddt': self.predicted_lddt(folding['structure_act']),
-        }
-        if compute_loss:
-            heads['distogram'] = self.distogram(pair_act)
-            if 'pseudo_beta' in batch:
-                heads['metric'] = metric_heads.metric_dict_head(
-                    heads['distogram'], batch,
-                    self.config.heads.get('metric', None))
-            heads['tmscore'] = metric_heads.tmscore_head(folding, batch)
+        with annotate('abx.heads'):
+            seq_out = self.sequence_module(folding['structure_act'], batch)
+            folding.update(rebuild_atoms(seq_out['seq_0'], folding['rigids'],
+                                         folding['angles_sin_cos'], batch))
+            heads = {
+                'folding': folding,
+                'sequence_module': seq_out,
+                'predicted_lddt': self.predicted_lddt(
+                    folding['structure_act']),
+            }
+            if compute_loss:
+                heads['distogram'] = self.distogram(pair_act)
+                if 'pseudo_beta' in batch:
+                    heads['metric'] = metric_heads.metric_dict_head(
+                        heads['distogram'], batch,
+                        self.config.heads.get('metric', None))
+                heads['tmscore'] = metric_heads.tmscore_head(folding, batch)
         return {'representations': representations, 'heads': heads}
 
 
@@ -122,7 +125,9 @@ def forward_with_recycling(apply_single, batch, num_recycle: int,
     whose draws differ from pass to pass.  The returned dict carries
     `recycled_seq_t`, the seq_t the final pass consumed (the last recycle
     pass's predicted seq_0): the reference mutates seq_t in place during
-    recycling and its sampler reads the mutated value.
+    recycling and its sampler reads the mutated value.  Under a profiler
+    each `apply_single` call is the span `abx.pass`; the recycling features
+    between passes are not part of it.
     """
     if 'prev_seq' not in batch:
         raise ValueError('caller must seed prev_* (use zero_prev)')
@@ -130,9 +135,11 @@ def forward_with_recycling(apply_single, batch, num_recycle: int,
     mb['seq_t'] = batch['seq_t'].long()
     with torch.no_grad():
         for _ in range(num_recycle):
-            out = apply_single(mb, compute_loss=False)
+            with annotate('abx.pass'):
+                out = apply_single(mb, compute_loss=False)
             mb.update(get_prev(mb, out, prev_pos_cfg))
             mb['seq_t'] = out['heads']['sequence_module']['seq_0']
-    out = apply_single(mb, compute_loss=compute_loss)
+    with annotate('abx.pass'):
+        out = apply_single(mb, compute_loss=compute_loss)
     out['recycled_seq_t'] = mb['seq_t']
     return out

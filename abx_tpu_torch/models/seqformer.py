@@ -26,6 +26,11 @@ multiplication's kernel routes off.
 With `esm.enabled`, `EmbeddingAndSeqformer` adds the projected, learned
 layer-weighted ESM2 embedding of the pass's noisy antibody sequence to the
 antibody track (`models/esm.py`).
+Under a profiler `EmbeddingAndSeqformer` is the span `abx.trunk`, its
+input embeddings `abx.trunk.embed`, and each Seqformer module one of
+`abx.trunk.seq_attn`, `.transition` (seq and pair), `.opm`, `.tri_mult`
+(outgoing and incoming) and `.tri_attn` (starting and ending node), each
+with its residual add.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from abx_tpu_torch.ops.tri_mult import (pack_gatefold, pack_post,
 from abx_tpu_torch.ops.weight_cache import WeightCache
 from abx_tpu_torch.ops.triangle import (triangle_multiply,
                                         triangle_multiply_c_major)
+from abx_tpu_torch.utils.prof import annotate
 
 BIG_NEG = -1e9
 
@@ -614,26 +620,35 @@ class SeqformerIteration(nn.Module):
         epilogues; in train() mode each residual branch is a delta with
         dropout drawn from `generator`."""
         c = self.config
-        if not self.training:
-            seq_act = self.seq_attn(seq_act, pair_act, seq_mask,
-                                    residual=True)
-        else:
-            seq_act = seq_act + self._dropout(
-                self.seq_attn(seq_act, pair_act, seq_mask),
-                c.seq_attention_with_pair_bias, generator)
-        seq_act = seq_act + self.seq_transition(seq_act)
-        pair_act = pair_act + self.outer_product_mean(seq_act, seq_mask)
-        blocks = ((self.tri_mul_out, c.triangle_multiplication_outgoing),
-                  (self.tri_mul_in, c.triangle_multiplication_incoming),
-                  (self.tri_attn_start, c.triangle_attention_starting_node),
-                  (self.tri_attn_end, c.triangle_attention_ending_node))
-        for module, cfg in blocks:
+        with annotate('abx.trunk.seq_attn'):
             if not self.training:
-                pair_act = module(pair_act, seq_mask, residual=True)
+                seq_act = self.seq_attn(seq_act, pair_act, seq_mask,
+                                        residual=True)
             else:
-                pair_act = pair_act + self._dropout(
-                    module(pair_act, seq_mask), cfg, generator)
-        return seq_act, self.pair_transition(pair_act, residual=True)
+                seq_act = seq_act + self._dropout(
+                    self.seq_attn(seq_act, pair_act, seq_mask),
+                    c.seq_attention_with_pair_bias, generator)
+        with annotate('abx.trunk.transition'):
+            seq_act = seq_act + self.seq_transition(seq_act)
+        with annotate('abx.trunk.opm'):
+            pair_act = pair_act + self.outer_product_mean(seq_act, seq_mask)
+        blocks = (('abx.trunk.tri_mult', self.tri_mul_out,
+                   c.triangle_multiplication_outgoing),
+                  ('abx.trunk.tri_mult', self.tri_mul_in,
+                   c.triangle_multiplication_incoming),
+                  ('abx.trunk.tri_attn', self.tri_attn_start,
+                   c.triangle_attention_starting_node),
+                  ('abx.trunk.tri_attn', self.tri_attn_end,
+                   c.triangle_attention_ending_node))
+        for span, module, cfg in blocks:
+            with annotate(span):
+                if not self.training:
+                    pair_act = module(pair_act, seq_mask, residual=True)
+                else:
+                    pair_act = pair_act + self._dropout(
+                        module(pair_act, seq_mask), cfg, generator)
+        with annotate('abx.trunk.transition'):
+            return seq_act, self.pair_transition(pair_act, residual=True)
 
 
 class Seqformer(nn.Module):
@@ -739,10 +754,18 @@ class EmbeddingAndSeqformer(nn.Module):
         `esm_weighted`: it runs on this pass's noisy antibody sequence and
         returns the weighted (B, L_ab, D) embedding.  `generator` draws the
         trunk's dropout in train() mode."""
+        with annotate('abx.trunk'):
+            with annotate('abx.trunk.embed'):
+                seq_act, pair_act = self._embed(batch, static_acts, esm_fn)
+            return self.seqformer(seq_act, pair_act, batch['mask'],
+                                  generator)
+
+    def _embed(self, batch, static_acts, esm_fn):
+        """The trunk's (seq, pair) input: the sequence, ESM2, time and
+        recycling embeddings on the trajectory's static terms."""
         c = self.config
         dt = self.dtype
         seq_t = batch['seq_t'].long()
-        mask = batch['mask']
         ab = self.antibody_len
         if static_acts is None:
             static_acts = self.static_embeddings(batch)
@@ -778,8 +801,7 @@ class EmbeddingAndSeqformer(nn.Module):
                 and 'prev_pos' in batch
                 and registry.kernel_route(self, static_pair)
                 and registry.use_fused_recycle_embed()):
-            pair_act = self._recycled_pair(static_pair, t_embed, batch)
-            return self.seqformer(seq_act, pair_act, mask)
+            return seq_act, self._recycled_pair(static_pair, t_embed, batch)
         pair_t = t_embed[:, None, None, :].expand(b, l, l, -1)
         pair_act = torch.cat([static_pair, pair_t, pair_t], dim=-1)
         if c.recycle_features and 'prev_pair' in batch:
@@ -789,4 +811,4 @@ class EmbeddingAndSeqformer(nn.Module):
         if c.recycle_pos and 'prev_pos' in batch:
             pair_act = pair_act + self.proj_prev_pos.embedding[
                 batch['prev_pos'].long()].to(dt)
-        return self.seqformer(seq_act, pair_act, mask, generator)
+        return seq_act, pair_act

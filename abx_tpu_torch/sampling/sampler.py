@@ -31,6 +31,7 @@ from abx_tpu_torch.data.features import (FeatureBuilder, make_diffuser_features,
                                          make_static_pair_features)
 from abx_tpu_torch.models.network import (forward_with_recycling, get_prev,
                                           zero_prev)
+from abx_tpu_torch.utils.prof import annotate, annotated
 
 
 def _save_npz(path: str, arrays: Dict) -> None:
@@ -321,6 +322,7 @@ class Sampler:
             outs.append({**out, 't': float(grids[0][s])})
         return state
 
+    @annotated('abx.step')
     def step(self, traj: _Trajectory, state, positions: np.ndarray,
              generator, noise: Optional[Dict[str, torch.Tensor]] = None):
         """One reverse step on every row of `state`, row i at grid position
@@ -333,7 +335,8 @@ class Sampler:
         step's per-row draws (keys of `JointDiffuser.reverse`, and
         'corr_u' (k, R, L, S) uniforms for the corrector's jumps); the
         draws it lacks come from `generator`.  Returns (next state, the
-        step's outputs: atom14, seq, plddt)."""
+        step's outputs: atom14, seq, plddt).  Under a profiler the step is
+        the span `abx.step`, and its work after the last pass `abx.update`."""
         c = self.config
         cfg = self.model_config
         model, diffuser = self.model, self.diffuser
@@ -365,42 +368,43 @@ class Sampler:
             mb['esm_weighted'] = esm_w
         out = forward_with_recycling(single, mb, cfg.num_recycle,
                                      prev_pos_cfg)
-        folding = out['heads']['folding']
-        seq_head = out['heads']['sequence_module']
-        # The reverse transition reads the recycled sequence (the
-        # reference mutates seq_t in place during recycling).
-        seq_cur = out['recycled_seq_t']
-        prev = get_prev(mb, out, prev_pos_cfg)
-        rigids_rev, seq_rev = diffuser.reverse(
-            generator, state['rigids_t'], seq_cur, folding['rot_score'],
-            folding['trans_score'], seq_head['logits'], t, self.dt,
-            diffuse_mask=mask, center=c.center, noise_scale=c.noise_scale,
-            noise=noise)
-        ordinary = ~(prime | last)
-        if (ordinary.any() and c.seq_corrector_steps
-                and diffuser.config.diffuse_seq):
-            seq_rev = self._correct(generator, seq_rev, seq_head['logits'],
-                                    ts[positions], mask,
-                                    (noise or {}).get('corr_u'))
-        # Final step: the denoised output; prime step: rigids unchanged,
-        # seq_t recycled (the prime flag wins, as in the JAX program).
-        rigids_next = _pick(last, lambda: folding['rigids'],
-                            lambda: rigids_rev)
-        seq_next = _pick(last, lambda: seq_head['seq_0'], lambda: seq_rev)
-        rigids_next = _pick(prime, lambda: state['rigids_t'],
-                            lambda: rigids_next)
-        seq_next = _pick(prime, lambda: seq_cur, lambda: seq_next)
-        new_state = {'rigids_t': rigids_next, 'seq_t': seq_next.long(),
-                     **prev}
-        if esm_w is not None and c.esm_refresh_every > 1:
-            new_state['esm_cache'] = esm_w
-        plddt = out['heads']['predicted_lddt']['pLDDT']
-        return new_state, {
-            'atom14': folding['final_atom14_positions'],
-            'seq': seq_next.clamp(0, 19),
-            'plddt': torch.sum(plddt * mask, dim=1)
-            / (torch.sum(mask, dim=1) + 1e-8),
-        }
+        with annotate('abx.update'):
+            folding = out['heads']['folding']
+            seq_head = out['heads']['sequence_module']
+            # The reverse transition reads the recycled sequence (the
+            # reference mutates seq_t in place during recycling).
+            seq_cur = out['recycled_seq_t']
+            prev = get_prev(mb, out, prev_pos_cfg)
+            rigids_rev, seq_rev = diffuser.reverse(
+                generator, state['rigids_t'], seq_cur, folding['rot_score'],
+                folding['trans_score'], seq_head['logits'], t, self.dt,
+                diffuse_mask=mask, center=c.center, noise_scale=c.noise_scale,
+                noise=noise)
+            ordinary = ~(prime | last)
+            if (ordinary.any() and c.seq_corrector_steps
+                    and diffuser.config.diffuse_seq):
+                seq_rev = self._correct(generator, seq_rev, seq_head['logits'],
+                                        ts[positions], mask,
+                                        (noise or {}).get('corr_u'))
+            # Final step: the denoised output; prime step: rigids unchanged,
+            # seq_t recycled (the prime flag wins, as in the JAX program).
+            rigids_next = _pick(last, lambda: folding['rigids'],
+                                lambda: rigids_rev)
+            seq_next = _pick(last, lambda: seq_head['seq_0'], lambda: seq_rev)
+            rigids_next = _pick(prime, lambda: state['rigids_t'],
+                                lambda: rigids_next)
+            seq_next = _pick(prime, lambda: seq_cur, lambda: seq_next)
+            new_state = {'rigids_t': rigids_next, 'seq_t': seq_next.long(),
+                         **prev}
+            if esm_w is not None and c.esm_refresh_every > 1:
+                new_state['esm_cache'] = esm_w
+            plddt = out['heads']['predicted_lddt']['pLDDT']
+            return new_state, {
+                'atom14': folding['final_atom14_positions'],
+                'seq': seq_next.clamp(0, 19),
+                'plddt': torch.sum(plddt * mask, dim=1)
+                / (torch.sum(mask, dim=1) + 1e-8),
+            }
 
     def _correct(self, generator, seq, logits, t, mask, u=None):
         """`seq_corrector_steps` Gibbs-corrector jumps at t_next = max(t -

@@ -5,18 +5,29 @@ Provides:
     (data / prepare / sample / postprocess), reported by `summary()`;
   * `trace(log_dir)` -- a `torch.profiler.profile` over the CPU and, where
     there is one, the card, written as a Chrome trace into `log_dir`;
-  * `annotate(name)` -- a named span (`torch.profiler.record_function`,
-    plus an NVTX range when `device` is a CUDA device).
-Nothing on the main path calls these; they are tools for a caller.
+  * `annotate(name)` / `annotated(name)` -- a named span of the program
+    (`torch.profiler.record_function`) while a profiler records, nothing
+    otherwise.
+`phase`, `summary` and `trace` are tools for a caller.  The main path
+opens `annotate` spans at its layer boundaries, all named `abx.*`:
+`abx.step` (one `Sampler.step`), `abx.pass` (each pass of
+`forward_with_recycling`), `abx.update` (the step's work after its last
+pass), `abx.esm` with `.norm` / `.attn` / `.ffn` / `.mix` (ESM2),
+`abx.trunk` with `.embed` / `.seq_attn` / `.transition` / `.opm` /
+`.tri_mult` / `.tri_attn`, `abx.ipa` with `.attn`, and `abx.heads`.
+Under `trace(dir)` they land in the Chrome trace on the clock of the
+kernels they launch; under `torch.autograd.profiler.emit_nvtx()` (Nsight
+Systems) `record_function` emits them as NVTX ranges.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
@@ -58,16 +69,24 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, 'trace.json'))
 
 
-@contextlib.contextmanager
-def annotate(name: str, device: Optional[torch.device] = None):
-    """A named span in the profiler's trace; on a CUDA `device` also an
-    NVTX range."""
-    nvtx = device is not None and torch.device(device).type == 'cuda'
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+_NO_SPAN = contextlib.nullcontext()
+
+
+def annotate(name: str):
+    """A named span while a profiler records (`torch.profiler.profile`,
+    `trace`, `emit_nvtx`); otherwise a shared no-op context, after one
+    check of the profiler's state and nothing built."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
+def annotated(name: str):
+    """Decorator: the function's calls run inside `annotate(name)`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with annotate(name):
+                return fn(*args, **kwargs)
+        return spanned
+    return wrap

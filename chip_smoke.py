@@ -2546,7 +2546,7 @@ def phase_trace(torch, card):
             torch.cuda.synchronize()
             reset_counts(ws)
             with prof.trace(d):
-                with prof.annotate(TRACE_SPAN, rt.device):
+                with prof.annotate(TRACE_SPAN):
                     torch.cuda.synchronize()
                     rt.model(mb, static_acts=traj.static_acts)
                     torch.cuda.synchronize()

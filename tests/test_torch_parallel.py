@@ -563,7 +563,7 @@ def test_prof_phase_and_summary_match_jax():
 def test_prof_trace_writes_an_annotated_chrome_trace(tmp_path):
     from abx_tpu_torch.utils import prof
     with prof.trace(str(tmp_path)):
-        with prof.annotate('abx_trunk_pass', torch.device('cpu')):
+        with prof.annotate('abx_trunk_pass'):
             torch.ones(64, 64) @ torch.ones(64, 64)
     trace = json.loads((tmp_path / 'trace.json').read_text())
     names = {e.get('name') for e in trace['traceEvents']}
