@@ -63,6 +63,7 @@ def main(argv=None):
     params_lib.load_lm_head_params(lm_head, state, device, dtype)
     del state
     esm_model.eval()
+    lm_head.eval()
     embed_weight = esm_model.embed_tokens.weight
 
     def lm_head_fn(features):

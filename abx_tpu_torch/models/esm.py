@@ -7,7 +7,7 @@ the sequence is re-tokenised with integer index arithmetic
 layer-weighted sum of the per-layer representations is accumulated in f32
 inside the layer loop, so the (B, L, D, num_layers + 1) stack is never
 built.  Under a profiler the forward is the span `abx.esm`, and each layer
-is tiled by `abx.esm.norm` (each LayerNorm with its cast), `abx.esm.attn`
+is tiled by `abx.esm.norm` (each LayerNorm), `abx.esm.attn`
 and `abx.esm.ffn` (each with its residual add); `abx.esm.mix` is each
 step of the weighted sum.
 
@@ -18,7 +18,8 @@ onto them.  Parameters live in the compute dtype (frozen weights), and a
 Python loop over the layers replaces `nn.scan`.  The attention goes through
 `ops/esm_attention.py` (the hand-written kernels on the card: by default
 `esm_attention`; `ABX_FUSED_ESM_ATTN=0 ABX_FLASH_ESM=1` takes the flash
-route, `esm_flash_attention`, on the card and on the CPU alike).
+route, `esm_flash_attention`, on the card and on the CPU alike); the
+LayerNorms in eval mode on the card through `ops/esm_layer_norm.py`.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from abx_tpu_torch.ops import registry
 from abx_tpu_torch.ops.esm_attention import (esm_attention,
                                              esm_attention_plain,
                                              esm_flash_attention)
+from abx_tpu_torch.ops.esm_layer_norm import esm_layer_norm
 from abx_tpu_torch.utils.prof import annotate, annotated
 
 # ESM alphabet (fair-esm standard): ids of the special / aa tokens.
@@ -113,7 +115,10 @@ def _apply_rotary(x, cos, sin):
 
 
 class ESMLayerNorm(nn.Module):
-    """One-pass f32 LayerNorm with fair-esm's parameter names."""
+    """One-pass f32 LayerNorm with fair-esm's parameter names, rounded once
+    to `out_dtype`.  In eval mode on the card, with the one-pass moments,
+    it is one launch of `esm_layer_norm` (which raises on what its kernel
+    does not take); otherwise its plain version, `modules.layer_norm`."""
 
     def __init__(self, dim: int, eps: float, dtype, device=None):
         super().__init__()
@@ -123,8 +128,11 @@ class ESMLayerNorm(nn.Module):
                                              device=device))
         self.eps = eps
 
-    def forward(self, x, two_pass: bool = False):
-        return layer_norm(x, self.weight, self.bias, self.eps,
+    def forward(self, x, two_pass: bool = False, out_dtype=torch.float32):
+        if not two_pass and registry.kernel_route(self, x):
+            return esm_layer_norm(x, self.weight, self.bias, self.eps,
+                                  out_dtype)
+        return layer_norm(x, self.weight, self.bias, self.eps, out_dtype,
                           two_pass=two_pass)
 
 
@@ -213,11 +221,11 @@ class ESMLayer(nn.Module):
         dt = self.dtype
         tp = self.training
         with annotate('abx.esm.norm'):
-            h = self.self_attn_layer_norm(x, tp).to(dt)
+            h = self.self_attn_layer_norm(x, tp, dt)
         with annotate('abx.esm.attn'):
             x = x + self.self_attn(h, padding_mask, cos, sin)
         with annotate('abx.esm.norm'):
-            h = self.final_layer_norm(x, tp).to(dt)
+            h = self.final_layer_norm(x, tp, dt)
         with annotate('abx.esm.ffn'):
             y = F.gelu(self.fc1(h))
             return x + _row_parallel(self.fc2, y, self.tp_group)
@@ -289,7 +297,7 @@ class ESM2(nn.Module):
                 reprs.append(x)
         # The final LN applies to the last layer's representation only.
         with torch.no_grad(), annotate('abx.esm.norm'):
-            final = self.emb_layer_norm_after(x).to(dt)
+            final = self.emb_layer_norm_after(x, out_dtype=dt)
         if weighted:
             # acc holds w[-1] * x_raw; swap in the post-LN final.
             with annotate('abx.esm.mix'):
@@ -321,7 +329,7 @@ class ESM2LMHead(nn.Module):
     def forward(self, features, embed_weight):
         """features (B, L, D) -> logits (B, L, alphabet_size)."""
         x = F.gelu(self.dense(features))
-        x = self.layer_norm(x).to(self.dtype)
+        x = self.layer_norm(x, out_dtype=self.dtype)
         return x @ embed_weight.t().to(self.dtype) + self.bias
 
 

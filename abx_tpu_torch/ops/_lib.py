@@ -25,7 +25,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'abx_tpu_torch'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     'abx_row_linear': [_I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                        _I, _I, _I, _P],
@@ -53,6 +53,7 @@ _SIGNATURES = {
     'abx_tri_mult_post_gatefold_sm90': [_P, _P, _I, _I, _I] + [_P] * 10,
     'abx_ipa_pair_attend': [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     'abx_triangle_multiply': [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    'abx_esm_layer_norm': [_I, _P, _P, _P, _P, _I, _I, _F, _P],
 }
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

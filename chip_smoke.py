@@ -42,7 +42,11 @@ fatal on failure:
      its bf16 call launches the Hopper kernel of csrc/esm_flash_sm90.cu,
      by name, whose CTAs an SM, registers, local bytes and ptxas spill
      lines are printed first; its library call is SDPA with the segment
-     mask as a boolean mask),
+     mask as a boolean mask); esm_layer_norm (row 16, ESM2's LayerNorm)
+     at the ESM2-3B design batch, 16 x 306 rows of 2560, held in bf16
+     against its bf16 plain version as esm_flash_attention is, its one
+     call one device kernel by name and its f32 call timed, beside
+     torch.nn.functional.layer_norm as the library call,
      and row 1's attention core alone on ready projection rows beside
      SDPA; the bf16 core against the plain core with the TPU kernel's
      exponent (against the row's final max) on rows whose logits are exact
@@ -78,18 +82,20 @@ fatal on failure:
      per step, samples/hour; its output directory is kept for phase 11;
   6. the same design conditioned on ESM2-3B (random weights made on the
      card, runner.build_runtime(esm_random=True) + runner.run_sampling): 4
-     PDBs, esm_attention launched 36 x 3 x (num_t + 1) times and the trunk
-     kernels as in phase 5; then a second trajectory in the same process
+     PDBs, esm_attention launched 36 x 3 x (num_t + 1) times, esm_layer_norm
+     (2 x 36 + 1) x 3 x (num_t + 1) times and the trunk kernels as in
+     phase 5; then a second trajectory in the same process
      for the steady-state seconds per step;
   6b. phase 6's design on its runtime with the sampler's opt-in ESM reuse
      (the embedding refreshed at grid positions 0, 2, 4, 6 and 8) and two
      Gibbs-corrector jumps a step, through runner.run_sampling: 4 PDBs,
-     esm_attention launched 36 x 5 = 180 times, the trunk kernels as in
-     phase 5;
+     esm_attention launched 36 x 5 = 180 times, esm_layer_norm 73 x 5,
+     the trunk kernels as in phase 5;
   6c. phase 6's design on its runtime on the flash route
      (ABX_FUSED_ESM_ATTN=0 ABX_FLASH_ESM=1): 4 PDBs, esm_flash_attention
-     launched 36 x 3 x (num_t + 1) = 972 times, esm_attention never, the
-     trunk kernels as in phase 5; seconds per step beside phase 6's;
+     launched 36 x 3 x (num_t + 1) = 972 times, esm_attention never,
+     esm_layer_norm as in phase 6, the trunk kernels as in phase 5;
+     seconds per step beside phase 6's;
   10. ESM-off Sampler.sample_resumable in chunks of 3 grid positions,
      whole, and killed as its second chunk starts (the first chunk's
      state on disk) and then resumed: sequences identical to
@@ -128,9 +134,11 @@ fatal on failure:
      masked PLL (evaluation/pll.py) of chains H and L of each design under
      ESM2-t36-3B with its LM head in f32, random weights made on the card:
      every PLL finite and <= 0, esm_attention launched 36 x the batches of
-     32 masked copies (the `eval_pll` path; every trunk kernel 0); then
+     32 masked copies and esm_layer_norm (2 x 36 + 1) + 1 (the LM head) x
+     those batches (the `eval_pll` path; every trunk kernel 0); then
      cli/eval_pll.py on a random t12_35M-shaped fair-esm checkpoint with
-     its LM head: the CSV, esm_attention launched 12 x the same batches;
+     its LM head: the CSV, esm_attention launched 12 x the same batches,
+     esm_layer_norm (2 x 12 + 1) + 1 x them;
   12. the training path in f32 at full width (B=4, L=288) on an npz
      directory of both test complexes written as in phase 7: ESM off
      through abx_tpu_torch.cli.train (random weights from seed 0), 4 steps
@@ -143,7 +151,8 @@ fatal on failure:
      checkpoint save: steps 2, 4 and 6) and peak memory.  ESM2-3B on
      (random weights made on the card, frozen; runner + Trainer.fit, 3
      steps): esm_attention launched 36 x the trunk passes the steps drew,
-     no ESM parameter with a gradient, the learned layer weights'
+     esm_layer_norm never (the Trainer's train mode), no ESM parameter
+     with a gradient, the learned layer weights'
      gradient finite and nonzero; seconds per step (median of steps 2
      and 3), peak memory, and the last step's gradient norm with its
      largest leaves.  Then a bf16
@@ -162,8 +171,9 @@ fatal on failure:
        agreement (not fatal), its launches as f32's;
      13b. tensor-parallel ESM2-3B over 2 ranks: the f32 weighted embedding
        (dense random weights from seed 0, phase 4b's inputs) within 1e-4
-       x max|ref| of one process's AntibodyESM, esm_attention 36 a forward
-       a rank; a bf16 ESM-conditioned design (num_t 2, 4 samples) with
+       x max|ref| of one process's AntibodyESM, esm_attention 36 and
+       esm_layer_norm 73 a forward a rank; a bf16 ESM-conditioned design
+       (num_t 2, 4 samples) with
        TensorParallelAntibodyESM as esm_fn through runner.sample_chunk:
        both ranks' bits identical, rank 0 writes 4 PDBs;
      13c. two cli/inference.py processes with --coordinator / --num_hosts
@@ -197,10 +207,12 @@ fatal on failure:
        `--eval_only` with every `--eval_*` flag (ESM reuse, refresh 2,
        corrector at num_t 4, the fast recipe at num_t 25), each result key
        finite in f32 and bf16; the trunk kernels per pass and
-       esm_attention per ESM pass, counted over the 12 evaluations;
+       esm_attention and esm_layer_norm per ESM pass, counted over the 12
+       evaluations;
      15c. revalidate_kernels on those weights, on the default route (the
        kernels of one evaluation) and with every kernel flag 0 (no
-       launch); its verdict is printed, not judged (2-step weights);
+       launch but esm_layer_norm's, which has no flag); its verdict is
+       printed, not judged (2-step weights);
      15d. probe_picard at num_t 4 (B=1, bf16): sweeps <= grid at both
        tolerances, the tol-0 fixpoint's sequences equal to the sequential
        run's and its backbone within 0.1 A, the trunk kernels per pass of
@@ -309,6 +321,7 @@ def kernel_cases(torch, dev):
     tensors the function reads, its tensor-core FLOPs, and the one torch
     call that computes the same function (or None)."""
     from abx_tpu_torch.ops import esm_attention as esm_op
+    from abx_tpu_torch.ops import esm_layer_norm as eln_op
     from abx_tpu_torch.ops import gate_proj as gp_op
     from abx_tpu_torch.ops import ipa_attend as ia_op
     from abx_tpu_torch.ops import ipa_attention as ipa_op
@@ -742,6 +755,26 @@ def kernel_cases(torch, dev):
                .transpose(1, 2) for i in range(3))
     flash_case(f'masked PLL ({pb},{h},{pl},{d}), no padded key', q, k, v,
                torch.zeros(pb, pl, dtype=torch.bool, device=dev), True)
+
+    # Row 16: ESM2's LayerNorm at the ESM2-3B design batch (B = 16, L =
+    # 306: 4,896 rows of 2,560), x with an offset mean as a residual
+    # stream has it; weight and bias in x's dtype, as the module holds
+    # them, with values exact in bf16 so that both dtypes share them.
+    dm = 2560
+    x = rnd(16, 306, dm) * 2.0 + 0.5
+    lnw = (1 + rnd(dm, scale=0.1)).bfloat16()
+    lnb = rnd(dm, scale=0.1).bfloat16()
+    ln_wb = {torch.float32: (lnw.float(), lnb.float()),
+             torch.bfloat16: (lnw, lnb)}
+    case('esm_layer_norm', 'ESM2-3B design batch (16,306,2560), eps 1e-5',
+         lambda x: eln_op.esm_layer_norm(x, *ln_wb[x.dtype], 1e-5, x.dtype),
+         lambda x: eln_op.esm_layer_norm_plain(x, *ln_wb[x.dtype], 1e-5,
+                                               x.dtype),
+         (x,), (x.bfloat16(),), [lnw, lnb], 0,
+         lambda x: torch.nn.functional.layer_norm(x, (dm,), *ln_wb[x.dtype],
+                                                  1e-5),
+         one_launch=True, kernel_name='esm_layer_norm_kernel', time32=True,
+         share16=True)
     return cases
 
 
@@ -765,6 +798,9 @@ KERNEL_META = {
                       'abx_tpu/ops/esm_attention.py:47'),
     'esm_flash_attention': ('abx_tpu_torch/csrc/esm_flash_sm90.cu',
                             'abx_tpu/models/esm.py:117'),
+    'esm_layer_norm': ('abx_tpu_torch/csrc/esm_layer_norm.cu',
+                       'abx_tpu/models/esm.py:215 (XLA fusion, no '
+                       'pallas_call)'),
     'tri_mult_pre_no_fgate': ('abx_tpu_torch/csrc/row_linear.cu',
                               'abx_tpu/ops/tri_mult.py:72'),
     'ipa_pair_attend': ('abx_tpu_torch/csrc/ipa_attend.cu',
@@ -1520,6 +1556,7 @@ def phase_esm_flags(torch, dev):
 
 def wrappers():
     from abx_tpu_torch.ops import esm_attention as esm_op
+    from abx_tpu_torch.ops import esm_layer_norm as eln_op
     from abx_tpu_torch.ops import gate_proj as gp_op
     from abx_tpu_torch.ops import ipa_attend as ia_op
     from abx_tpu_torch.ops import ipa_attention as ipa_op
@@ -1541,6 +1578,7 @@ def wrappers():
             'recycle_embed': re_op.recycle_embed,
             'esm_attention': esm_op.esm_attention,
             'esm_flash_attention': esm_op.esm_flash_attention,
+            'esm_layer_norm': eln_op.esm_layer_norm,
             'ipa_pair_attend': ia_op.ipa_pair_attend,
             'triangle_multiply': tg_op.triangle_multiply_kernel,
             'tri_mult_post_gatefold': tm_op.tri_mult_post_gatefold,
@@ -1589,6 +1627,14 @@ C_MAJOR_PER_PASS = {**{k: n for k, n in PER_PASS.items()
                        if k not in ('tri_mult_pre', 'tri_mult_post')},
                     'tri_mult_pre_c_major': 2, 'tri_mult_post_c_major': 2}
 OPT_STEP, TRAJ_NUM_T = 4, 3
+
+
+def esm_ln_launches(layers, forwards, heads=0):
+    """esm_layer_norm's launches in `forwards` eval-mode forwards of an ESM2
+    of `layers` layers (two LayerNorms a layer and the final one) and
+    `heads` masked-LM head calls (one each).  In training the Trainer puts
+    the frozen ESM2 in train mode, whose two-pass LayerNorms launch none."""
+    return (2 * layers + 1) * forwards + heads
 
 
 def check_launches(launches, expected, what):
@@ -1659,6 +1705,7 @@ def phase_design_esm(torch, card):
     ws = wrappers()
     expected = {k: n * PASSES for k, n in PER_PASS.items()}
     expected['esm_attention'] = ESM_LAYERS * PASSES
+    expected['esm_layer_norm'] = esm_ln_launches(ESM_LAYERS, PASSES)
     with tempfile.TemporaryDirectory() as out:
         reset_counts(ws)
         t0 = time.time()
@@ -1700,6 +1747,7 @@ def phase_design_esm_reuse(torch, card, rt, complexes):
     refreshes = len(range(0, NUM_T + 1, REFRESH))
     expected = {k: n * PASSES for k, n in PER_PASS.items()}
     expected['esm_attention'] = ESM_LAYERS * refreshes
+    expected['esm_layer_norm'] = esm_ln_launches(ESM_LAYERS, refreshes)
     with tempfile.TemporaryDirectory() as out:
         reset_counts(ws)
         log = runner.run_sampling(
@@ -1724,6 +1772,7 @@ def phase_design_esm_flash(torch, card, rt, complexes):
     ws = wrappers()
     expected = {k: n * PASSES for k, n in PER_PASS.items()}
     expected['esm_flash_attention'] = ESM_LAYERS * PASSES
+    expected['esm_layer_norm'] = esm_ln_launches(ESM_LAYERS, PASSES)
     env = ESM_ROUTES['flash']
     with tempfile.TemporaryDirectory() as out:
         os.environ.update(env)
@@ -2148,6 +2197,7 @@ def phase_eval(torch, card, out):
         for prm in [*esm.parameters(), *head.parameters()]:
             prm.normal_(0.0, 0.02, generator=g)
     esm.eval()
+    head.eval()
     chains = [parse_pdb(os.path.join(design, n + '.pdb')) for n in names]
     seqs = [c[cid].str_seq for c in chains for cid in ('H', 'L')]
     batches = sum(-(-len(sq) // PLL_BATCH) for sq in seqs)
@@ -2159,7 +2209,9 @@ def phase_eval(torch, card, out):
     wall = time.time() - t0
     paths['eval_pll'] = read_counts(ws)
     check_launches(paths['eval_pll'],
-                   {'esm_attention': cfg.num_layers * batches},
+                   {'esm_attention': cfg.num_layers * batches,
+                    'esm_layer_norm': esm_ln_launches(cfg.num_layers,
+                                                      batches, batches)},
                    'eval_pll (ESM2-3B, f32)')
     if not all(math.isfinite(x) and x <= 0.0 for x in plls):
         fail(f'masked PLL: {plls}')
@@ -2188,7 +2240,9 @@ def phase_eval(torch, card, out):
         wall = time.time() - t0
     paths['eval_pll_cli'] = read_counts(ws)
     check_launches(paths['eval_pll_cli'],
-                   {'esm_attention': small.num_layers * batches},
+                   {'esm_attention': small.num_layers * batches,
+                    'esm_layer_norm': esm_ln_launches(small.num_layers,
+                                                      batches, batches)},
                    'eval_pll CLI (t12_35M shape, f32)')
     if not os.path.exists(pll_csv) or len(rows) != len(seqs) or not all(
             math.isfinite(r['pll']) and r['pll'] <= 0.0 for r in rows):
@@ -2737,11 +2791,15 @@ def phase_tp_esm(torch, card):
     for r, x in enumerate(res):
         if not (x['ranks_identical'] and x['design_ranks_identical']):
             fail(f'tp esm: rank {r} holds other bits than its peer')
-        check_launches(x['launches_forward'], {'esm_attention': ESM_LAYERS},
-                       f'tp esm forward (rank {r})')
+        check_launches(x['launches_forward'], {
+            'esm_attention': ESM_LAYERS,
+            'esm_layer_norm': esm_ln_launches(ESM_LAYERS, 1)},
+            f'tp esm forward (rank {r})')
         check_launches(x['launches_design'], {
             **passes_launches(PER_PASS, passes),
-            'esm_attention': ESM_LAYERS * passes}, f'tp esm design (rank {r})')
+            'esm_attention': ESM_LAYERS * passes,
+            'esm_layer_norm': esm_ln_launches(ESM_LAYERS, passes)},
+            f'tp esm design (rank {r})')
     launches = add_counts([x['launches_design'] for x in res]
                           + [x['launches_forward'] for x in res])
     return launches, {'children_s': wall, **{
@@ -3053,16 +3111,18 @@ TOOL_EVALS = [(TOOL_NUM_T, 3, 1), (TOOL_NUM_T, 1, 1), (TOOL_NUM_T, 1, 2),
 
 def tool_eval_launches(evals, dtypes=2):
     """Launches of a set of evaluations, in each dtype: the trunk rows per
-    pass x 3 passes a grid position (the prime step + num_t), and
-    esm_attention once a layer for each ESM pass."""
+    pass x 3 passes a grid position (the prime step + num_t), and for each
+    ESM pass esm_attention once a layer and esm_layer_norm once a
+    LayerNorm."""
     passes = esm = 0
     for num_t, esm_per_pos, refresh in evals:
         grid = num_t + 1
         passes += grid * (NUM_RECYCLE + 1)
         esm += (grid * esm_per_pos if esm_per_pos > 1
-                else len(range(0, grid, refresh))) * TOOL_ESM_LAYERS
+                else len(range(0, grid, refresh)))
     return {**passes_launches(PER_PASS, passes * dtypes),
-            'esm_attention': esm * dtypes}
+            'esm_attention': esm * TOOL_ESM_LAYERS * dtypes,
+            'esm_layer_norm': esm_ln_launches(TOOL_ESM_LAYERS, esm * dtypes)}
 
 
 def finite(x):
@@ -3153,7 +3213,8 @@ def phase_tools(torch, card):
               f'{time.time() - t1:.1f} s for the evaluations', flush=True)
 
         # 15c: the revalidation tool on those weights, on the default route
-        # and on the plain route (every kernel flag 0, ESM attention too).
+        # and on the plain route (every kernel flag 0, ESM attention too;
+        # ESM2's LayerNorm has no flag and launches on both).
         verdicts = {}
         for route, env in (('kernels', {}),
                            ('plain', {**{k: '0' for k in ALL_FLAGS},
@@ -3172,8 +3233,9 @@ def phase_tools(torch, card):
             if rc not in (0, 1) or len(rec['abs_delta_per_sample']) != 4 \
                     or not finite(rec['max_per_sample_delta']):
                 fail(f'revalidation ({route}): rc {rc}, {rec}')
-            expected = (tool_eval_launches(TOOL_EVALS[:1], dtypes=1)
-                        if route == 'kernels' else {})
+            expected = tool_eval_launches(TOOL_EVALS[:1], dtypes=1)
+            if route == 'plain':
+                expected = {'esm_layer_norm': expected['esm_layer_norm']}
             check_launches(launches, expected, f'revalidation ({route})')
             paths[f'tools_revalidate_{route}'] = launches
             verdicts[route] = {'quality': rec['quality'],

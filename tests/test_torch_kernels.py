@@ -22,6 +22,7 @@ import torch
 
 from abx_tpu_torch.ops import _lib
 from abx_tpu_torch.ops import esm_attention as esm_op
+from abx_tpu_torch.ops import esm_layer_norm as esm_ln_op
 from abx_tpu_torch.ops import gate_proj as gate_proj_op
 from abx_tpu_torch.ops import ipa_attend as ipa_attend_op
 from abx_tpu_torch.ops import ipa_attention as ipa_op
@@ -328,7 +329,9 @@ def _extern_c_declarations():
 def test_lib_signatures_match_extern_c_declarations():
     """Every `extern "C"` entry point has a `_SIGNATURES` entry with one
     ctypes type per parameter: c_void_p for a pointer (a c_int there would
-    cut the pointer to 32 bits), c_int for an int."""
+    cut the pointer to 32 bits), c_int for an int, c_float for a float (a
+    c_int there would pass the number's integer part as the float's
+    bits)."""
     decls = _extern_c_declarations()
     assert set(decls) == set(_lib._SIGNATURES)
     for name, params in decls.items():
@@ -336,6 +339,8 @@ def test_lib_signatures_match_extern_c_declarations():
         for p in params:
             if '*' in p:
                 want.append(ctypes.c_void_p)
+            elif re.fullmatch(r'float\s+\w+', p):
+                want.append(ctypes.c_float)
             else:
                 assert re.fullmatch(r'int\s+\w+', p), (name, p)
                 want.append(ctypes.c_int)
@@ -812,6 +817,136 @@ def test_esm_flash_attention_refuses_what_its_kernel_does_not_take(cuda):
         qkv = [a.to(cuda).to(dtype) for a in qkv]
         with pytest.raises(ValueError, match='esm_flash_attention'):
             esm_op.esm_flash_attention(*qkv, pad.to(pad_dev))
+
+
+# --- ESM2's LayerNorm (csrc/esm_layer_norm.cu) ------------------------------
+
+# (shape, x dtype, eps): ESM2-3B's design batch (16 x 306 rows of 2560), a
+# ragged t12-width case in f32, D = 64 (the tiny config) in both dtypes,
+# D = 5120 (ESM2 15B: two warps a row in bf16, four in f32), and an f32
+# row of 2560 (two warps a row).
+ESM_LN_CASES = [((16, 306, 2560), torch.bfloat16, 1e-5),
+                ((3, 7, 480), torch.float32, 1e-6),
+                ((5, 64), torch.bfloat16, 1e-6),
+                ((5, 64), torch.float32, 1e-5),
+                ((2, 9, 5120), torch.bfloat16, 1e-5),
+                ((2, 9, 5120), torch.float32, 1e-6),
+                ((3, 11, 2560), torch.float32, 1e-5)]
+
+
+def _esm_ln_case(seed, shape, dtype, device):
+    """x with an offset mean (a residual stream), scale near 1, in dtype."""
+    g = torch.Generator().manual_seed(seed)
+    d = shape[-1]
+    x = torch.randn(shape, generator=g) * 2.0 + 0.5
+    w = 1.0 + 0.1 * torch.randn(d, generator=g)
+    b = 0.1 * torch.randn(d, generator=g)
+    return [a.to(device).to(dtype) for a in (x, w, b)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('case', ESM_LN_CASES)
+def test_esm_layer_norm_kernel_matches_plain(cuda, case):
+    """The kernel against the plain version on the same operands: bf16
+    within one bf16 step of the larger of the two outputs (the step taken
+    no finer than at 2^-8 max|ref|: the f32 sums run in another order than
+    torch's, which moves an output before its rounding by ~1e-7 of max|ref|,
+    more than a step of an output that close to 0); f32 to 1e-5 max|ref|.
+    A second call gives the same bits."""
+    shape, dtype, eps = case
+    x, w, b = _esm_ln_case(19, shape, dtype, cuda)
+    want = esm_ln_op.esm_layer_norm_plain(x, w, b, eps, dtype).float()
+    got = esm_ln_op.esm_layer_norm(x, w, b, eps, dtype)
+    again = esm_ln_op.esm_layer_norm(x, w, b, eps, dtype)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and got.dtype == dtype
+    assert torch.equal(got, again)
+    got, top = got.float(), want.abs().max()
+    if dtype == torch.float32:
+        assert (got - want).abs().max() <= 1e-5 * top
+    else:
+        mag = torch.maximum(torch.maximum(got.abs(), want.abs()),
+                            top * 2.0 ** -8)
+        step = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent
+                           - 8)
+        assert ((got - want).abs() <= step).all()
+
+
+@pytest.mark.gpu
+def test_esm_layer_norm_launches_one_kernel(cuda):
+    """One call is one device kernel, `esm_layer_norm_kernel`, and one
+    `launches` increment (profiled in a process of its own)."""
+    _in_own_process(_esm_layer_norm_launches_one_kernel)
+
+
+def _esm_layer_norm_launches_one_kernel():
+    from torch.profiler import ProfilerActivity, profile
+    cuda = _card()
+    x, w, b = _esm_ln_case(22, (16, 306, 2560), torch.bfloat16, cuda)
+    esm_ln_op.esm_layer_norm(x, w, b, 1e-5, x.dtype)  # builds the library
+    torch.cuda.synchronize()
+    before = esm_ln_op.esm_layer_norm.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        esm_ln_op.esm_layer_norm(x, w, b, 1e-5, x.dtype)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and 'esm_layer_norm_kernel' in names[0], names
+    assert esm_ln_op.esm_layer_norm.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_esm2_3b_forward_launches_the_layer_norm_73_times(cuda,
+                                                         monkeypatch):
+    """An ESM2-3B-width bf16 forward in eval mode (random weights made on
+    the card) launches the kernel once a LayerNorm: 2 x 36 + 1; its final
+    representation is within the bf16 bar of the plain route's (the same
+    module with the wrapper swapped for its plain version)."""
+    from abx_tpu_torch.models import esm as port_esm
+    cfg = port_esm.ESM2Config.t36_3B()
+    esm = port_esm.ESM2(cfg, torch.bfloat16, device='meta').to_empty(
+        device=cuda).eval()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    with torch.no_grad():
+        for name, p in esm.named_parameters():
+            p.normal_(1.0 if 'layer_norm.weight' in name else 0.0, 0.02,
+                      generator=g)
+    tokens = torch.randint(4, 24, (2, 40), device=cuda)
+    tokens[:, 0] = port_esm.ESM_CLS
+    tokens[:, -1] = port_esm.ESM_EOS
+    before = esm_ln_op.esm_layer_norm.launches
+    with torch.no_grad():
+        got = esm(tokens, final_only=True)
+        torch.cuda.synchronize()
+        assert esm_ln_op.esm_layer_norm.launches - before == \
+            2 * cfg.num_layers + 1
+        monkeypatch.setattr(port_esm, 'esm_layer_norm',
+                            esm_ln_op.esm_layer_norm_plain)
+        want = esm(tokens, final_only=True)
+    assert esm_ln_op.esm_layer_norm.launches - before == \
+        2 * cfg.num_layers + 1
+    _close_on_card(got, want.float(), torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_esm_layer_norm_refuses_what_its_kernel_does_not_take(cuda):
+    """No fallback: D not a multiple of 8, D past 5120, float16, a weight
+    or an output dtype other than x's, a CPU weight and a non-contiguous x
+    raise."""
+    x, w, b = _esm_ln_case(23, (4, 64), torch.bfloat16, cuda)
+    strided = x.repeat(1, 2)[:, ::2]
+    x20, w20, b20 = _esm_ln_case(23, (4, 20), torch.bfloat16, cuda)
+    xw, ww, bw = _esm_ln_case(23, (2, 5128), torch.bfloat16, cuda)
+    for args in ((x20, w20, b20, torch.bfloat16),
+                 (xw, ww, bw, torch.bfloat16),
+                 (x.half(), w.half(), b.half(), torch.float16),
+                 (x, w.float(), b.float(), torch.bfloat16),
+                 (x, w, b, torch.float32),
+                 (x, w.cpu(), b, torch.bfloat16),
+                 (strided, w, b, torch.bfloat16)):
+        with pytest.raises(ValueError, match='esm_layer_norm'):
+            esm_ln_op.esm_layer_norm(args[0], args[1], args[2], 1e-5,
+                                     args[3])
 
 
 # --- the opt-in kernels: ragged L, both orientations, f32 and bf16 ----------

@@ -45,10 +45,10 @@ from abx_tpu_torch.models.ipa import IpaScore
 from abx_tpu_torch.models.network import (ScoreNetworkIteration,
                                           forward_with_recycling, zero_prev)
 from abx_tpu_torch.models.seqformer import SeqformerIteration
-from abx_tpu_torch.ops import (esm_attention, gate_proj, ipa_attend,
-                               ipa_attention, pair_bias, recycle_embed,
-                               registry, transition, tri_attention, tri_mult,
-                               triangle)
+from abx_tpu_torch.ops import (esm_attention, esm_layer_norm, gate_proj,
+                               ipa_attend, ipa_attention, pair_bias,
+                               recycle_embed, registry, transition,
+                               tri_attention, tri_mult, triangle)
 from abx_tpu_torch.utils import params as params_lib
 
 ACT = dict(rtol=0, atol=1e-4)
@@ -147,6 +147,7 @@ def _force_kernel_route(monkeypatch):
             (port_esm, 'esm_attention', esm_attention.esm_attention_plain),
             (port_esm, 'esm_flash_attention',
              esm_attention.esm_flash_attention_plain),
+            (port_esm, 'esm_layer_norm', esm_layer_norm.esm_layer_norm_plain),
             (port_seqformer, 'gate_proj_residual',
              gate_proj.gate_proj_residual_plain),
             (port_seqformer, 'tri_mult_post_gatefold',
